@@ -1,0 +1,34 @@
+"""Run configuration for the PyTorch port.
+
+The port's own copy of the fields of the JAX package's ``Config`` /
+``FlickrConfig`` that the caption + explain path reads, with the same names
+and defaults.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class Config:
+    """Base hyperparameters (reference config.py:6-56)."""
+
+    # model dims
+    embedding_dim: int = 512
+    hidden_dim: int = 512
+
+    # encoder
+    img_encoder: str = "vgg16"
+    layer_name: str = "block5_conv3"   # feature tap
+    img_feature_length: int = 196      # L = 14*14
+    img_feature_dim: int = 512         # D
+
+    dataset_name: str = ""
+
+
+@dataclass
+class FlickrConfig(Config):
+    """Flickr30k defaults."""
+
+    dataset_name: str = "flickr30k"

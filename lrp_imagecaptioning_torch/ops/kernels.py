@@ -1,0 +1,190 @@
+"""The hand-written Hopper kernels of the caption + explain path, with their
+plain PyTorch versions and launch counters.
+
+Every wrapper takes the plain version for a tensor on the CPU and launches
+its CUDA kernel (``csrc/*.cu``, built by ``_build.py``) for a tensor on the
+card, or raises: nothing falls back. Each counts its launches in the integer
+attribute ``<wrapper>.launches``; ``reset_launches()`` sets them to 0.
+
+=============  ======================================  =========================================
+wrapper        CUDA source                             TPU kernel it replaces
+=============  ======================================  =========================================
+lrp_linear     csrc/lrp_linear.cu                      ops/pallas_kernels.py:_lrp_linear_kernel
+lstm_gates     csrc/lstm_gates.cu                      ops/pallas_kernels.py:_lstm_gates_kernel
+conv3x3_fused  csrc/conv3x3_fused.cu                   ops/pallas_conv_lrp.py:_conv3x3_kernel
+=============  ======================================  =========================================
+
+(paths under ``lrp_imagecaptioning_tpu/``). Each source's header says what
+bounds the kernel on the H100 and what its design does about it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .lrp_conv import conv2d
+from .lrp_core import lrp_linear as lrp_linear_plain, safe_divide
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel takes contiguous tensors (shape {tuple(t.shape)})")
+    return dev
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    fn = _build.kernel_fn(name)
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+
+
+# ---------------------------------------------------------------------------
+# K1  lrp_linear: rel = x * ((r / stab(z)) @ W^T)
+# ---------------------------------------------------------------------------
+
+
+def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """epsilon-LRP (eps = 1e-7) through ``z = x @ w``: r, z (..., Dout);
+    x (..., Din); w (Din, Dout). Leading dims flatten into the kernel's M rows."""
+    if x.device.type == "cpu":
+        return lrp_linear_plain(r, x, z, w)
+    dev = _check_cuda("lrp_linear", r, x, z, w)
+    din, dout = w.shape
+    if x.shape[-1] != din or r.shape[-1] != dout or z.shape != r.shape \
+            or r.shape[:-1] != x.shape[:-1]:
+        raise ValueError(f"lrp_linear: shapes r {tuple(r.shape)}, x {tuple(x.shape)}, "
+                         f"z {tuple(z.shape)}, w {tuple(w.shape)}")
+    m = x.numel() // din
+    out = torch.empty_like(x)
+    # w is (Din, Dout) row-major: exactly the kernel's (N, K) operand
+    _launch("lrp_linear_f32", dev, r.data_ptr(), z.data_ptr(), x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), m, dout, din)
+    lrp_linear.launches += 1
+    return out
+
+
+lrp_linear.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2  LSTM gate tail: (z_pre (B, 4H) [i, f, g, o], c_prev (B, H)) -> (h, c)
+# ---------------------------------------------------------------------------
+
+
+def lstm_gates_plain(z_pre: torch.Tensor, c_prev: torch.Tensor):
+    zi, zf, zg, zo = z_pre.chunk(4, dim=-1)
+    c = torch.sigmoid(zf) * c_prev + torch.sigmoid(zi) * torch.tanh(zg)
+    h = torch.sigmoid(zo) * torch.tanh(c)
+    return h, c
+
+
+def lstm_gates(z_pre: torch.Tensor, c_prev: torch.Tensor):
+    """Gate nonlinearities + cell update; returns (h, c)."""
+    if z_pre.device.type == "cpu":
+        return lstm_gates_plain(z_pre, c_prev)
+    dev = _check_cuda("lstm_gates", z_pre, c_prev)
+    hidden = c_prev.shape[-1]
+    if z_pre.shape[:-1] != c_prev.shape[:-1] or z_pre.shape[-1] != 4 * hidden:
+        raise ValueError(f"lstm_gates: z_pre {tuple(z_pre.shape)}, c_prev {tuple(c_prev.shape)}")
+    h = torch.empty_like(c_prev)
+    c = torch.empty_like(c_prev)
+    _launch("lstm_gates_f32", dev, z_pre.data_ptr(), c_prev.data_ptr(), h.data_ptr(),
+            c.data_ptr(), c_prev.numel() // hidden, hidden)
+    lstm_gates.launches += 1
+    return h, c
+
+
+lstm_gates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3  3x3 SAME conv + elementwise epilogue, and the alpha1beta0 rule on it
+# ---------------------------------------------------------------------------
+
+MODES = ("divide", "multiply")
+
+
+def conv3x3_fused_plain(x, ew, kernel, bias=None, mode: str = "divide"):
+    acc = conv2d(x, kernel)
+    if mode == "divide":
+        return safe_divide(ew, acc if bias is None else acc + bias)
+    return ew * acc
+
+
+def conv3x3_fused(x: torch.Tensor, ew: torch.Tensor, kernel: torch.Tensor,
+                  bias: torch.Tensor | None = None, mode: str = "divide") -> torch.Tensor:
+    """``divide``: ew / safe(conv(x, kernel) + bias); ``multiply``: ew * conv(x, kernel).
+    safe() adds eps = 1e-7 where its argument is exactly 0.
+
+    x: (Nc, H, W, Cin) conv input; ew: (Ne, H, W, Cout); kernel: (3, 3, Cin, Cout)
+    HWIO; bias: (Cout,) or None. Nc and Ne are each 1 or N: a batch-1 operand is
+    shared by all N rows of the (N, H, W, Cout) result."""
+    if mode not in MODES:
+        raise ValueError(f"conv3x3_fused: mode {mode!r} not in {MODES}")
+    if x.device.type == "cpu":
+        return conv3x3_fused_plain(x, ew, kernel, bias, mode)
+    tensors = (x, ew, kernel) if bias is None else (x, ew, kernel, bias)
+    dev = _check_cuda("conv3x3_fused", *tensors)
+    nc, h, w, cin = x.shape
+    ne, cout = ew.shape[0], ew.shape[-1]
+    n = max(nc, ne)
+    if (ew.shape[1:3] != (h, w) or tuple(kernel.shape) != (3, 3, cin, cout)
+            or nc not in (1, n) or ne not in (1, n)
+            or (bias is not None and tuple(bias.shape) != (cout,))):
+        raise ValueError(f"conv3x3_fused: x {tuple(x.shape)}, ew {tuple(ew.shape)}, "
+                         f"kernel {tuple(kernel.shape)}, bias "
+                         f"{None if bias is None else tuple(bias.shape)}")
+    if cout % 4:
+        raise ValueError(f"conv3x3_fused: Cout must be a multiple of 4 (float4 epilogue), got {cout}")
+    if mode == "multiply" and bias is not None:
+        raise ValueError("conv3x3_fused: bias applies to the divide mode only")
+    out = torch.empty((n, h, w, cout), dtype=torch.float32, device=dev)
+    for t in (ew, bias, out):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("conv3x3_fused: ew, bias and out must start on a 16-byte "
+                             "boundary (float4 epilogue)")
+    _launch("conv3x3_fused_f32", dev, x.data_ptr(), ew.data_ptr(), kernel.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), n, nc, ne, h, w, cin, cout,
+            int(mode == "divide"))
+    conv3x3_fused.launches += 1
+    return out
+
+
+conv3x3_fused.launches = 0
+
+
+def flip_transpose_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """(3,3,Cin,Cout) -> (3,3,Cout,Cin) spatially flipped: the kernel of the
+    transposed conv as a plain SAME conv."""
+    return kernel.flip(0, 1).permute(0, 1, 3, 2).contiguous()
+
+
+def lrp_conv_a1b0(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
+                  bias: torch.Tensor | None) -> torch.Tensor:
+    """alpha1beta0 conv LRP for x >= 0 as two fused passes (the composition of
+    ops/pallas_conv_lrp.py:lrp_conv_a1b0_pallas):
+
+        s   = r / safe(conv(x, W+) + b)       (z takes the full bias b+ + b-)
+        out = x * conv(s, flipT(W+))
+
+    r: (N, H, W, Cout); x: (1 or N, H, W, Cin), shared by all N seeds."""
+    kp = (kernel * (kernel >= 0)).contiguous()
+    s = conv3x3_fused(x, r, kp, bias, mode="divide")
+    return conv3x3_fused(s, x, flip_transpose_kernel(kp), None, mode="multiply")
+
+
+KERNELS = (lrp_linear, lstm_gates, conv3x3_fused)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,0 +1,80 @@
+"""Caption + per-word LRP heatmaps: the port's main path.
+
+The three stages of the JAX package's ``bench.py::build`` on one device:
+
+1. caption:     VGG encode, then beam search (beam 3, T = 20 by default);
+2. decoder_lrp: cached forward over the caption, then the decoder LRP of
+                every word -> feature-grid relevance (B, T, L, D);
+3. cnn_lrp:     per image, one shared VGG forward and the word-batched
+                PresetA backward -> heatmaps (B, T, H, W, 3).
+
+f32 throughout.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .config import FlickrConfig
+from .explain.cnn_lrp import vgg_lrp_preset_a_wordbatched
+from .explain.decoder_lrp import explain_word_adaptive
+from .infer.beam import beam_search
+from .models.captioner import build_captioner
+from .runtime import resolve_device
+
+BEAM = 3
+T = 20
+
+
+def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: int = T,
+          sos: int = 1, eos: int = 2):
+    """Returns ``(caption_and_explain, captioner)``.
+
+    ``caption_and_explain(params, images) -> (tokens_1based (B, T),
+    heatmaps (B, T, H, W, 3))``; its stages are in ``.stages``. ``params``
+    live on ``device`` (``captioner.init_params`` or ``weights.*``)."""
+    cfg = cfg if cfg is not None else FlickrConfig()
+    dev = resolve_device(device)
+    cap = build_captioner("adaptiveattention", cfg, vocab_size)
+    grid = int(round(math.sqrt(cfg.img_feature_length)))
+
+    def stage_caption(params, images):
+        feat_grid = cap.encode(params, images)                     # (B, L, D)
+        tokens, _ = beam_search(cap, params, feat_grid, sos, eos, beam, T)
+        return feat_grid, tokens
+
+    def stage_decoder_lrp(params, feat_grid, tokens):
+        B = tokens.shape[0]
+        consts = cap.prepare_consts(params, feat_grid)
+        prev = torch.cat([torch.full((B, 1), sos, dtype=torch.long, device=tokens.device),
+                          tokens[:, :-1]], dim=1)
+        caches = cap.decoder.forward_cached_from_inputs(
+            params["decoder"], consts, torch.clamp(prev - 1, min=0), cfg.hidden_dim)
+        words0 = torch.clamp(tokens - 1, min=0)
+        r_feat, _, _ = explain_word_adaptive(params["decoder"], consts, caches, words0)
+        return r_feat                                              # (B, T, L, D)
+
+    def stage_cnn_lrp(params, images, r_feat):
+        """Any number of words per image: r_feat (B, Tw, L, D)."""
+        B, Tw = r_feat.shape[:2]
+        seeds = r_feat.reshape(B, Tw, grid, grid, cfg.img_feature_dim)
+        return torch.stack([
+            vgg_lrp_preset_a_wordbatched(params["vgg"], images[b:b + 1], seeds[b],
+                                         cfg.layer_name)
+            for b in range(B)])
+
+    @torch.no_grad()
+    def caption_and_explain(params, images):
+        images = torch.as_tensor(images, dtype=torch.float32, device=dev).contiguous()
+        feat_grid, tokens = stage_caption(params, images)
+        r_feat = stage_decoder_lrp(params, feat_grid, tokens)
+        return tokens, stage_cnn_lrp(params, images, r_feat)
+
+    caption_and_explain.stages = {
+        "caption": torch.no_grad()(stage_caption),
+        "decoder_lrp": torch.no_grad()(stage_decoder_lrp),
+        "cnn_lrp": torch.no_grad()(stage_cnn_lrp),
+    }
+    return caption_and_explain, cap
