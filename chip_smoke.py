@@ -8,21 +8,29 @@ no result line) when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside it. Phases; any failure makes the exit code 1:
 
 1. card:    the card's name and power limit, as nvidia-smi gives them;
-2. kernels: builds the three CUDA kernels (one nvcc per source, in
+2. kernels: builds the four CUDA kernels (one nvcc per source, in
             parallel), then holds each against its plain PyTorch version at
-            the main path's shapes and times kernel, plain version and one
-            library call (torch.matmul for lrp_linear,
+            the shapes of every main path it is on and times kernel, plain
+            version and one library call (torch.matmul for lrp_linear,
             aten::_thnn_fused_lstm_cell for lstm_gates, F.conv2d for
-            conv3x3_fused; the port never calls these). Bounds use the H100 SXM peaks: 3.35 TB/s and
-            67 TFLOP/s f32 on the CUDA cores;
+            conv3x3_fused, F.conv_transpose2d in bf16 for lrp_a1b0_fused; the
+            port never calls these). Bounds use the H100 SXM peaks: 3.35 TB/s,
+            67 TFLOP/s f32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
+            cores for the bf16 rule. Phase 2 takes the f32 path's shapes
+            (batch 8), 2b the bf16 path's (batch 56: lrp_linear, lstm_gates,
+            and lrp_a1b0_fused at the 12 post-ReLU conv shapes, 20 words);
 3. main:    VGG16 / adaptive attention at full width (224x224 input, 14x14x512
             grid, E = H = 512, vocab 7003, beam 3, T = 20) on random weights
-            from seed 0, batch 8: one warm-up pass, one per-stage pass and one
-            counted pass through ``caption_and_explain``; every kernel's launch
-            count must match its calls on that path;
+            from seed 0, f32, batch 8: one warm-up pass, one per-stage pass and
+            one counted pass through ``caption_and_explain``; every kernel's
+            launch count must match its calls on that path;
+3b. main, bf16: the same at bench's batch 56 in bf16 storage
+            (``build(storage_dtype=torch.bfloat16)``, bench.py's default mode);
 4. card vs CPU: one image on the card and on the CPU (plain versions),
             tokens equal and maps within a stated tolerance, with the CNN LRP
-            cut to the first 2 word seeds to keep the CPU time short.
+            cut to the first 2 word seeds to keep the CPU time short;
+4b. card vs CPU, bf16: one image in bf16 on the card and on the CPU, both
+            held to a CPU-f32 run of the same image and words.
 
 Prints the ``{"kernels": [...]}`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``. Per-shape detail goes to
@@ -45,7 +53,9 @@ import torch.nn.functional as F
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12    # H100 SXM f32 outside the tensor cores
+PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 B_MAIN, VOCAB, BEAM, T = 8, 7003, 3, 20
+B_BF16 = 56                # bench.py's batch
 E = H = D = 512
 L = 196
 IMAGE = 224
@@ -56,11 +66,19 @@ CPU_WORDS = 2
 TOL_KERNEL = 1e-4
 TOL_CPU_MAPS = 1e-3
 TOL_LSTM_ABS = 1e-5
+# the bf16 rule and its plain version round at the same points: they differ by
+# summation order and at most one bf16 rounding of the output (2^-8 of a value)
+TOL_BF16_KERNEL = 1e-2
 # phase 4: the card's distance from a CPU-f64 run, as a multiple of the CPU-f32
 # run's own distance. An H100 80GB HBM3 at 700 W read 0.47x for the decoder-LRP
 # maps (1.6e-3 against 3.5e-3 of scale) and 2.0x for the heatmaps (5.6e-4
 # against 2.8e-4); the heatmaps also pass TOL_CPU_MAPS against CPU-f32.
 F64_RATIO = {"r_feat": 2.0, "maps": 4.0}
+# phase 4b: the card-bf16 heatmaps' distance from a CPU-f32 run, as a multiple
+# of the CPU-bf16 run's own distance from it. An H100 80GB HBM3 at 700 W read
+# 0.84x (7.6e-3 against 9.1e-3 of scale); 2x is also the CPU tests' bound for
+# the port against JAX in bf16 (tests/test_torch_bf16.py).
+BF16_CPU_RATIO = 2.0
 
 
 def log(*a):
@@ -86,9 +104,9 @@ def time_ms(fn, min_total_ms: float = 30.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_S * 1e3
+    t_ops = flops / peak_flop_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -114,17 +132,17 @@ def vgg16_conv_layers():
     return out
 
 
-def linear_shapes():
-    R = B_MAIN * T
+def linear_shapes(batch):
+    R = batch * T
     return [("output", R, VOCAB, H, 1), ("gate_g", R, H, 2 * E + H, T),
             ("w_glob", R, E, D, 1), ("w_img", R * L, H, D, 1)]
 
 
-def check_lrp_linear(gen, dev):
+def check_lrp_linear(gen, dev, batch):
     from lrp_imagecaptioning_torch.ops import kernels
 
     rows = []
-    for name, m, dout, din, calls in linear_shapes():
+    for name, m, dout, din, calls in linear_shapes(batch):
         r = torch.randn(m, dout, generator=gen, device=dev)
         z = torch.randn(m, dout, generator=gen, device=dev)
         x = torch.randn(m, din, generator=gen, device=dev)
@@ -144,11 +162,11 @@ def check_lrp_linear(gen, dev):
     return rows
 
 
-def check_lstm_gates(gen, dev):
+def check_lstm_gates(gen, dev, batch):
     from lrp_imagecaptioning_torch.ops import kernels
 
     rows = []
-    for name, b in (("beam", B_MAIN * BEAM), ("cached_forward", B_MAIN)):
+    for name, b in (("beam", batch * BEAM), ("cached_forward", batch)):
         z = torch.randn(b, 4 * H, generator=gen, device=dev) * 2
         c = torch.randn(b, H, generator=gen, device=dev)
         h1, c1 = kernels.lstm_gates(z, c)
@@ -168,7 +186,7 @@ def check_lstm_gates(gen, dev):
     return rows
 
 
-def check_conv3x3_fused(gen, dev):
+def check_conv3x3_fused(gen, dev, batch):
     from lrp_imagecaptioning_torch.ops import kernels
 
     rows = []
@@ -198,11 +216,45 @@ def check_conv3x3_fused(gen, dev):
         for mode, (kern, plain, conv_in, taps, nbytes, flops) in passes.items():
             conv_nchw, taps_oihw = conv_in.permute(0, 3, 1, 2), taps.permute(3, 2, 0, 1)
             rows.append(dict(shape=f"{name}/{mode}", N=n, H=size, W=size, Cin=cin, Cout=cout,
-                             calls=B_MAIN, err=rel_err(kern(), plain()),
+                             calls=batch, err=rel_err(kern(), plain()),
                              ms=time_ms(kern), plain_ms=time_ms(plain),
                              library_ms=time_ms(lambda: F.conv2d(conv_nchw, taps_oihw, padding=1)),
                              bound=bound_ms(nbytes, flops)))
         del x, r, s
+    return rows
+
+
+def check_lrp_a1b0_fused(gen, dev, batch):
+    """The bf16 rule at the 12 post-ReLU conv shapes, 20 words."""
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.ops.lrp_conv import conv2d
+
+    rows = []
+    n, bf = T, torch.bfloat16
+    for name, size, cin, cout in vgg16_conv_layers():
+        hw = size * size
+        x = torch.relu(torch.randn(1, size, size, cin, generator=gen, device=dev)).to(bf)
+        r = torch.randn(n, size, size, cout, generator=gen, device=dev).to(bf)
+        k = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
+             * math.sqrt(2.0 / (9 * cin))).to(bf)          # signed: the rule takes W+
+        b = (torch.rand(cout, generator=gen, device=dev) * 0.01).to(bf)
+        # the library call: cuDNN's bf16 transposed conv of the same s, alone
+        kp = k * (k >= 0)
+        zf = (conv2d(x, kp) + b).float()
+        s_nchw = (r.float() / (zf + (zf == 0).float() * 1e-7)).to(bf).permute(0, 3, 1, 2)
+        kp_t = kp.permute(3, 2, 0, 1).contiguous()
+        kern = lambda: kernels.lrp_a1b0_fused(r, x, k, b)
+        plain = lambda: kernels.lrp_a1b0_fused_plain(r, x, k, b)
+        # r, x, kernel, bias read once, out written once; z conv + transposed conv
+        nbytes = 2 * (n * hw * cout + hw * cin + 9 * cin * cout + cout + n * hw * cin)
+        flops = 2 * hw * 9 * cin * cout + 2 * n * hw * 9 * cin * cout + 3 * n * hw * cout \
+            + n * hw * cin
+        rows.append(dict(shape=name, N=n, H=size, W=size, Cin=cin, Cout=cout, calls=batch,
+                         err=rel_err(kern().float(), plain().float()),
+                         ms=time_ms(kern), plain_ms=time_ms(plain),
+                         library_ms=time_ms(lambda: F.conv_transpose2d(s_nchw, kp_t, padding=1)),
+                         bound=bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)))
+        del x, r, s_nchw
     return rows
 
 
@@ -213,39 +265,59 @@ KERNEL_META = {
                    "lrp_imagecaptioning_tpu/ops/pallas_kernels.py:107", check_lstm_gates),
     "conv3x3_fused": ("lrp_imagecaptioning_torch/csrc/conv3x3_fused.cu",
                       "lrp_imagecaptioning_tpu/ops/pallas_conv_lrp.py:77", check_conv3x3_fused),
+    # K4 (:64); the same kernel replaces K5 (:142)
+    "lrp_a1b0_fused": ("lrp_imagecaptioning_torch/csrc/lrp_a1b0_fused.cu",
+                       "experiments/pallas_block1_v2.py:64", check_lrp_a1b0_fused),
 }
+ALSO_REPLACES = {"lrp_a1b0_fused": "experiments/pallas_block1_v2.py:142"}
+# max |kernel - plain|: over the plain version's scale, or absolute for lstm_gates
+TOLERANCE = {"lrp_linear": ("rel", TOL_KERNEL), "lstm_gates": ("abs", TOL_LSTM_ABS),
+             "conv3x3_fused": ("rel", TOL_KERNEL), "lrp_a1b0_fused": ("rel", TOL_BF16_KERNEL)}
+
+
+# the main paths: name -> (storage_dtype, batch), and the kernels each launches
+PATHS = {"f32": (None, B_MAIN), "bf16": (torch.bfloat16, B_BF16)}
+PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+                "bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused")}
 
 
 def phase_kernels(dev, failures):
+    """Each kernel at the shapes of every path it is on; rows carry their
+    path, and the summary is per kernel and path."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    detail, summary = {}, {}
-    for name, (_, _, check) in KERNEL_META.items():
-        rows = check(gen, dev)
-        detail[name] = rows
-        for row in rows:
-            lib_err = f"  library rel {row['library_err'][1]:.3e}" if "library_err" in row else ""
-            log(f"  {name:14s} {row['shape']:22s} calls/batch {row['calls']:3d}  "
-                f"max_abs {row['err'][0]:.3e} rel {row['err'][1]:.3e}  ms {row['ms']:.4f}  "
-                f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  "
-                f"bound {row['bound'][0]:.4f} ({row['bound'][1]}){lib_err}")
-            if name == "lstm_gates":
-                ok = row["err"][0] <= TOL_LSTM_ABS
-            else:
-                ok = row["err"][1] <= TOL_KERNEL
-            if not ok:
-                failures.append(f"{name} {row['shape']} disagrees with its plain version: {row['err']}")
-        per_batch = lambda key: sum(r[key] * r["calls"] for r in rows)
-        by_ops = sum(r["bound"][0] * r["calls"] for r in rows if r["bound"][1] == "operations")
-        total_bound = sum(r["bound"][0] * r["calls"] for r in rows)
-        summary[name] = dict(
-            calls_per_batch=sum(r["calls"] for r in rows),
-            max_abs_err=max(r["err"][0] for r in rows),
-            max_rel_err=max(r["err"][1] for r in rows),
-            ms=per_batch("ms"), plain_ms=per_batch("plain_ms"),
-            bound_ms=total_bound,
-            bound_by="operations" if by_ops >= total_bound / 2 else "bytes",
-            library_ms=per_batch("library_ms"),
-        )
+    detail, summary = {name: [] for name in KERNEL_META}, {name: {} for name in KERNEL_META}
+    for path, (_, batch) in PATHS.items():
+        if path == "bf16":
+            log(f"phase 2b: the bf16 path's kernels vs their plain versions, batch {batch}")
+        for name, (_, _, check) in KERNEL_META.items():
+            if name not in PATH_KERNELS[path]:
+                continue
+            rows = check(gen, dev, batch)
+            kind, tol = TOLERANCE[name]
+            for row in rows:
+                row["path"] = path
+                lib_err = f"  library rel {row['library_err'][1]:.3e}" if "library_err" in row else ""
+                log(f"  {path:4s} {name:14s} {row['shape']:22s} calls/batch {row['calls']:3d}  "
+                    f"max_abs {row['err'][0]:.3e} rel {row['err'][1]:.3e}  ms {row['ms']:.4f}  "
+                    f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  "
+                    f"bound {row['bound'][0]:.4f} ({row['bound'][1]}){lib_err}")
+                if (row["err"][0] if kind == "abs" else row["err"][1]) > tol:
+                    failures.append(f"{name} {row['shape']} ({path}) disagrees with its plain "
+                                    f"version: {row['err']}")
+            detail[name] += rows
+            per_batch = lambda key: sum(r[key] * r["calls"] for r in rows)
+            by_ops = sum(r["bound"][0] * r["calls"] for r in rows if r["bound"][1] == "operations")
+            total_bound = sum(r["bound"][0] * r["calls"] for r in rows)
+            summary[name][path] = dict(
+                batch=batch,
+                calls_per_batch=sum(r["calls"] for r in rows),
+                max_abs_err=max(r["err"][0] for r in rows),
+                max_rel_err=max(r["err"][1] for r in rows),
+                ms=per_batch("ms"), plain_ms=per_batch("plain_ms"),
+                bound_ms=total_bound,
+                bound_by="operations" if by_ops >= total_bound / 2 else "bytes",
+                library_ms=per_batch("library_ms"),
+            )
     return summary, detail
 
 
@@ -254,16 +326,18 @@ def phase_kernels(dev, failures):
 # ---------------------------------------------------------------------------
 
 
-def phase_main(dev, failures):
+def phase_main(dev, failures, batch=B_MAIN, storage_dtype=None):
+    """Warm-up, per-stage and counted passes of ``caption_and_explain``; the
+    launch counts are read from the counted pass alone."""
     from lrp_imagecaptioning_torch.config import FlickrConfig
     from lrp_imagecaptioning_torch.ops import kernels
     from lrp_imagecaptioning_torch.pipeline import build
 
     cfg = FlickrConfig()
-    fn, cap = build(cfg, VOCAB, device=dev, beam=BEAM, T=T)
+    fn, cap = build(cfg, VOCAB, device=dev, beam=BEAM, T=T, storage_dtype=storage_dtype)
     params = cap.init_params(seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    images = torch.randn(B_MAIN, IMAGE, IMAGE, 3, generator=gen, device=dev)
+    images = torch.randn(batch, IMAGE, IMAGE, 3, generator=gen, device=dev)
 
     t0 = time.perf_counter()
     fn(params, images)
@@ -286,42 +360,39 @@ def phase_main(dev, failures):
     del r_feat
 
     kernels.reset_launches()
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tokens, heatmaps = fn(params, images)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     log(f"  warm-up pass {warm_s * 1e3:.1f} ms (first calls included)")
     log(f"  stages ms: " + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items()))
-    log(f"  counted pass {total_s * 1e3:.1f} ms = {B_MAIN / total_s:.3f} img/s at batch {B_MAIN}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  counted pass {total_s * 1e3:.1f} ms = {batch / total_s:.3f} img/s at batch {batch}; "
+        f"peak memory {peak_gib:.2f} GiB")
     log(f"  launches {launches}")
     log(f"  tokens[0] {tokens[0].tolist()}")
-    if tuple(tokens.shape) != (B_MAIN, T):
+    if tuple(tokens.shape) != (batch, T):
         failures.append(f"tokens shape {tuple(tokens.shape)}")
-    if tuple(heatmaps.shape) != (B_MAIN, T, IMAGE, IMAGE, 3):
+    if tuple(heatmaps.shape) != (batch, T, IMAGE, IMAGE, 3):
         failures.append(f"heatmaps shape {tuple(heatmaps.shape)}")
     if not bool(torch.isfinite(heatmaps).all()):
         failures.append("heatmaps hold non-finite values")
     if not bool(heatmaps.abs().amax(dim=(2, 3, 4)).gt(0).all()):
         failures.append("a heatmap is all zeros")
-    for k in kernels.KERNELS:
-        if launches[k.__name__] == 0:
-            failures.append(f"{k.__name__} was not launched on the main path")
-    main = dict(batch=B_MAIN, warm_ms=warm_s * 1e3, stage_ms=stage_ms, total_ms=total_s * 1e3,
-                img_per_s=B_MAIN / total_s,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    main = dict(batch=batch, storage_dtype=str(storage_dtype), warm_ms=warm_s * 1e3,
+                stage_ms=stage_ms, total_ms=total_s * 1e3, img_per_s=batch / total_s,
+                peak_gib=peak_gib, launches=launches, tokens0=tokens[0].tolist())
     del heatmaps
     return launches, main, (fn, cap, cfg, params, images)
 
 
-def _double(tree):
-    if isinstance(tree, dict):
-        return {k: _double(v) for k, v in tree.items()}
-    return tree.double()
+def worst(a, b, n):
+    """The largest distance, over the first ``n`` words of image 0, of a's
+    map from b's, relative to b's scale."""
+    return max(rel_err(a[0, t].double(), b[0, t].double())[1] for t in range(n))
 
 
 def phase_cpu(built, failures):
@@ -348,15 +419,13 @@ def phase_cpu(built, failures):
     t0 = time.perf_counter()
     _, tok_c = st_c["caption"](params_c, img_c)
     runs = {}
-    for name, p, im in (("f32", params_c, img_c), ("f64", _double(params_c), img_c.double())):
+    for name, p, im in (("f32", params_c, img_c),
+                        ("f64", tree_to(params_c, dtype=torch.float64), img_c.double())):
         with torch.no_grad():
             feat = cap.encode(p, im)
         r = st_c["decoder_lrp"](p, feat, tok)
         runs[name] = (r, st_c["cnn_lrp"](p, im, r[:, :CPU_WORDS]))
     cpu_s = time.perf_counter() - t0
-
-    def worst(a, b, n):
-        return max(rel_err(a[0, t].double(), b[0, t].double())[1] for t in range(n))
 
     (r32, m32), (r64, m64) = runs["f32"], runs["f64"]
     out = dict(tokens_equal=bool(torch.equal(tok_c, tok)), cpu_s=cpu_s,
@@ -373,6 +442,52 @@ def phase_cpu(built, failures):
         card, cpu = out[f"{key}_card_vs_f64"], out[f"{key}_cpu_vs_f64"]
         if card > max(ratio * cpu, 1e-5):
             failures.append(f"{key}: card deviates {card:.3e} from f64, CPU f32 {cpu:.3e}")
+    return out
+
+
+def phase_cpu_bf16(built, failures):
+    """One image in bf16 on the card and on the CPU, and a CPU-f32 run as the
+    anchor, all three on the card's tokens. The card-bf16 heatmaps must stay
+    within BF16_CPU_RATIO times the CPU-bf16 run's distance from the anchor.
+
+    The CPU-bf16 run's own tokens are recorded, not required equal: bf16
+    features rounded in another summation order can flip a near-tie of the
+    beam."""
+    from lrp_imagecaptioning_torch.pipeline import build
+    from lrp_imagecaptioning_torch.weights import tree_to
+
+    fn, cap, cfg, params, images = built
+    img = images[:1]
+    st = fn.stages
+    feat_g, tok_g = st["caption"](params, img)
+    r_g = st["decoder_lrp"](params, feat_g, tok_g).cpu()
+    maps_g = st["cnn_lrp"](params, img, r_g[:, :CPU_WORDS].to(img.device)).cpu()
+
+    params_c, img_c, tok = tree_to(params, "cpu"), img.cpu(), tok_g.cpu()
+    t0 = time.perf_counter()
+    runs = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        st_c = build(cfg, VOCAB, device="cpu", beam=BEAM, T=T, storage_dtype=dtype)[0].stages
+        if dtype is None:
+            with torch.no_grad():
+                feat = cap.encode(params_c, img_c)
+        else:
+            feat, tok_c = st_c["caption"](params_c, img_c)
+        r = st_c["decoder_lrp"](params_c, feat, tok)
+        runs[name] = (r, st_c["cnn_lrp"](params_c, img_c, r[:, :CPU_WORDS]))
+    cpu_s = time.perf_counter() - t0
+
+    (r_bf, m_bf), (r32, m32) = runs["bf16"], runs["f32"]
+    out = dict(tokens_equal=bool(torch.equal(tok_c, tok)), cpu_s=cpu_s,
+               maps_card_vs_f32=worst(maps_g, m32, CPU_WORDS),
+               maps_cpu_vs_f32=worst(m_bf, m32, CPU_WORDS),
+               maps_card_vs_cpu_bf16=worst(maps_g, m_bf, CPU_WORDS),
+               r_feat_card_vs_f32=worst(r_g, r32, T), r_feat_cpu_vs_f32=worst(r_bf, r32, T))
+    out["maps_ratio"] = out["maps_card_vs_f32"] / out["maps_cpu_vs_f32"]
+    log(f"  {out}")
+    if not out["maps_ratio"] <= BF16_CPU_RATIO:
+        failures.append(f"bf16 heatmaps: card deviates {out['maps_card_vs_f32']:.3e} from CPU f32, "
+                        f"CPU bf16 {out['maps_cpu_vs_f32']:.3e} (limit {BF16_CPU_RATIO}x)")
     return out
 
 
@@ -398,10 +513,14 @@ def main() -> int:
     log(f"  {card_line} | {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    phases = [("phase 2: kernels vs plain versions", "kernels"),
-              ("phase 3: main path at full width", "main"),
-              ("phase 4: card vs CPU, one image", "cpu")]
-    summary = launches = built = None
+    phases = [(f"phase 2: kernels vs plain versions, the f32 path's shapes, batch {B_MAIN}",
+               "kernels"),
+              (f"phase 3: main path at full width, f32, batch {B_MAIN}", "main"),
+              ("phase 4: card vs CPU, one image, f32", "cpu"),
+              (f"phase 3b: main path at full width, bf16 storage, batch {B_BF16}", "main_bf16"),
+              ("phase 4b: card vs CPU, one image, bf16", "cpu_bf16")]
+    summary = built = None
+    launches = {}   # path -> {kernel: launches in its counted pass}
     t_start = time.perf_counter()
     for title, key in phases:
         log(title)
@@ -416,11 +535,20 @@ def main() -> int:
                             log(f"  {stem}: {line.strip()}")
                 summary, report["kernel_shapes"] = phase_kernels(dev, failures)
             elif key == "main":
-                launches, report["main"], built = phase_main(dev, failures)
-            elif built is not None:
+                built = None
+                dtype, batch = PATHS["f32"]
+                launches["f32"], report["main"], built = phase_main(dev, failures, batch, dtype)
+            elif key == "main_bf16":
+                built = None
+                dtype, batch = PATHS["bf16"]
+                launches["bf16"], report["main_bf16"], built = phase_main(
+                    dev, failures, batch, dtype)
+            elif built is None:
+                failures.append(f"{title} skipped: its main path did not run")
+            elif key == "cpu":
                 report["cpu"] = phase_cpu(built, failures)
             else:
-                failures.append("phase 4 skipped: the main path did not run")
+                report["cpu_bf16"] = phase_cpu_bf16(built, failures)
         except Exception:  # noqa: BLE001 — a phase that raises is recorded as failed
             traceback.print_exc()
             failures.append(f"{title} raised")
@@ -428,18 +556,30 @@ def main() -> int:
     report["seconds"] = time.perf_counter() - t_start
 
     kernels_line = []
-    if summary is not None and launches is not None:
+    if summary is not None and len(launches) == 2:
         for name, (source, replaces, _) in KERNEL_META.items():
-            s = summary[name]
-            if launches[name] != s["calls_per_batch"]:
-                failures.append(f"{name}: {launches[name]} launches on the main path, "
-                                f"{s['calls_per_batch']} expected from its shapes")
+            by_path = summary[name]
+            # each path must launch its kernels exactly as often as phase 2's
+            # shapes say (per batch: K1 and K2 once per step, whatever the
+            # batch), and the other path's not at all
+            for path in PATHS:
+                want = by_path[path]["calls_per_batch"] if path in by_path else 0
+                if launches[path][name] != want:
+                    failures.append(f"{name}: {launches[path][name]} launches on the {path} "
+                                    f"path, {want} expected")
+            # the line's numbers are those of the first path the kernel is on;
+            # by_path has every path's
+            path = next(iter(by_path))
+            s = by_path[path]
             kernels_line.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches[name], max_abs_err=s["max_abs_err"], ms=s["ms"],
+                launches=launches[path][name], max_abs_err=s["max_abs_err"], ms=s["ms"],
                 plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-                library_ms=s["library_ms"], max_rel_err=s["max_rel_err"],
-                calls_per_batch=s["calls_per_batch"]))
+                library_ms=s["library_ms"], max_rel_err=s["max_rel_err"], path=path,
+                calls_per_batch=s["calls_per_batch"],
+                by_path={p: dict(v, launches=launches[p][name]) for p, v in by_path.items()},
+                launches_by_path={p: launches[p][name] for p in launches},
+                **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})))
     report.update(card=card_line, kernels=kernels_line, failures=failures)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

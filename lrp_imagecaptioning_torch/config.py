@@ -26,6 +26,9 @@ class Config:
 
     dataset_name: str = ""
 
+    # 'float32' | 'bfloat16': the encoder's conv operands (Captioner.encode)
+    compute_dtype: str = "float32"
+
 
 @dataclass
 class FlickrConfig(Config):

@@ -31,9 +31,22 @@ class Captioner:
                   "decoder": self.decoder.init_params(gen, self.vocab_size, self.cfg)}
         return tree_to(params, dev)
 
-    def encode(self, params, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, 3) preprocessed -> (B, L, D) feature grid."""
-        feats = vgg.vgg_apply(params["vgg"], images, self.cfg.layer_name)
+    def _cfg_compute_dtype(self):
+        """cfg.compute_dtype ('float32' | 'bfloat16') -> None | torch.bfloat16."""
+        cd = self.cfg.compute_dtype
+        if cd in (None, "float32", "f32"):
+            return None
+        if cd in ("bfloat16", "bf16"):
+            return torch.bfloat16
+        raise ValueError(f"unsupported compute_dtype {cd!r}")
+
+    def encode(self, params, images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        """images (B, H, W, 3) preprocessed -> (B, L, D) f32 feature grid.
+
+        ``compute_dtype`` defaults to ``cfg.compute_dtype``."""
+        if compute_dtype is None:
+            compute_dtype = self._cfg_compute_dtype()
+        feats = vgg.vgg_apply(params["vgg"], images, self.cfg.layer_name, compute_dtype)
         return feats.reshape(feats.shape[0], self.cfg.img_feature_length,
                              self.cfg.img_feature_dim)
 

@@ -47,21 +47,34 @@ def init_vgg_params(gen: torch.Generator, until: str = "block5_conv3"):
     return params
 
 
-def vgg_apply(params, x: torch.Tensor, until: str = "block5_conv3"):
-    """Forward pass -> feature map at ``until`` (B, 14, 14, 512 for 224x224)."""
-    return vgg_apply_with_acts(params, x, until)[0]
+def _apply_op(op, params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    if op[0] == "pool":
+        return maxpool2d(x)
+    p = params[op[1]]
+    if compute_dtype is not None:
+        y = conv2d(x.to(compute_dtype), p["kernel"].to(compute_dtype)).float()
+    else:
+        y = conv2d(x, p["kernel"])
+    return torch.relu(y + p["bias"].to(y.dtype))
+
+
+def vgg_apply(params, x: torch.Tensor, until: str = "block5_conv3", compute_dtype=None):
+    """Forward pass -> feature map at ``until`` (B, 14, 14, 512 for 224x224).
+
+    ``compute_dtype`` (``torch.bfloat16``) casts both conv operands to it and
+    upcasts each conv output to f32, so bias, ReLU and pooling run in f32."""
+    for op in vgg_layers(until):
+        x = _apply_op(op, params, x, compute_dtype)
+    return x
 
 
 def vgg_apply_with_acts(params, x: torch.Tensor, until: str = "block5_conv3"):
-    """Forward pass that also returns each op's input activation.
+    """Forward pass that also returns each op's input activation. It runs in
+    the dtype of ``params`` and ``x`` (bf16 under the CNN LRP's storage_dtype).
 
     Returns (features, inputs) with inputs[i] = input of vgg_layers(...)[i]."""
     inputs = []
     for op in vgg_layers(until):
         inputs.append(x)
-        if op[0] == "conv":
-            p = params[op[1]]
-            x = torch.relu(conv2d(x, p["kernel"]) + p["bias"])
-        else:
-            x = maxpool2d(x)
+        x = _apply_op(op, params, x)
     return x, inputs

@@ -31,6 +31,7 @@ SIGNATURES = {
     "lstm_gates_f32": ("lstm_gates", [_P, _P, _P, _P, _I64, _I, _P]),
     "conv3x3_fused_f32": ("conv3x3_fused",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "lrp_a1b0_fused_bf16": ("lrp_a1b0_fused", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -6,16 +6,17 @@ its CUDA kernel (``csrc/*.cu``, built by ``_build.py``) for a tensor on the
 card, or raises: nothing falls back. Each counts its launches in the integer
 attribute ``<wrapper>.launches``; ``reset_launches()`` sets them to 0.
 
-=============  ======================================  =========================================
-wrapper        CUDA source                             TPU kernel it replaces
-=============  ======================================  =========================================
-lrp_linear     csrc/lrp_linear.cu                      ops/pallas_kernels.py:_lrp_linear_kernel
-lstm_gates     csrc/lstm_gates.cu                      ops/pallas_kernels.py:_lstm_gates_kernel
-conv3x3_fused  csrc/conv3x3_fused.cu                   ops/pallas_conv_lrp.py:_conv3x3_kernel
-=============  ======================================  =========================================
+==============  ========================  ============================================================
+wrapper         CUDA source               TPU kernel it replaces
+==============  ========================  ============================================================
+lrp_linear      csrc/lrp_linear.cu        lrp_imagecaptioning_tpu/ops/pallas_kernels.py:_lrp_linear_kernel
+lstm_gates      csrc/lstm_gates.cu        lrp_imagecaptioning_tpu/ops/pallas_kernels.py:_lstm_gates_kernel
+conv3x3_fused   csrc/conv3x3_fused.cu     lrp_imagecaptioning_tpu/ops/pallas_conv_lrp.py:_conv3x3_kernel
+lrp_a1b0_fused  csrc/lrp_a1b0_fused.cu    experiments/pallas_block1_v2.py:_kernel and :_kernel_v3
+==============  ========================  ============================================================
 
-(paths under ``lrp_imagecaptioning_tpu/``). Each source's header says what
-bounds the kernel on the H100 and what its design does about it.
+Each source's header says what bounds the kernel on the H100 and what its
+design does about it.
 """
 
 from __future__ import annotations
@@ -23,17 +24,17 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .lrp_conv import conv2d
-from .lrp_core import lrp_linear as lrp_linear_plain, safe_divide
+from .lrp_conv import conv2d, conv2d_input_vjp
+from .lrp_core import EPS_KERAS, lrp_linear as lrp_linear_plain, safe_divide
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+def _check_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> torch.device:
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel takes contiguous tensors (shape {tuple(t.shape)})")
     return dev
@@ -182,7 +183,69 @@ def lrp_conv_a1b0(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
     return conv3x3_fused(s, x, flip_transpose_kernel(kp), None, mode="multiply")
 
 
-KERNELS = (lrp_linear, lstm_gates, conv3x3_fused)
+# ---------------------------------------------------------------------------
+# K4/K5  the alpha1beta0 rule in one kernel, bf16 storage
+# ---------------------------------------------------------------------------
+
+
+def _positive_z(x, kernel, bias):
+    """(W+, z = conv(x, W+) + b), both in the dtype of the inputs."""
+    kp = kernel * (kernel >= 0)
+    z = conv2d(x, kp)
+    return kp, z if bias is None else z + bias
+
+
+def lrp_a1b0_fused_plain(r, x, kernel, bias, eps: float = EPS_KERAS):
+    """The rule with the kernel's rounding points: z in the storage dtype,
+    s = r / safe(z) in f32 rounded once, an f32 transposed conv, the x
+    re-weight in f32 rounded once. safe() adds ``eps`` where z is exactly 0
+    (1e-7, SafeDivide's; experiments/pallas_block1_v2.py uses 0.01)."""
+    kp, z = _positive_z(x, kernel, bias)
+    zf = z.float()
+    s = (r.float() / (zf + (zf == 0).float() * eps)).to(r.dtype)
+    return (x.float() * conv2d_input_vjp(kp.float(), s.float())).to(r.dtype)
+
+
+def lrp_a1b0_fused(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
+                   bias: torch.Tensor | None) -> torch.Tensor:
+    """alpha1beta0 conv LRP for x >= 0 in bf16 storage, one kernel launch:
+
+        z   = conv(x, W+) + b                      (bf16, F.conv2d, once per x)
+        out = x * convT(r / safe(z), W+)           (the kernel)
+
+    r: (N, H, W, Cout); x: (1, H, W, Cin), shared by the N seeds; kernel:
+    (3, 3, Cin, Cout) HWIO; bias: (Cout,) or None; all bf16. Returns
+    (N, H, W, Cin) bf16."""
+    if x.device.type == "cpu":
+        return lrp_a1b0_fused_plain(r, x, kernel, bias)
+    tensors = (r, x, kernel) if bias is None else (r, x, kernel, bias)
+    dev = _check_cuda("lrp_a1b0_fused", *tensors, dtype=torch.bfloat16)
+    n, h, w, cout = r.shape
+    cin = x.shape[-1]
+    if (tuple(x.shape) != (1, h, w, cin) or tuple(kernel.shape) != (3, 3, cin, cout)
+            or (bias is not None and tuple(bias.shape) != (cout,))):
+        raise ValueError(f"lrp_a1b0_fused: r {tuple(r.shape)}, x {tuple(x.shape)}, "
+                         f"kernel {tuple(kernel.shape)}, bias "
+                         f"{None if bias is None else tuple(bias.shape)}")
+    if cout % 8 or cin % 4:
+        raise ValueError(f"lrp_a1b0_fused: Cout must be a multiple of 8 and Cin of 4 "
+                         f"(vector loads), got Cout {cout}, Cin {cin}")
+    if r.data_ptr() % 16 or x.data_ptr() % 8:
+        raise ValueError("lrp_a1b0_fused: r must start on a 16-byte boundary and x on an "
+                         "8-byte one (vector loads)")
+    kp, z = _positive_z(x, kernel, bias)
+    taps = flip_transpose_kernel(kp)
+    out = torch.empty((n, h, w, cin), dtype=torch.bfloat16, device=dev)
+    _launch("lrp_a1b0_fused_bf16", dev, r.data_ptr(), z.data_ptr(), x.data_ptr(),
+            taps.data_ptr(), out.data_ptr(), n, h, w, cin, cout)
+    lrp_a1b0_fused.launches += 1
+    return out
+
+
+lrp_a1b0_fused.launches = 0
+
+
+KERNELS = (lrp_linear, lstm_gates, conv3x3_fused, lrp_a1b0_fused)
 
 
 def reset_launches() -> None:

@@ -11,6 +11,8 @@
 
 A tensor with batch 1 broadcasts against one with batch N (the forward
 activations shared by every word seed of the word-batched explanation).
+Every op keeps the dtype of its inputs: under the CNN LRP's bf16 storage
+each conv, divide and WTA split rounds to bf16, as the JAX package's ops do.
 """
 
 from __future__ import annotations

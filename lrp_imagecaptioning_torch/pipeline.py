@@ -8,7 +8,13 @@ The three stages of the JAX package's ``bench.py::build`` on one device:
 3. cnn_lrp:     per image, one shared VGG forward and the word-batched
                 PresetA backward -> heatmaps (B, T, H, W, 3).
 
-f32 throughout.
+Two modes, one per setting of bench:
+
+* ``storage_dtype=None``: f32 throughout, as bench with ``LRPIC_BENCH_F32=1``;
+* ``storage_dtype=torch.bfloat16``: bench's default. The encode's conv
+  operands are bf16 (``compute_dtype``) and the CNN LRP holds its params,
+  activations and relevances in bf16 (``storage_dtype``). Beam search and
+  the decoder LRP stay f32, as in bench.
 """
 
 from __future__ import annotations
@@ -23,14 +29,16 @@ from .explain.decoder_lrp import explain_word_adaptive
 from .infer.beam import beam_search
 from .models.captioner import build_captioner
 from .runtime import resolve_device
+from .weights import tree_to
 
 BEAM = 3
 T = 20
 
 
 def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: int = T,
-          sos: int = 1, eos: int = 2):
-    """Returns ``(caption_and_explain, captioner)``.
+          sos: int = 1, eos: int = 2, storage_dtype: torch.dtype | None = None):
+    """Returns ``(caption_and_explain, captioner)``; ``storage_dtype`` picks
+    the mode (module docstring).
 
     ``caption_and_explain(params, images) -> (tokens_1based (B, T),
     heatmaps (B, T, H, W, 3))``; its stages are in ``.stages``. ``params``
@@ -41,7 +49,8 @@ def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: 
     grid = int(round(math.sqrt(cfg.img_feature_length)))
 
     def stage_caption(params, images):
-        feat_grid = cap.encode(params, images)                     # (B, L, D)
+        # f32 operands when storage_dtype is None, whatever cfg.compute_dtype says
+        feat_grid = cap.encode(params, images, storage_dtype or torch.float32)  # (B, L, D) f32
         tokens, _ = beam_search(cap, params, feat_grid, sos, eos, beam, T)
         return feat_grid, tokens
 
@@ -60,9 +69,11 @@ def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: 
         """Any number of words per image: r_feat (B, Tw, L, D)."""
         B, Tw = r_feat.shape[:2]
         seeds = r_feat.reshape(B, Tw, grid, grid, cfg.img_feature_dim)
+        # cast once per batch; the per-image cast then returns these tensors as they are
+        vgg = tree_to(params["vgg"], dtype=storage_dtype)
         return torch.stack([
-            vgg_lrp_preset_a_wordbatched(params["vgg"], images[b:b + 1], seeds[b],
-                                         cfg.layer_name)
+            vgg_lrp_preset_a_wordbatched(vgg, images[b:b + 1], seeds[b],
+                                         cfg.layer_name, storage_dtype)
             for b in range(B)])
 
     @torch.no_grad()

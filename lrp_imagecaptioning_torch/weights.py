@@ -20,13 +20,14 @@ import torch
 from .runtime import resolve_device
 
 
-def tree_to(tree, device):
-    """Move every tensor of a nested dict/list/tuple to ``device``."""
+def tree_to(tree, device=None, dtype=None):
+    """Move every tensor of a nested dict/list/tuple to ``device`` and/or
+    cast it to ``dtype`` (a tensor already there is returned as it is)."""
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to(v, device) for v in tree)
-    return tree.to(device)
+        return type(tree)(tree_to(v, device, dtype) for v in tree)
+    return tree.to(device=device, dtype=dtype)
 
 
 def _to_tensor(a) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The PyTorch port imports neither jax nor the JAX package, and neither does
-chip_smoke.py."""
+"""The PyTorch port imports neither jax nor the JAX package (nor the JAX
+side's ``experiments/`` and ``bench.py``), and neither does chip_smoke.py."""
 
 import ast
 import pathlib
@@ -12,7 +12,7 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "lrp_imagecaptioning_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "lrp_imagecaptioning_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "lrp_imagecaptioning_tpu", "experiments", "bench")
 
 
 def _modules():

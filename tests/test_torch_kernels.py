@@ -1,7 +1,8 @@
-"""PyTorch port: the three kernels' plain versions against the JAX Pallas
-kernels run in interpret mode (as the JAX package's own tests run them on
-the CPU), and, on a machine with a card, each CUDA kernel against its plain
-version (class ``TestOnCard``, marked ``cuda``; it skips here).
+"""PyTorch port: the kernels' plain versions against the JAX Pallas kernels
+run in interpret mode (as the JAX package's own tests run them on the CPU;
+the bf16 rule's, ``lrp_a1b0_fused``, are in test_torch_bf16.py), and, on a
+machine with a card, each CUDA kernel against its plain version (class
+``TestOnCard``, marked ``cuda``; it skips here).
 """
 
 import numpy as np
@@ -187,6 +188,38 @@ class TestOnCard:
             kernels.conv3x3_fused(x, ew, k, None, mode="multiply")
         with pytest.raises(ValueError, match="16-byte"):
             kernels.conv3x3_fused(x, torch.ones(1, 4, 4, 8, device="cuda"), k, bias, mode="divide")
+
+    def test_lrp_a1b0_fused(self):
+        """bf16 kernel against its plain version: the same rounding points, so
+        they differ by summation order and at most one bf16 rounding of the
+        output (2^-8 of a value; 1e-2 of the map's scale)."""
+        rng = np.random.default_rng(23)
+        for n, h, w, cin, cout in [(20, 56, 56, 64, 64), (5, 28, 28, 128, 256),
+                                   (4, 14, 14, 512, 512), (3, 13, 19, 72, 16)]:
+            x, k, b, r = (_t(a, "cuda").bfloat16() for a in _conv_inputs(rng, n, h, w, cin, cout))
+            x = x[:1].contiguous()   # one image shared by the n word seeds
+            before = kernels.lrp_a1b0_fused.launches
+            got = kernels.lrp_a1b0_fused(r, x, k, b)
+            assert kernels.lrp_a1b0_fused.launches == before + 1
+            ref = kernels.lrp_a1b0_fused_plain(r, x, k, b)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bfloat16 and got.shape == (n, h, w, cin)
+            assert _rel_err(got.float().cpu().numpy(), ref.float().cpu().numpy()) < 1e-2
+
+    def test_lrp_a1b0_fused_rejects_bad_inputs(self):
+        x = torch.ones(1, 4, 4, 8, device="cuda", dtype=torch.bfloat16)
+        k = torch.ones(3, 3, 8, 8, device="cuda", dtype=torch.bfloat16)
+        r = torch.ones(2, 4, 4, 8, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(TypeError, match="bfloat16"):
+            kernels.lrp_a1b0_fused(r.float(), x.float(), k.float(), None)
+        # a contiguous view 2 bytes into its buffer cannot take the 16-byte loads
+        misaligned = torch.ones(1 + 2 * 4 * 4 * 8, device="cuda", dtype=torch.bfloat16)[1:]
+        with pytest.raises(ValueError, match="16-byte"):
+            kernels.lrp_a1b0_fused(misaligned.view(2, 4, 4, 8), x, k, None)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            kernels.lrp_a1b0_fused(r[..., :4].contiguous(), x, k[..., :4].contiguous(), None)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernels.lrp_a1b0_fused(r.transpose(1, 2), x, k, None)
 
     def test_wrappers_raise_on_mixed_devices(self):
         with pytest.raises(ValueError, match="tensors on"):
