@@ -16,7 +16,9 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             conv3x3_fused, F.conv_transpose2d in bf16 for lrp_a1b0_fused; the
             port never calls these). Bounds use the H100 SXM peaks: 3.35 TB/s,
             67 TFLOP/s f32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
-            cores for the bf16 rule. Phase 2 takes the f32 path's shapes
+            cores for the bf16 rule. Each row and each kernel's per-batch
+            sum gives the achieved TFLOP/s and the share of the bound
+            (bound ms / ms). Phase 2 takes the f32 path's shapes
             (batch 8), 2b the bf16 path's (batch 56: lrp_linear, lstm_gates,
             and lrp_a1b0_fused at the 12 post-ReLU conv shapes, 20 words);
 3. main:    VGG16 / adaptive attention at full width (224x224 input, 14x14x512
@@ -158,7 +160,7 @@ def check_lrp_linear(gen, dev, batch):
                          ms=time_ms(lambda: kernels.lrp_linear(r, x, z, w)),
                          plain_ms=time_ms(lambda: kernels.lrp_linear_plain(r, x, z, w)),
                          library_ms=time_ms(lambda: torch.matmul(s, wt)),
-                         bound=bound_ms(nbytes, flops)))
+                         flops=flops, bound=bound_ms(nbytes, flops)))
     return rows
 
 
@@ -182,7 +184,7 @@ def check_lstm_gates(gen, dev, batch):
                          ms=time_ms(lambda: kernels.lstm_gates(z, c)),
                          plain_ms=time_ms(lambda: kernels.lstm_gates_plain(z, c)),
                          library_ms=time_ms(lambda: fused_cell(z, zero, c)),
-                         bound=bound_ms(4 * (b * 4 * H + 3 * b * H), 10 * b * H)))
+                         flops=10 * b * H, bound=bound_ms(4 * (b * 4 * H + 3 * b * H), 10 * b * H)))
     return rows
 
 
@@ -219,7 +221,7 @@ def check_conv3x3_fused(gen, dev, batch):
                              calls=batch, err=rel_err(kern(), plain()),
                              ms=time_ms(kern), plain_ms=time_ms(plain),
                              library_ms=time_ms(lambda: F.conv2d(conv_nchw, taps_oihw, padding=1)),
-                             bound=bound_ms(nbytes, flops)))
+                             flops=flops, bound=bound_ms(nbytes, flops)))
         del x, r, s
     return rows
 
@@ -253,7 +255,7 @@ def check_lrp_a1b0_fused(gen, dev, batch):
                          err=rel_err(kern().float(), plain().float()),
                          ms=time_ms(kern), plain_ms=time_ms(plain),
                          library_ms=time_ms(lambda: F.conv_transpose2d(s_nchw, kp_t, padding=1)),
-                         bound=bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)))
+                         flops=flops, bound=bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)))
         del x, r, s_nchw
     return rows
 
@@ -296,11 +298,15 @@ def phase_kernels(dev, failures):
             kind, tol = TOLERANCE[name]
             for row in rows:
                 row["path"] = path
+                row["tflops"] = row["flops"] / row["ms"] / 1e9
+                row["share_of_bound"] = row["bound"][0] / row["ms"]
                 lib_err = f"  library rel {row['library_err'][1]:.3e}" if "library_err" in row else ""
                 log(f"  {path:4s} {name:14s} {row['shape']:22s} calls/batch {row['calls']:3d}  "
                     f"max_abs {row['err'][0]:.3e} rel {row['err'][1]:.3e}  ms {row['ms']:.4f}  "
                     f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  "
-                    f"bound {row['bound'][0]:.4f} ({row['bound'][1]}){lib_err}")
+                    f"bound {row['bound'][0]:.4f} ({row['bound'][1]})  "
+                    f"{row['tflops']:.2f} TFLOP/s  {100 * row['share_of_bound']:.1f} % of bound"
+                    f"{lib_err}")
                 if (row["err"][0] if kind == "abs" else row["err"][1]) > tol:
                     failures.append(f"{name} {row['shape']} ({path}) disagrees with its plain "
                                     f"version: {row['err']}")
@@ -308,16 +314,23 @@ def phase_kernels(dev, failures):
             per_batch = lambda key: sum(r[key] * r["calls"] for r in rows)
             by_ops = sum(r["bound"][0] * r["calls"] for r in rows if r["bound"][1] == "operations")
             total_bound = sum(r["bound"][0] * r["calls"] for r in rows)
+            ms = per_batch("ms")
             summary[name][path] = dict(
                 batch=batch,
                 calls_per_batch=sum(r["calls"] for r in rows),
                 max_abs_err=max(r["err"][0] for r in rows),
                 max_rel_err=max(r["err"][1] for r in rows),
-                ms=per_batch("ms"), plain_ms=per_batch("plain_ms"),
+                ms=ms, plain_ms=per_batch("plain_ms"),
                 bound_ms=total_bound,
                 bound_by="operations" if by_ops >= total_bound / 2 else "bytes",
                 library_ms=per_batch("library_ms"),
+                tflops=per_batch("flops") / ms / 1e9,
+                share_of_bound=total_bound / ms,
             )
+            s = summary[name][path]
+            log(f"  {path:4s} {name:14s} per batch: ms {ms:.3f}  plain {s['plain_ms']:.3f}  "
+                f"library {s['library_ms']:.3f}  bound {total_bound:.3f}  "
+                f"{s['tflops']:.2f} TFLOP/s  {100 * s['share_of_bound']:.1f} % of bound")
     return summary, detail
 
 
@@ -533,6 +546,10 @@ def main() -> int:
                     for line in text.splitlines():
                         if "registers" in line or "spill" in line:
                             log(f"  {stem}: {line.strip()}")
+                # ptxas reports static shared memory; lrp_a1b0_fused alone takes dynamic
+                smem = _build.kernel_fn("lrp_a1b0_fused_smem_bytes")
+                log(f"  dynamic shared memory: lrp_a1b0_fused {smem(64)} bytes (Cin <= 64, "
+                    f"4 warps), {smem(128)} bytes (Cin > 64, 8 warps); the other kernels 0")
                 summary, report["kernel_shapes"] = phase_kernels(dev, failures)
             elif key == "main":
                 built = None
@@ -575,7 +592,8 @@ def main() -> int:
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches[path][name], max_abs_err=s["max_abs_err"], ms=s["ms"],
                 plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-                library_ms=s["library_ms"], max_rel_err=s["max_rel_err"], path=path,
+                library_ms=s["library_ms"], tflops=s["tflops"],
+                share_of_bound=s["share_of_bound"], max_rel_err=s["max_rel_err"], path=path,
                 calls_per_batch=s["calls_per_batch"],
                 by_path={p: dict(v, launches=launches[p][name]) for p, v in by_path.items()},
                 launches_by_path={p: launches[p][name] for p in launches},

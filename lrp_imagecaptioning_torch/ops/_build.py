@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
 ``nvcc`` process, all started together, into ``build/kernels/`` beside the
 package (listed in ``.gitignore``). The library's file name carries a hash of
-its source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.
+its source, the headers in ``csrc/`` and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -27,11 +27,13 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # C signature of every exported function: name -> (source stem, argtypes)
 SIGNATURES = {
-    "lrp_linear_f32": ("lrp_linear", [_P, _P, _P, _P, _P, _I64, _I, _I, _P]),
+    "lrp_linear_f32": ("lrp_linear", [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),
     "lstm_gates_f32": ("lstm_gates", [_P, _P, _P, _P, _I64, _I, _P]),
     "conv3x3_fused_f32": ("conv3x3_fused",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "lrp_a1b0_fused_bf16": ("lrp_a1b0_fused", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # the dynamic shared memory (bytes) of the launch a layer with Cin channels takes
+    "lrp_a1b0_fused_smem_bytes": ("lrp_a1b0_fused", [_I]),
 }
 
 _lock = threading.Lock()
@@ -54,7 +56,8 @@ def _nvcc() -> str:
 
 def _target(stem: str) -> Path:
     src = (CSRC / f"{stem}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{stem}-{digest}.so"
 
 

@@ -21,6 +21,8 @@ design does about it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -53,6 +55,29 @@ def _launch(name: str, dev: torch.device, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
+LINEAR_TILE = 128   # csrc/lrp_linear.cu: BM = BN
+LINEAR_BK = 8       # k-slice depth
+LINEAR_MIN_SLICES = 8   # k-slices a split takes at least
+
+
+def lrp_linear_splits(m: int, n: int, k: int, sms: int) -> int:
+    """How many splits of K the ``lrp_linear`` kernel takes: as many as
+    still fit the blocks into one wave of two per SM where the M x N tiles
+    alone fill less, each split at least LINEAR_MIN_SLICES k-slices deep.
+    The kernel gives each split ceil(slices / splits) k-slices of
+    LINEAR_BK; the count returned leaves none empty."""
+    tiles = -(-m // LINEAR_TILE) * -(-n // LINEAR_TILE)
+    slices = -(-k // LINEAR_BK)
+    splits = max(1, min(2 * sms // tiles, slices // LINEAR_MIN_SLICES))
+    per = -(-slices // splits)
+    return -(-slices // per)
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """epsilon-LRP (eps = 1e-7) through ``z = x @ w``: r, z (..., Dout);
     x (..., Din); w (Din, Dout). Leading dims flatten into the kernel's M rows."""
@@ -66,9 +91,11 @@ def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tenso
                          f"z {tuple(z.shape)}, w {tuple(w.shape)}")
     m = x.numel() // din
     out = torch.empty_like(x)
+    splits = lrp_linear_splits(m, din, dout, _sm_count(dev))
+    part = torch.empty((splits, m, din), dtype=torch.float32, device=dev) if splits > 1 else None
     # w is (Din, Dout) row-major: exactly the kernel's (N, K) operand
     _launch("lrp_linear_f32", dev, r.data_ptr(), z.data_ptr(), x.data_ptr(), w.data_ptr(),
-            out.data_ptr(), m, dout, din)
+            out.data_ptr(), None if part is None else part.data_ptr(), m, dout, din, splits)
     lrp_linear.launches += 1
     return out
 
@@ -234,10 +261,10 @@ def lrp_a1b0_fused(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
         raise ValueError("lrp_a1b0_fused: r must start on a 16-byte boundary and x on an "
                          "8-byte one (vector loads)")
     kp, z = _positive_z(x, kernel, bias)
-    taps = flip_transpose_kernel(kp)
     out = torch.empty((n, h, w, cin), dtype=torch.bfloat16, device=dev)
+    # the kernel reads W+ (HWIO) with its taps flipped in the index: no copy
     _launch("lrp_a1b0_fused_bf16", dev, r.data_ptr(), z.data_ptr(), x.data_ptr(),
-            taps.data_ptr(), out.data_ptr(), n, h, w, cin, cout)
+            kp.data_ptr(), out.data_ptr(), n, h, w, cin, cout)
     lrp_a1b0_fused.launches += 1
     return out
 

@@ -122,6 +122,63 @@ def test_lrp_conv_a1b0_matches_pallas(jx):
     assert _rel_err(shared, tiled) < 1e-4
 
 
+# (M, N = Din, K = Dout) of the decoder backward's products at batch 8 and 56
+# (M = batch * 20 words; W_img's rows also run over the 196 grid cells), and
+# ragged and tiny cases
+SPLIT_SHAPES = [(160, 512, 7003), (1120, 512, 7003), (160, 1536, 512), (1120, 1536, 512),
+                (160, 512, 512), (1120, 512, 512), (31360, 512, 512), (219520, 512, 512),
+                (30, 24, 37), (1, 1, 1), (5, 7, 64), (200, 130, 9)]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("m,n,k", SPLIT_SHAPES)
+def test_lrp_linear_splits_cover_k(m, n, k, sms):
+    splits = kernels.lrp_linear_splits(m, n, k, sms)
+    assert splits >= 1
+    # the kernel's cut (csrc/lrp_linear.cu): ceil(slices / splits) k-slices a split
+    slices = -(-k // kernels.LINEAR_BK)
+    step = -(-slices // splits) * kernels.LINEAR_BK
+    ranges = [(s * step, min(k, (s + 1) * step)) for s in range(splits)]
+    assert len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+        assert e0 == b1                      # contiguous, no overlap
+    for b, e in ranges:
+        assert b < e                         # every split sums something
+        assert b % kernels.LINEAR_BK == 0    # whole k-slices: aligned float4 loads
+    tiles = -(-m // kernels.LINEAR_TILE) * -(-n // kernels.LINEAR_TILE)
+    if tiles >= 2 * sms:
+        assert splits == 1                   # enough blocks without a split
+
+
+def test_lrp_linear_splits_on_the_main_path():
+    """The thin products split at both batches, W_img never."""
+    split = {shape: kernels.lrp_linear_splits(*shape, 132) for shape in SPLIT_SHAPES[:8]}
+    assert split[(160, 512, 7003)] > 1 and split[(1120, 512, 7003)] > 1
+    assert split[(160, 1536, 512)] > 1 and split[(160, 512, 512)] > 1
+    assert split[(31360, 512, 512)] == 1 and split[(219520, 512, 512)] == 1
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 5, 7, 8, 16), (1, 4, 4, 12, 24)])
+def test_a1b0_taps_are_the_transposed_conv(n, h, w, cin, cout):
+    """The bf16 rule's kernel reads W+ (HWIO, as the wrapper passes it) as
+    9 (Cin, Cout) matrices, tap t = 3 dy + dx at kp[8 - t], i.e. W+ flipped
+    in both spatial axes, and sums s at the shifted pixel (h + dy - 1,
+    w + dx - 1) times tap t over Cout: an implicit GEMM equal to the
+    transposed conv."""
+    from lrp_imagecaptioning_torch.ops.lrp_conv import conv2d_input_vjp
+
+    rng = np.random.default_rng(14)
+    kp = torch.from_numpy(np.abs(rng.normal(size=(3, 3, cin, cout))))
+    s = torch.from_numpy(rng.normal(size=(n, h, w, cout)))
+    taps = kp.reshape(9, cin, cout)   # the kernel's view of the contiguous HWIO tensor
+    torch.testing.assert_close(taps.flip(0), kp.flip(0, 1).reshape(9, cin, cout), rtol=0, atol=0)
+    s_pad = torch.nn.functional.pad(s, (0, 0, 1, 1, 1, 1))   # SAME zeros outside the image
+    got = sum(s_pad[:, dy:dy + h, dx:dx + w, :] @ taps[8 - (3 * dy + dx)].T
+              for dy in range(3) for dx in range(3))
+    torch.testing.assert_close(got, conv2d_input_vjp(kp, s), rtol=1e-12, atol=1e-12)
+
+
 def test_conv3x3_fused_rejects_bad_arguments():
     x = torch.zeros(1, 4, 4, 8)
     with pytest.raises(ValueError, match="mode"):
@@ -141,8 +198,11 @@ class TestOnCard:
         torch.backends.cudnn.allow_tf32 = False
 
     def test_lrp_linear(self):
+        """Split-K with scalar loads (K = 7003 at M = 160 and 1120), split-K
+        with float4 loads (gate_g at M = 160), no split (W_img at 196 cells)."""
         rng = np.random.default_rng(20)
-        for lead, din, dout in [((3, 70), 512, 7003), ((130,), 1536, 512), ((2, 5, 196), 512, 512)]:
+        for lead, din, dout in [((3, 70), 512, 7003), ((130,), 1536, 512), ((2, 5, 196), 512, 512),
+                                ((160,), 512, 7003), ((1120,), 512, 7003), ((160,), 1536, 512)]:
             r, x, z, w = (_t(a, "cuda") for a in _linear_inputs(rng, lead, din, dout))
             before = kernels.lrp_linear.launches
             got = kernels.lrp_linear(r, x, z, w)
@@ -150,6 +210,21 @@ class TestOnCard:
             ref = kernels.lrp_linear_plain(r, x, z, w)
             torch.cuda.synchronize()
             assert _rel_err(got.cpu().numpy(), ref.cpu().numpy()) < 1e-4
+
+    def test_lrp_linear_largest_grid(self):
+        """W_img at the bf16 path's batch 56: M = 56 * 20 * 196 = 219 520 rows,
+        6 860 blocks; inputs made on the card."""
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        m, d = 219_520, 512
+        r, z, x = (torch.randn(m, d, generator=gen, device="cuda") for _ in range(3))
+        w = torch.randn(d, d, generator=gen, device="cuda") / d ** 0.5
+        before = kernels.lrp_linear.launches
+        got = kernels.lrp_linear(r, x, z, w)
+        assert kernels.lrp_linear.launches == before + 1
+        ref = kernels.lrp_linear_plain(r, x, z, w)
+        torch.cuda.synchronize()
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert err < 1e-4
 
     def test_lstm_gates(self):
         rng = np.random.default_rng(21)
@@ -194,10 +269,24 @@ class TestOnCard:
         they differ by summation order and at most one bf16 rounding of the
         output (2^-8 of a value; 1e-2 of the map's scale)."""
         rng = np.random.default_rng(23)
-        for n, h, w, cin, cout in [(20, 56, 56, 64, 64), (5, 28, 28, 128, 256),
-                                   (4, 14, 14, 512, 512), (3, 13, 19, 72, 16)]:
+        # 1 and 20 words; W a multiple of 16 or not (14^2, 13x19, 9x21); Cout a
+        # multiple of the Cout chunk or not (16 channels at Cin <= 64: 24;
+        # 32 above: 8, 16); Cin a whole 64- or 128-channel tile or not (32,
+        # 72, 192); z exactly 0
+        for n, h, w, cin, cout, zeros in [
+                (20, 56, 56, 64, 64, False), (1, 28, 28, 128, 256, False),
+                (4, 14, 14, 512, 512, False), (3, 13, 19, 72, 16, False),
+                (2, 13, 19, 192, 8, False), (20, 14, 14, 64, 48, False),
+                (5, 9, 21, 32, 24, False), (3, 16, 16, 128, 64, True)]:
             x, k, b, r = (_t(a, "cuda").bfloat16() for a in _conv_inputs(rng, n, h, w, cin, cout))
             x = x[:1].contiguous()   # one image shared by the n word seeds
+            if zeros:
+                # zero bias and all-zero 3x3 windows of x: z == 0 exactly, s = r / 1e-7
+                b = torch.zeros_like(b)
+                x[:, 2:7, 3:9] = 0
+                x[:, 11:, 12:] = 0
+                z = kernels.conv2d(x, k * (k >= 0))
+                assert int((z == 0).sum()) > 0
             before = kernels.lrp_a1b0_fused.launches
             got = kernels.lrp_a1b0_fused(r, x, k, b)
             assert kernels.lrp_a1b0_fused.launches == before + 1
@@ -205,6 +294,44 @@ class TestOnCard:
             torch.cuda.synchronize()
             assert got.dtype == torch.bfloat16 and got.shape == (n, h, w, cin)
             assert _rel_err(got.float().cpu().numpy(), ref.float().cpu().numpy()) < 1e-2
+
+    def test_lrp_a1b0_fused_divides_exactly(self):
+        """W+ the identity at the centre tap leaves one exact product per
+        output, so the kernel's out must equal bf16(x * bf16(r / safe(z)))
+        bit for bit, over r from 2^-100 to 2^100 (past the divide's fast
+        range both ways) and z with exact zeros, on both block tiles
+        (C = 64 and 128)."""
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        n, h, w = 6, 30, 35
+        for c in (64, 128):
+            k = torch.zeros(3, 3, c, c, device="cuda")
+            k[1, 1] = torch.eye(c, device="cuda")
+            x = torch.rand(1, h, w, c, generator=gen, device="cuda") * 4
+            x[:, :, :3] = 0                  # z = b there, exactly 0 where b is
+            b = torch.randn(c, generator=gen, device="cuda")
+            b[:8] = 0
+            scale = 2.0 ** torch.randint(-100, 101, (n, h, w, c), generator=gen, device="cuda")
+            r = torch.randn(n, h, w, c, generator=gen, device="cuda") * scale
+            r, x, k, b = (t.bfloat16() for t in (r, x, k, b))
+            got = kernels.lrp_a1b0_fused(r, x, k, b)
+            zf = kernels._positive_z(x, k, b)[1].float()
+            assert int((zf == 0).sum()) > 0
+            s = (r.float() / (zf + (zf == 0).float() * 1e-7)).bfloat16()
+            assert torch.equal(got, (x.float() * s.float()).bfloat16())
+
+    def test_lrp_linear_divides_exactly(self):
+        """W the identity leaves one exact product per output: the kernel's
+        out must equal x * (r / stab(z)) bit for bit, with float4 loads
+        (K = 64) and scalar ones (K = 67), r from 2^-100 to 2^100."""
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        for m, k in ((300, 64), (300, 67)):
+            scale = 2.0 ** torch.randint(-100, 101, (m, k), generator=gen, device="cuda")
+            r = torch.randn(m, k, generator=gen, device="cuda") * scale
+            z = torch.randn(m, k, generator=gen, device="cuda")
+            z[:, :5] = 0
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            got = kernels.lrp_linear(r, x, z, torch.eye(k, device="cuda"))
+            assert torch.equal(got, x * (r / (z + torch.where(z >= 0, 1e-7, -1e-7))))
 
     def test_lrp_a1b0_fused_rejects_bad_inputs(self):
         x = torch.ones(1, 4, 4, 8, device="cuda", dtype=torch.bfloat16)
