@@ -16,23 +16,31 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             conv3x3_fused, F.conv_transpose2d in bf16 for lrp_a1b0_fused; the
             port never calls these). Bounds use the H100 SXM peaks: 3.35 TB/s,
             67 TFLOP/s f32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
-            cores for the bf16 rule. Each row and each kernel's per-batch
+            cores for the bf16 rule, 495 TFLOP/s TF32 for conv3x3_fused's
+            three products per f32 product (3xTF32; its CUDA-core bound is
+            logged beside). Each row and each kernel's per-batch
             sum gives the achieved TFLOP/s and the share of the bound
-            (bound ms / ms). Phase 2 takes the f32 path's shapes
+            (bound ms / ms). lstm_gates and its library call are timed as
+            20 launches replayed from a CUDA graph, as the path runs them,
+            and eagerly beside. Phase 2 takes the f32 path's shapes
             (batch 8), 2b the bf16 path's (batch 56: lrp_linear, lstm_gates,
             and lrp_a1b0_fused at the 12 post-ReLU conv shapes, 20 words);
 3. main:    VGG16 / adaptive attention at full width (224x224 input, 14x14x512
             grid, E = H = 512, vocab 7003, beam 3, T = 20) on random weights
-            from seed 0, f32, batch 8: one warm-up pass, one per-stage pass and
-            one counted pass through ``caption_and_explain``; every kernel's
-            launch count must match its calls on that path;
+            from seed 0, f32, batch 8: one warm-up pass (it captures the
+            caption and decoder-LRP graphs), one per-stage pass, the same
+            two stages eagerly (held equal to the graphs), and one counted
+            pass through ``caption_and_explain``; every kernel's launch
+            count must match its calls on that path;
 3b. main, bf16: the same at bench's batch 56 in bf16 storage
             (``build(storage_dtype=torch.bfloat16)``, bench.py's default mode);
 4. card vs CPU: one image on the card and on the CPU (plain versions),
             tokens equal and maps within a stated tolerance, with the CNN LRP
             cut to the first 2 word seeds to keep the CPU time short;
 4b. card vs CPU, bf16: one image in bf16 on the card and on the CPU, both
-            held to a CPU-f32 run of the same image and words.
+            held to a CPU-f32 run of the same image and words;
+5.    card tests: ``pytest --noconftest -m cuda`` over the kernel and graph
+            tests, in a child process.
 
 Prints the ``{"kernels": [...]}`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``. Per-shape detail goes to
@@ -56,6 +64,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12    # H100 SXM f32 outside the tensor cores
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
+PEAK_TF32_FLOP_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
+GRAPH_REPS = 20            # K2 launches a graph replays per timing (one decoder loop)
 B_MAIN, VOCAB, BEAM, T = 8, 7003, 3, 20
 B_BF16 = 56                # bench.py's batch
 E = H = D = 512
@@ -106,9 +116,25 @@ def time_ms(fn, min_total_ms: float = 30.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S):
+def graph_ms(fn, reps: int = GRAPH_REPS) -> float:
+    """Mean device time of one ``fn`` call when ``reps`` of them replay from
+    one CUDA graph (no host launch time between them), by CUDA events."""
+    from lrp_imagecaptioning_torch.graphs import capture
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    graph, _ = capture(calls)
+    return time_ms(graph.replay) / reps
+
+
+def bound_ms(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S,
+             more_ops_ms: float = 0.0):
+    """The larger of the bytes' and the operations' least time; ``more_ops_ms``
+    adds operations at another peak (K3's f32 epilogue beside its TF32 MMAs)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / peak_flop_s * 1e3
+    t_ops = flops / peak_flop_s * 1e3 + more_ops_ms
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -169,22 +195,33 @@ def check_lstm_gates(gen, dev, batch):
 
     rows = []
     for name, b in (("beam", batch * BEAM), ("cached_forward", batch)):
-        z = torch.randn(b, 4 * H, generator=gen, device=dev) * 2
+        zx = torch.randn(b, 4 * H, generator=gen, device=dev)
+        zh = torch.randn(b, 4 * H, generator=gen, device=dev)
+        bias = torch.randn(4 * H, generator=gen, device=dev)
         c = torch.randn(b, H, generator=gen, device=dev)
-        h1, c1 = kernels.lstm_gates(z, c)
-        h0, c0 = kernels.lstm_gates_plain(z, c)
-        err = max(rel_err(h1, h0), rel_err(c1, c0))
-        # ATen's fused LSTM-cell tail (CUDA only), gates [i, f, g, o] from
-        # input + hidden gates
+        z1, h1, c1 = kernels.lstm_gates(zx, zh, bias, c)
+        z0, h0, c0 = kernels.lstm_gates_plain(zx, zh, bias, c)
+        # z_pre must be bit for bit the plain sum: its error joins h's and c's
+        err = max(rel_err(z1, z0), rel_err(h1, h0), rel_err(c1, c0))
+        # ATen's fused LSTM cell (CUDA only): the same function, gates
+        # [i, f, g, o] from input gates + hidden gates + input bias
+        # (it takes both biases or neither: the hidden one is 0 here)
         fused_cell = torch.ops.aten._thnn_fused_lstm_cell
-        zero = torch.zeros_like(z)
-        hl, cl, _ = fused_cell(z, zero, c)
-        rows.append(dict(shape=name, B=b, H=H, calls=T, err=err,
+        zero_bias = torch.zeros_like(bias)
+        hl, cl, _ = fused_cell(zx, zh, c, bias, zero_bias)
+        kern = lambda: kernels.lstm_gates(zx, zh, bias, c)
+        lib = lambda: fused_cell(zx, zh, c, bias, zero_bias)
+        # the path replays K2 from CUDA graphs: its time is the in-graph
+        # device time; the eager time (host launch cost included) stands beside it
+        rows.append(dict(shape=name, B=b, H=H, calls=T, err=err, z_pre_exact=bool(torch.equal(z1, z0)),
                          library_err=max(rel_err(hl, h0), rel_err(cl, c0)),
-                         ms=time_ms(lambda: kernels.lstm_gates(z, c)),
-                         plain_ms=time_ms(lambda: kernels.lstm_gates_plain(z, c)),
-                         library_ms=time_ms(lambda: fused_cell(z, zero, c)),
-                         flops=10 * b * H, bound=bound_ms(4 * (b * 4 * H + 3 * b * H), 10 * b * H)))
+                         ms=graph_ms(kern), eager_ms=time_ms(kern),
+                         plain_ms=time_ms(lambda: kernels.lstm_gates_plain(zx, zh, bias, c)),
+                         library_ms=graph_ms(lib), library_eager_ms=time_ms(lib),
+                         # 8 adds for z_pre, then the tail's 5 transcendentals and 5 ops
+                         flops=18 * b * H,
+                         # zx, zh (4H), c_prev (H) read, z_pre (4H), h, c (H) written; b
+                         bound=bound_ms(4 * (b * 15 * H + 4 * H), 18 * b * H)))
     return rows
 
 
@@ -207,21 +244,29 @@ def check_conv3x3_fused(gen, dev, batch):
                        lambda: kernels.conv3x3_fused_plain(x, r, kp, b, "divide"),
                        x, kp,
                        4 * (hw * cin + 2 * n * hw * cout + 9 * cin * cout + cout),
-                       2 * hw * 9 * cin * cout + 3 * n * hw * cout),
+                       2 * hw * 9 * cin * cout, 3 * n * hw * cout),
             # multiply: out = x * conv(s, flipT(W+)) for N seeds
             "multiply": (lambda: kernels.conv3x3_fused(s, x, kt, None, "multiply"),
                          lambda: kernels.conv3x3_fused_plain(s, x, kt, None, "multiply"),
                          s, kt,
                          4 * (n * hw * cout + hw * cin + 9 * cin * cout + n * hw * cin),
-                         2 * n * hw * 9 * cin * cout + n * hw * cin),
+                         2 * n * hw * 9 * cin * cout, n * hw * cin),
         }
-        for mode, (kern, plain, conv_in, taps, nbytes, flops) in passes.items():
+        for mode, (kern, plain, conv_in, taps, nbytes, conv_flops, epi_flops) in passes.items():
             conv_nchw, taps_oihw = conv_in.permute(0, 3, 1, 2), taps.permute(3, 2, 0, 1)
+            ms = time_ms(kern)
+            flops = conv_flops + epi_flops
             rows.append(dict(shape=f"{name}/{mode}", N=n, H=size, W=size, Cin=cin, Cout=cout,
                              calls=batch, err=rel_err(kern(), plain()),
-                             ms=time_ms(kern), plain_ms=time_ms(plain),
+                             ms=ms, plain_ms=time_ms(plain),
                              library_ms=time_ms(lambda: F.conv2d(conv_nchw, taps_oihw, padding=1)),
-                             flops=flops, bound=bound_ms(nbytes, flops)))
+                             flops=flops,
+                             # 3xTF32: three tensor-core products per f32 product,
+                             # the f32 epilogue on the CUDA cores
+                             tc_flops=3 * conv_flops, tc_tflops=3 * conv_flops / ms / 1e9,
+                             bound=bound_ms(nbytes, 3 * conv_flops, PEAK_TF32_FLOP_S,
+                                            epi_flops / PEAK_F32_FLOP_S * 1e3),
+                             bound_cuda_core=bound_ms(nbytes, flops)))
         del x, r, s
     return rows
 
@@ -300,13 +345,21 @@ def phase_kernels(dev, failures):
                 row["path"] = path
                 row["tflops"] = row["flops"] / row["ms"] / 1e9
                 row["share_of_bound"] = row["bound"][0] / row["ms"]
-                lib_err = f"  library rel {row['library_err'][1]:.3e}" if "library_err" in row else ""
+                extra = f"  library rel {row['library_err'][1]:.3e}" if "library_err" in row else ""
+                if "eager_ms" in row:
+                    extra += (f"  (in a graph; eager {row['eager_ms']:.4f}, library eager "
+                              f"{row['library_eager_ms']:.4f}; z_pre exact {row['z_pre_exact']})")
+                if "bound_cuda_core" in row:
+                    extra += (f"  tensor cores {row['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
+                              f"{row['bound_cuda_core'][0]:.4f}")
                 log(f"  {path:4s} {name:14s} {row['shape']:22s} calls/batch {row['calls']:3d}  "
                     f"max_abs {row['err'][0]:.3e} rel {row['err'][1]:.3e}  ms {row['ms']:.4f}  "
                     f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  "
                     f"bound {row['bound'][0]:.4f} ({row['bound'][1]})  "
                     f"{row['tflops']:.2f} TFLOP/s  {100 * row['share_of_bound']:.1f} % of bound"
-                    f"{lib_err}")
+                    f"{extra}")
+                if row.get("z_pre_exact") is False:
+                    failures.append(f"{name} {row['shape']} ({path}): z_pre differs from the plain sum")
                 if (row["err"][0] if kind == "abs" else row["err"][1]) > tol:
                     failures.append(f"{name} {row['shape']} ({path}) disagrees with its plain "
                                     f"version: {row['err']}")
@@ -328,9 +381,20 @@ def phase_kernels(dev, failures):
                 share_of_bound=total_bound / ms,
             )
             s = summary[name][path]
+            extra = ""
+            if "eager_ms" in rows[0]:
+                s.update(eager_ms=per_batch("eager_ms"), library_eager_ms=per_batch("library_eager_ms"))
+                extra = (f"  (in graphs; eager {s['eager_ms']:.3f}, library eager "
+                         f"{s['library_eager_ms']:.3f})")
+            if "bound_cuda_core" in rows[0]:
+                s.update(tc_tflops=per_batch("tc_flops") / ms / 1e9,
+                         bound_cuda_core_ms=sum(r["bound_cuda_core"][0] * r["calls"] for r in rows))
+                s["share_of_cuda_core_bound"] = s["bound_cuda_core_ms"] / ms
+                extra = (f"  tensor cores {s['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
+                         f"{s['bound_cuda_core_ms']:.3f} ({100 * s['share_of_cuda_core_bound']:.1f} %)")
             log(f"  {path:4s} {name:14s} per batch: ms {ms:.3f}  plain {s['plain_ms']:.3f}  "
                 f"library {s['library_ms']:.3f}  bound {total_bound:.3f}  "
-                f"{s['tflops']:.2f} TFLOP/s  {100 * s['share_of_bound']:.1f} % of bound")
+                f"{s['tflops']:.2f} TFLOP/s  {100 * s['share_of_bound']:.1f} % of bound{extra}")
     return summary, detail
 
 
@@ -371,6 +435,22 @@ def phase_main(dev, failures, batch=B_MAIN, storage_dtype=None):
     stage_ms = {"caption": (t1 - t0) * 1e3, "decoder_lrp": (t2 - t1) * 1e3,
                 "cnn_lrp": (t3 - t2) * 1e3}
     del r_feat
+    # the same two stage functions the graphs captured, called eagerly
+    eager = fn.eager_stages
+    t0 = time.perf_counter()
+    feat_e, tokens_e = eager["caption"](params, images)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r_feat_e = eager["decoder_lrp"](params, feat_e, tokens_e)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stage_ms.update(caption_eager=(t1 - t0) * 1e3, decoder_lrp_eager=(t2 - t1) * 1e3)
+    r_feat = st["decoder_lrp"](params, feat_e, tokens_e)
+    graph_vs_eager = dict(tokens_equal=bool(torch.equal(tokens, tokens_e)),
+                          r_feat_rel=rel_err(r_feat, r_feat_e)[1])
+    if not graph_vs_eager["tokens_equal"] or graph_vs_eager["r_feat_rel"] > 1e-6:
+        failures.append(f"graphed stages differ from the eager ones: {graph_vs_eager}")
+    del r_feat, r_feat_e, feat_e
 
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -380,11 +460,24 @@ def phase_main(dev, failures, batch=B_MAIN, storage_dtype=None):
     total_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    reserved_gib = torch.cuda.max_memory_reserved() / 2**30
+    # the CUDA graphs' private memory pools: segments outside the default
+    # pool, in all and for the one graph each stage keeps
+    segments = [(tuple(seg.get("segment_pool_id", (0, 0))), seg["total_size"])
+                for seg in torch.cuda.memory_snapshot()]
+    pools_gib = sum(size for pool, size in segments if pool != (0, 0)) / 2**30
+    stage_pools_gib = {name: sum(size for pool, size in segments
+                                 if pool == tuple(run.entry.graph.pool())) / 2**30
+                       for name, run in fn.graphed.items()}
+    captures = {k: g.captures for k, g in fn.graphed.items()}
 
-    log(f"  warm-up pass {warm_s * 1e3:.1f} ms (first calls included)")
+    log(f"  warm-up pass {warm_s * 1e3:.1f} ms (first calls and graph captures included)")
     log(f"  stages ms: " + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items()))
+    log(f"  graphs vs eager: {graph_vs_eager}; captures {captures}")
     log(f"  counted pass {total_s * 1e3:.1f} ms = {batch / total_s:.3f} img/s at batch {batch}; "
-        f"peak memory {peak_gib:.2f} GiB")
+        f"peak memory {peak_gib:.2f} GiB allocated, {reserved_gib:.2f} GiB reserved; "
+        f"the graphs' pools hold {pools_gib:.2f} GiB "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in stage_pools_gib.items())})")
     log(f"  launches {launches}")
     log(f"  tokens[0] {tokens[0].tolist()}")
     if tuple(tokens.shape) != (batch, T):
@@ -397,7 +490,9 @@ def phase_main(dev, failures, batch=B_MAIN, storage_dtype=None):
         failures.append("a heatmap is all zeros")
     main = dict(batch=batch, storage_dtype=str(storage_dtype), warm_ms=warm_s * 1e3,
                 stage_ms=stage_ms, total_ms=total_s * 1e3, img_per_s=batch / total_s,
-                peak_gib=peak_gib, launches=launches, tokens0=tokens[0].tolist())
+                peak_gib=peak_gib, reserved_gib=reserved_gib, graph_pools_gib=pools_gib,
+                stage_pools_gib=stage_pools_gib, graph_vs_eager=graph_vs_eager,
+                captures=captures, launches=launches, tokens0=tokens[0].tolist())
     del heatmaps
     return launches, main, (fn, cap, cfg, params, images)
 
@@ -504,6 +599,28 @@ def phase_cpu_bf16(built, failures):
     return out
 
 
+CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py"]
+
+
+def phase_card_tests(failures):
+    """The tests marked ``cuda`` (kernel edges, graphs against eager), in a
+    child pytest without the repo's conftest (it imports JAX)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+           "-p", "no:cacheprovider", *CARD_TESTS]
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    log(f"  {' '.join(cmd[2:])}: rc {proc.returncode}, {summary}")
+    if proc.returncode != 0:
+        log("\n".join(lines[-40:]))
+        failures.append(f"card tests failed: {summary}")
+    return dict(rc=proc.returncode, summary=summary)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test runs on the card only",
@@ -531,7 +648,8 @@ def main() -> int:
               (f"phase 3: main path at full width, f32, batch {B_MAIN}", "main"),
               ("phase 4: card vs CPU, one image, f32", "cpu"),
               (f"phase 3b: main path at full width, bf16 storage, batch {B_BF16}", "main_bf16"),
-              ("phase 4b: card vs CPU, one image, bf16", "cpu_bf16")]
+              ("phase 4b: card vs CPU, one image, bf16", "cpu_bf16"),
+              ("phase 5: card tests", "card_tests")]
     summary = built = None
     launches = {}   # path -> {kernel: launches in its counted pass}
     t_start = time.perf_counter()
@@ -546,10 +664,13 @@ def main() -> int:
                     for line in text.splitlines():
                         if "registers" in line or "spill" in line:
                             log(f"  {stem}: {line.strip()}")
-                # ptxas reports static shared memory; lrp_a1b0_fused alone takes dynamic
+                # ptxas reports static shared memory; these two take dynamic
                 smem = _build.kernel_fn("lrp_a1b0_fused_smem_bytes")
+                conv_smem = _build.kernel_fn("conv3x3_fused_smem_bytes")
                 log(f"  dynamic shared memory: lrp_a1b0_fused {smem(64)} bytes (Cin <= 64, "
-                    f"4 warps), {smem(128)} bytes (Cin > 64, 8 warps); the other kernels 0")
+                    f"4 warps), {smem(128)} bytes (Cin > 64, 8 warps); conv3x3_fused "
+                    f"{conv_smem(0)} bytes (8x16 pixels x 64 Cout, 4 warps), {conv_smem(1)} "
+                    f"bytes (4x16 x 32, 2 warps); the other kernels 0")
                 summary, report["kernel_shapes"] = phase_kernels(dev, failures)
             elif key == "main":
                 built = None
@@ -560,6 +681,9 @@ def main() -> int:
                 dtype, batch = PATHS["bf16"]
                 launches["bf16"], report["main_bf16"], built = phase_main(
                     dev, failures, batch, dtype)
+            elif key == "card_tests":
+                built = None
+                report["card_tests"] = phase_card_tests(failures)
             elif built is None:
                 failures.append(f"{title} skipped: its main path did not run")
             elif key == "cpu":
@@ -597,6 +721,8 @@ def main() -> int:
                 calls_per_batch=s["calls_per_batch"],
                 by_path={p: dict(v, launches=launches[p][name]) for p, v in by_path.items()},
                 launches_by_path={p: launches[p][name] for p in launches},
+                **{k: s[k] for k in ("eager_ms", "library_eager_ms", "tc_tflops",
+                                     "bound_cuda_core_ms", "share_of_cuda_core_bound") if k in s},
                 **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})))
     report.update(card=card_line, kernels=kernels_line, failures=failures)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -37,7 +37,7 @@ def explain_word_adaptive(params, consts, caches, words_0based: torch.Tensor):
     E = params["embedding"].shape[-1]
     dev, dtype = caches.h.device, caches.h.dtype
     R = B * T
-    b_idx = torch.arange(B, device=dev).repeat_interleave(T)   # row -> image
+    b_idx = torch.arange(B, device=dev)[:, None].expand(B, T).reshape(R)   # row -> image
     t_idx = torch.arange(T, device=dev).repeat(B)              # row -> explained step
     a_wi, a_wh = params["lstm"]["wi"], params["lstm"]["wh"]
     # gate-g weight block: rows [x; h], columns g

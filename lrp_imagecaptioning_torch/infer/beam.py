@@ -53,7 +53,10 @@ def beam_search(captioner, params, feat_grid: torch.Tensor, sos_id_1based: int,
     emb = params["decoder"]["embedding"]
 
     consts = captioner.prepare_consts(params, feat_grid)
-    consts_k = type(consts)(*(x.repeat_interleave(K, dim=0) for x in consts))
+    # each image's constants K times in a row (row b * K + k), by expand: no
+    # host sync, so the search can be captured in a CUDA graph
+    consts_k = type(consts)(*(x[:, None].expand(B, K, *x.shape[1:]).reshape(B * K, *x.shape[1:])
+                              for x in consts))
 
     state = dec.init_state(B * K, H, dev)
     tokens = torch.full((B, K), sos_id_1based - 1, dtype=torch.long, device=dev)

@@ -2,8 +2,8 @@
 
 Gate layout follows Keras: z = [i, f, g, o] concatenated on the last axis;
 recurrent activation sigmoid, activation tanh; ``unit_forget_bias`` adds +1
-to the forget-gate bias at init. The gate tail runs in the ``lstm_gates``
-kernel (ops/kernels.py).
+to the forget-gate bias at init. The two adds of the gate pre-activations
+and the gate tail run in the ``lstm_gates`` kernel (ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -58,8 +58,8 @@ def lstm_init(gen: torch.Generator, in_dim: int, hidden: int):
 def lstm_step(params, x: torch.Tensor, state: LSTMState):
     """One LSTM step (no dropout). Returns (new_state, cache)."""
     h, c = state
-    z = x @ params["wi"] + h @ params["wh"] + params["b"]
-    h_new, c_new = lstm_gates(z, c)
+    # z = x @ wi + h @ wh + b: the two adds are in the kernel, in this order
+    z, h_new, c_new = lstm_gates(x @ params["wi"], h @ params["wh"], params["b"], c)
     return LSTMState(h_new, c_new), LSTMCache(z_pre=z, c=c_new)
 
 

@@ -28,9 +28,11 @@ _I64 = ctypes.c_int64
 # C signature of every exported function: name -> (source stem, argtypes)
 SIGNATURES = {
     "lrp_linear_f32": ("lrp_linear", [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),
-    "lstm_gates_f32": ("lstm_gates", [_P, _P, _P, _P, _I64, _I, _P]),
+    "lstm_gates_f32": ("lstm_gates", [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _P]),
     "conv3x3_fused_f32": ("conv3x3_fused",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # the dynamic shared memory (bytes) of the big (0) or the small (1) tile
+    "conv3x3_fused_smem_bytes": ("conv3x3_fused", [_I]),
     "lrp_a1b0_fused_bf16": ("lrp_a1b0_fused", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # the dynamic shared memory (bytes) of the launch a layer with Cin channels takes
     "lrp_a1b0_fused_smem_bytes": ("lrp_a1b0_fused", [_I]),

@@ -104,31 +104,45 @@ lrp_linear.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2  LSTM gate tail: (z_pre (B, 4H) [i, f, g, o], c_prev (B, H)) -> (h, c)
+# K2  LSTM step tail: (zx, zh (B, 4H) [i, f, g, o], b (4H,), c_prev (B, H))
+#     -> (z_pre = zx + zh + b, h, c)
 # ---------------------------------------------------------------------------
 
 
-def lstm_gates_plain(z_pre: torch.Tensor, c_prev: torch.Tensor):
+def lstm_gates_plain(zx: torch.Tensor, zh: torch.Tensor, bias: torch.Tensor,
+                     c_prev: torch.Tensor):
+    z_pre = zx + zh + bias
     zi, zf, zg, zo = z_pre.chunk(4, dim=-1)
     c = torch.sigmoid(zf) * c_prev + torch.sigmoid(zi) * torch.tanh(zg)
     h = torch.sigmoid(zo) * torch.tanh(c)
-    return h, c
+    return z_pre, h, c
 
 
-def lstm_gates(z_pre: torch.Tensor, c_prev: torch.Tensor):
-    """Gate nonlinearities + cell update; returns (h, c)."""
-    if z_pre.device.type == "cpu":
-        return lstm_gates_plain(z_pre, c_prev)
-    dev = _check_cuda("lstm_gates", z_pre, c_prev)
+def lstm_gates(zx: torch.Tensor, zh: torch.Tensor, bias: torch.Tensor, c_prev: torch.Tensor):
+    """The gate pre-activations ``z_pre = (zx + zh) + bias``, then the gate
+    nonlinearities and the cell update, in one launch; returns (z_pre, h, c).
+    zx = x @ W_i and zh = h_prev @ W_h: (B, 4H); bias (4H,); c_prev (B, H)."""
+    if zx.device.type == "cpu":
+        return lstm_gates_plain(zx, zh, bias, c_prev)
+    dev = _check_cuda("lstm_gates", zx, zh, bias, c_prev)
     hidden = c_prev.shape[-1]
-    if z_pre.shape[:-1] != c_prev.shape[:-1] or z_pre.shape[-1] != 4 * hidden:
-        raise ValueError(f"lstm_gates: z_pre {tuple(z_pre.shape)}, c_prev {tuple(c_prev.shape)}")
+    if (zx.shape != zh.shape or zx.shape[:-1] != c_prev.shape[:-1]
+            or zx.shape[-1] != 4 * hidden or tuple(bias.shape) != (4 * hidden,)):
+        raise ValueError(f"lstm_gates: zx {tuple(zx.shape)}, zh {tuple(zh.shape)}, "
+                         f"bias {tuple(bias.shape)}, c_prev {tuple(c_prev.shape)}")
+    if hidden % 4:
+        raise ValueError(f"lstm_gates: H must be a multiple of 4 (float4 loads), got {hidden}")
+    if any(t.data_ptr() % 16 for t in (zx, zh, bias, c_prev)):
+        raise ValueError("lstm_gates: zx, zh, bias and c_prev must start on a 16-byte boundary "
+                         "(float4 loads)")
+    z_pre = torch.empty_like(zx)
     h = torch.empty_like(c_prev)
     c = torch.empty_like(c_prev)
-    _launch("lstm_gates_f32", dev, z_pre.data_ptr(), c_prev.data_ptr(), h.data_ptr(),
-            c.data_ptr(), c_prev.numel() // hidden, hidden)
+    _launch("lstm_gates_f32", dev, zx.data_ptr(), zh.data_ptr(), bias.data_ptr(),
+            c_prev.data_ptr(), z_pre.data_ptr(), h.data_ptr(), c.data_ptr(),
+            c_prev.numel() // hidden, hidden)
     lstm_gates.launches += 1
-    return h, c
+    return z_pre, h, c
 
 
 lstm_gates.launches = 0
@@ -155,7 +169,8 @@ def conv3x3_fused(x: torch.Tensor, ew: torch.Tensor, kernel: torch.Tensor,
 
     x: (Nc, H, W, Cin) conv input; ew: (Ne, H, W, Cout); kernel: (3, 3, Cin, Cout)
     HWIO; bias: (Cout,) or None. Nc and Ne are each 1 or N: a batch-1 operand is
-    shared by all N rows of the (N, H, W, Cout) result."""
+    shared by all N rows of the (N, H, W, Cout) result. On the card Cin and Cout
+    are multiples of 4 and every tensor starts on a 16-byte boundary."""
     if mode not in MODES:
         raise ValueError(f"conv3x3_fused: mode {mode!r} not in {MODES}")
     if x.device.type == "cpu":
@@ -171,15 +186,16 @@ def conv3x3_fused(x: torch.Tensor, ew: torch.Tensor, kernel: torch.Tensor,
         raise ValueError(f"conv3x3_fused: x {tuple(x.shape)}, ew {tuple(ew.shape)}, "
                          f"kernel {tuple(kernel.shape)}, bias "
                          f"{None if bias is None else tuple(bias.shape)}")
-    if cout % 4:
-        raise ValueError(f"conv3x3_fused: Cout must be a multiple of 4 (float4 epilogue), got {cout}")
+    if cout % 4 or cin % 4:
+        raise ValueError(f"conv3x3_fused: Cin and Cout must be multiples of 4 (16-byte copies), "
+                         f"got Cin {cin}, Cout {cout}")
     if mode == "multiply" and bias is not None:
         raise ValueError("conv3x3_fused: bias applies to the divide mode only")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("conv3x3_fused: x, ew, kernel and bias must start on a 16-byte "
+                             "boundary (16-byte copies)")
     out = torch.empty((n, h, w, cout), dtype=torch.float32, device=dev)
-    for t in (ew, bias, out):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError("conv3x3_fused: ew, bias and out must start on a 16-byte "
-                             "boundary (float4 epilogue)")
     _launch("conv3x3_fused_f32", dev, x.data_ptr(), ew.data_ptr(), kernel.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), n, nc, ne, h, w, cin, cout,
             int(mode == "divide"))

@@ -15,6 +15,11 @@ Two modes, one per setting of bench:
   operands are bf16 (``compute_dtype``) and the CNN LRP holds its params,
   activations and relevances in bf16 (``storage_dtype``). Beam search and
   the decoder LRP stay f32, as in bench.
+
+On a CUDA device the caption stage's beam search (after the eager encode)
+and the whole decoder-LRP stage replay from CUDA graphs (``graphs.py``),
+keyed on the input shapes and the params' pointers; ``.eager_stages`` holds
+the same two stages without graphs.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from .config import FlickrConfig
 from .explain.cnn_lrp import vgg_lrp_preset_a_wordbatched
 from .explain.decoder_lrp import explain_word_adaptive
+from .graphs import GraphedStage, param_tensors
 from .infer.beam import beam_search
 from .models.captioner import build_captioner
 from .runtime import resolve_device
@@ -48,11 +54,8 @@ def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: 
     cap = build_captioner("adaptiveattention", cfg, vocab_size)
     grid = int(round(math.sqrt(cfg.img_feature_length)))
 
-    def stage_caption(params, images):
-        # f32 operands when storage_dtype is None, whatever cfg.compute_dtype says
-        feat_grid = cap.encode(params, images, storage_dtype or torch.float32)  # (B, L, D) f32
-        tokens, _ = beam_search(cap, params, feat_grid, sos, eos, beam, T)
-        return feat_grid, tokens
+    def search(params, feat_grid):
+        return beam_search(cap, params, feat_grid, sos, eos, beam, T)
 
     def stage_decoder_lrp(params, feat_grid, tokens):
         B = tokens.shape[0]
@@ -64,6 +67,25 @@ def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: 
         words0 = torch.clamp(tokens - 1, min=0)
         r_feat, _, _ = explain_word_adaptive(params["decoder"], consts, caches, words0)
         return r_feat                                              # (B, T, L, D)
+
+    # on the card the two host-bound loops replay from CUDA graphs (graphs.py)
+    run_search, run_decoder_lrp, graphed = search, stage_decoder_lrp, {}
+    if dev.type == "cuda":
+        def decoder_params(params):
+            return param_tensors(params["decoder"])
+        run_search = GraphedStage(search, decoder_params)
+        run_decoder_lrp = GraphedStage(stage_decoder_lrp, decoder_params)
+        graphed = {"beam_search": run_search, "decoder_lrp": run_decoder_lrp}
+
+    def caption_with(search_fn):
+        def stage_caption(params, images):
+            # f32 operands when storage_dtype is None, whatever cfg.compute_dtype says
+            feat_grid = cap.encode(params, images, storage_dtype or torch.float32)  # (B, L, D)
+            tokens, _ = search_fn(params, feat_grid)
+            return feat_grid, tokens
+        return stage_caption
+
+    stage_caption = caption_with(run_search)
 
     def stage_cnn_lrp(params, images, r_feat):
         """Any number of words per image: r_feat (B, Tw, L, D)."""
@@ -80,12 +102,18 @@ def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: 
     def caption_and_explain(params, images):
         images = torch.as_tensor(images, dtype=torch.float32, device=dev).contiguous()
         feat_grid, tokens = stage_caption(params, images)
-        r_feat = stage_decoder_lrp(params, feat_grid, tokens)
+        r_feat = run_decoder_lrp(params, feat_grid, tokens)
         return tokens, stage_cnn_lrp(params, images, r_feat)
 
     caption_and_explain.stages = {
         "caption": torch.no_grad()(stage_caption),
-        "decoder_lrp": torch.no_grad()(stage_decoder_lrp),
+        "decoder_lrp": torch.no_grad()(run_decoder_lrp),
         "cnn_lrp": torch.no_grad()(stage_cnn_lrp),
     }
+    # the same stage functions without graphs, as the CPU runs them
+    caption_and_explain.eager_stages = {
+        "caption": torch.no_grad()(caption_with(search)),
+        "decoder_lrp": torch.no_grad()(stage_decoder_lrp),
+    }
+    caption_and_explain.graphed = graphed   # name -> GraphedStage; empty on the CPU
     return caption_and_explain, cap

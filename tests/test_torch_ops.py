@@ -97,8 +97,11 @@ def test_lrp_conv_alpha_beta_shared_input_broadcasts():
     for nonneg in (False, True):
         shared = tconv.lrp_conv_alpha_beta(_t(r), _t(x), _t(k), _t(b), input_nonneg=nonneg)
         tiled = tconv.lrp_conv_alpha_beta(_t(r), _t(np.repeat(x, 3, 0)), _t(k), _t(b),
-                                          input_nonneg=nonneg)
-        np.testing.assert_allclose(shared.numpy(), tiled.numpy(), rtol=1e-6, atol=1e-7)
+                                          input_nonneg=nonneg).numpy()
+        # the CPU conv sums a batch of 1 and a batch of 3 in different orders,
+        # so the two differ in the last ulps; compare against the map's scale
+        scale = np.abs(tiled).max()
+        assert np.abs(shared.numpy() - tiled).max() <= 1e-6 * scale
 
 
 def test_maxpool2d_matches_jax():
