@@ -24,7 +24,12 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             20 launches replayed from a CUDA graph, as the path runs them,
             and eagerly beside. Phase 2 takes the f32 path's shapes
             (batch 8), 2b the bf16 path's (batch 56: lrp_linear, lstm_gates,
-            and lrp_a1b0_fused at the 12 post-ReLU conv shapes, 20 words);
+            and lrp_a1b0_fused at the 12 post-ReLU conv shapes, 20 words),
+            2c the training paths' (batch 32, 21 steps): lstm_gates through
+            its autograd Function, its gradient held to the plain version's
+            and its backward timed (train), and lrp_linear, lstm_gates (two
+            forwards under no_grad, one through the Function) and
+            conv3x3_fused at the fine-tune step's shapes (finetune);
 3. main:    VGG16 / adaptive attention at full width (224x224 input, 14x14x512
             grid, E = H = 512, vocab 7003, beam 3, T = 20) on random weights
             from seed 0, f32, batch 8: one warm-up pass (it captures the
@@ -39,8 +44,24 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             cut to the first 2 word seeds to keep the CPU time short;
 4b. card vs CPU, bf16: one image in bf16 on the card and on the CPU, both
             held to a CPU-f32 run of the same image and words;
-5.    card tests: ``pytest --noconftest -m cuda`` over the kernel and graph
-            tests, in a child process.
+6. train:   three train steps at full width (FlickrConfig: batch 32, 21
+            steps, dropout 0.5, lr 2e-4, Adam with clipvalue 0.1) on one
+            random batch: every loss finite, the loss without dropout lower
+            after them; ms a step, img/s, peak memory, launches a step;
+6b. finetune: two LRP-inference fine-tune steps at the same size (mode
+            'mean', lr 1e-6, every word explained), then one more step's
+            three phases (predict, lrp_weights, update) timed apart;
+7. card vs CPU, fine-tune: one step at batch 1 without dropout on the card,
+            on the CPU in f32 and in f64: gradients within FT_GRAD_RATIO of
+            the CPU-f32 run's distance from f64, relevance weights within
+            TOL_FT_WEIGHTS of their scale; the same gradients once more with
+            dropout 0.5, one set of masks drawn on the CPU for all three;
+5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph and
+            training card tests, in a child process (run last).
+
+Every path (f32, bf16, train, finetune) is driven with the launch counts set
+to 0 just before it and read just after; each kernel's count must equal its
+calls on that path as phase 2's shapes derive them, 0 where it is not on it.
 
 Prints the ``{"kernels": [...]}`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``. Per-shape detail goes to
@@ -68,6 +89,9 @@ PEAK_TF32_FLOP_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 GRAPH_REPS = 20            # K2 launches a graph replays per timing (one decoder loop)
 B_MAIN, VOCAB, BEAM, T = 8, 7003, 3, 20
 B_BF16 = 56                # bench.py's batch
+B_TRAIN = 32               # FlickrConfig.batch_size: the training paths' batch
+T_TRAIN = 21               # FlickrConfig.sentence_length + 1: a training caption's steps
+SOS, EOS = 1, 2            # 1-based token ids
 E = H = D = 512
 L = 196
 IMAGE = 224
@@ -91,6 +115,21 @@ F64_RATIO = {"r_feat": 2.0, "maps": 4.0}
 # 0.84x (7.6e-3 against 9.1e-3 of scale); 2x is also the CPU tests' bound for
 # the port against JAX in bf16 (tests/test_torch_bf16.py).
 BF16_CPU_RATIO = 2.0
+# phase 2c: K2's gradient through its Function against autograd through the
+# plain version, relative to each gradient's scale
+TOL_LSTM_GRAD = 1e-6
+# phase 7: the card's fine-tune gradients may lie at most this multiple of the
+# CPU-f32 run's distance from a CPU-f64 run (floor 1e-6 of the scale), and its
+# relevance weights within TOL_FT_WEIGHTS of their scale from the f64 ones
+FT_GRAD_RATIO = 2.0
+TOL_FT_WEIGHTS = 1e-3
+# phase 7 with dropout: each leaf's gradient, by the 2-norm of its distance
+# from f64 over its own 2-norm, within FT_GRAD_RATIO times the CPU-f32 run's on
+# that leaf or within this floor. The worst leaf is decoder/attn/Wg (a softmax
+# gradient that cancels), where f32 rounding alone lies ~1e-2 from f64 on the
+# CPU as on the card and their ratio moves with the seeds past 2x
+# (scripts/phase7_seeds.py); a dropped or misplaced gradient lies ~1 from f64
+TOL_FT_GRAD_L2_FLOOR = 5e-2
 
 
 def log(*a):
@@ -160,17 +199,19 @@ def vgg16_conv_layers():
     return out
 
 
-def linear_shapes(batch):
-    R = batch * T
-    return [("output", R, VOCAB, H, 1), ("gate_g", R, H, 2 * E + H, T),
+def linear_shapes(batch, words):
+    """The decoder LRP's products: one row per (image, explained word)."""
+    R = batch * words
+    return [("output", R, VOCAB, H, 1), ("gate_g", R, H, 2 * E + H, words),
             ("w_glob", R, E, D, 1), ("w_img", R * L, H, D, 1)]
 
 
-def check_lrp_linear(gen, dev, batch):
+def check_lrp_linear(gen, dev, path):
     from lrp_imagecaptioning_torch.ops import kernels
 
+    _, batch, words = PATHS[path]
     rows = []
-    for name, m, dout, din, calls in linear_shapes(batch):
+    for name, m, dout, din, calls in linear_shapes(batch, words):
         r = torch.randn(m, dout, generator=gen, device=dev)
         z = torch.randn(m, dout, generator=gen, device=dev)
         x = torch.randn(m, din, generator=gen, device=dev)
@@ -190,9 +231,22 @@ def check_lrp_linear(gen, dev, batch):
     return rows
 
 
-def check_lstm_gates(gen, dev, batch):
+def check_lstm_gates(gen, dev, path):
+    """The serving paths replay K2 from CUDA graphs (beam search, cached
+    forward); the training paths run it eagerly: the train step's teacher-
+    forced forward with its gradient (``check_lstm_gates_grad``), the fine-
+    tune step's three forwards (predict, the cached forward of lrp_weights,
+    the dual loss's)."""
     from lrp_imagecaptioning_torch.ops import kernels
 
+    _, batch, words = PATHS[path]
+    if path == "train":
+        return [check_lstm_gates_grad(gen, dev, batch, words)]
+    if path == "finetune":
+        # predict and lrp_weights' cached forward run K2 under no_grad, the
+        # dual loss's forward through the Function
+        return [lstm_forward_row(gen, dev, batch, 2 * words, "no_grad x2", grad=False)[0],
+                lstm_forward_row(gen, dev, batch, words, "teacher_forced", grad=True)[0]]
     rows = []
     for name, b in (("beam", batch * BEAM), ("cached_forward", batch)):
         zx = torch.randn(b, 4 * H, generator=gen, device=dev)
@@ -225,11 +279,59 @@ def check_lstm_gates(gen, dev, batch):
     return rows
 
 
-def check_conv3x3_fused(gen, dev, batch):
+def lstm_forward_row(gen, dev, batch, calls, shape, grad):
+    """K2 at (batch, H), eagerly: through its autograd Function on inputs
+    that require grad (``grad``), as the forward a loss is taken of runs it,
+    else under no_grad. Returns (row, inputs, outputs, plain outputs)."""
     from lrp_imagecaptioning_torch.ops import kernels
 
+    ins = [torch.randn(batch, 4 * H, generator=gen, device=dev) * 2 for _ in range(2)]
+    ins += [torch.randn(4 * H, generator=gen, device=dev),
+            torch.randn(batch, H, generator=gen, device=dev)]
+    if grad:
+        ins = [t.requires_grad_() for t in ins]
+    zx, zh, bias, c_prev = (t.detach() for t in ins)
+    fused_cell = torch.ops.aten._thnn_fused_lstm_cell
+    zero_bias = torch.zeros_like(bias)
+    with torch.set_grad_enabled(grad):
+        outs = kernels.lstm_gates(*ins)
+        ref_outs = kernels.lstm_gates_plain(*ins)
+        row = dict(shape=shape, B=batch, H=H, calls=calls,
+                   err=max(rel_err(o.detach(), r.detach()) for o, r in zip(outs, ref_outs)),
+                   z_pre_exact=bool(torch.equal(outs[0], ref_outs[0])),
+                   ms=time_ms(lambda: kernels.lstm_gates(*ins)),
+                   plain_ms=time_ms(lambda: kernels.lstm_gates_plain(*ins)),
+                   library_ms=time_ms(lambda: fused_cell(zx, zh, c_prev, bias, zero_bias)),
+                   flops=18 * batch * H,
+                   bound=bound_ms(4 * (batch * 15 * H + 4 * H), 18 * batch * H))
+    return row, ins, outs, ref_outs
+
+
+def check_lstm_gates_grad(gen, dev, batch, words):
+    """Phase 2c: K2 at the training shapes through its autograd Function, run
+    eagerly as a train step runs it. Its outputs against the plain version,
+    its gradient against autograd through the plain version (TOL_LSTM_GRAD of
+    each gradient's scale), and the backward's time (``lstm_gates_vjp``, torch
+    ops) beside autograd's through the plain version."""
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    row, ins, outs, ref_outs = lstm_forward_row(gen, dev, batch, words, "teacher_forced", True)
+    cot = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    got = torch.autograd.grad(outs, ins, cot, retain_graph=True)
+    ref = torch.autograd.grad(ref_outs, ins, cot, retain_graph=True)
+    c_prev = ins[3].detach()
+    z_pre, c = outs[0].detach(), outs[2].detach()
+    return dict(row, grad_err=max(rel_err(g, r)[1] for g, r in zip(got, ref)),
+                backward_ms=time_ms(lambda: kernels.lstm_gates_vjp(z_pre, c_prev, c, *cot)),
+                plain_backward_ms=time_ms(
+                    lambda: torch.autograd.grad(ref_outs, ins, cot, retain_graph=True)))
+
+
+def check_conv3x3_fused(gen, dev, path):
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    _, batch, n = PATHS[path]   # per image: its n explained words as the batch
     rows = []
-    n = T
     for name, size, cin, cout in vgg16_conv_layers():
         hw = size * size
         x = torch.relu(torch.randn(1, size, size, cin, generator=gen, device=dev))
@@ -271,13 +373,14 @@ def check_conv3x3_fused(gen, dev, batch):
     return rows
 
 
-def check_lrp_a1b0_fused(gen, dev, batch):
+def check_lrp_a1b0_fused(gen, dev, path):
     """The bf16 rule at the 12 post-ReLU conv shapes, 20 words."""
     from lrp_imagecaptioning_torch.ops import kernels
     from lrp_imagecaptioning_torch.ops.lrp_conv import conv2d
 
+    _, batch, n = PATHS[path]
     rows = []
-    n, bf = T, torch.bfloat16
+    bf = torch.bfloat16
     for name, size, cin, cout in vgg16_conv_layers():
         hw = size * size
         x = torch.relu(torch.randn(1, size, size, cin, generator=gen, device=dev)).to(bf)
@@ -322,10 +425,19 @@ TOLERANCE = {"lrp_linear": ("rel", TOL_KERNEL), "lstm_gates": ("abs", TOL_LSTM_A
              "conv3x3_fused": ("rel", TOL_KERNEL), "lrp_a1b0_fused": ("rel", TOL_BF16_KERNEL)}
 
 
-# the main paths: name -> (storage_dtype, batch), and the kernels each launches
-PATHS = {"f32": (None, B_MAIN), "bf16": (torch.bfloat16, B_BF16)}
+# the main paths: name -> (storage_dtype, batch, words a caption), and the
+# kernels each launches. "f32" and "bf16" caption and explain a batch
+# (phases 3, 3b); "train" is one train step (phase 6), "finetune" one
+# LRP-inference fine-tune step (phase 6b), both f32 at the config's batch
+PATHS = {"f32": (None, B_MAIN, T), "bf16": (torch.bfloat16, B_BF16, T),
+         "train": (None, B_TRAIN, T_TRAIN), "finetune": (None, B_TRAIN, T_TRAIN)}
 PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
-                "bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused")}
+                "bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
+                "train": ("lstm_gates",),
+                "finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused")}
+PATH_TITLES = {"bf16": "phase 2b: the bf16 path's kernels vs their plain versions, batch {b}",
+               "train": "phase 2c: the train path's kernel, K2 with its gradient, batch {b}",
+               "finetune": "phase 2c: the fine-tune path's kernels, batch {b} x {w} words"}
 
 
 def phase_kernels(dev, failures):
@@ -333,13 +445,13 @@ def phase_kernels(dev, failures):
     path, and the summary is per kernel and path."""
     gen = torch.Generator(device=dev).manual_seed(1)
     detail, summary = {name: [] for name in KERNEL_META}, {name: {} for name in KERNEL_META}
-    for path, (_, batch) in PATHS.items():
-        if path == "bf16":
-            log(f"phase 2b: the bf16 path's kernels vs their plain versions, batch {batch}")
+    for path, (_, batch, words) in PATHS.items():
+        if path in PATH_TITLES:
+            log(PATH_TITLES[path].format(b=batch, w=words))
         for name, (_, _, check) in KERNEL_META.items():
             if name not in PATH_KERNELS[path]:
                 continue
-            rows = check(gen, dev, batch)
+            rows = check(gen, dev, path)
             kind, tol = TOLERANCE[name]
             for row in rows:
                 row["path"] = path
@@ -352,6 +464,13 @@ def phase_kernels(dev, failures):
                 if "bound_cuda_core" in row:
                     extra += (f"  tensor cores {row['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
                               f"{row['bound_cuda_core'][0]:.4f}")
+                if "grad_err" in row:
+                    extra += (f"  (eager; gradient rel {row['grad_err']:.3e}; backward "
+                              f"{row['backward_ms']:.4f}, plain backward "
+                              f"{row['plain_backward_ms']:.4f})")
+                    if row["grad_err"] > TOL_LSTM_GRAD:
+                        failures.append(f"{name} {row['shape']} ({path}): gradient differs from "
+                                        f"the plain version's by {row['grad_err']:.3e} of scale")
                 log(f"  {path:4s} {name:14s} {row['shape']:22s} calls/batch {row['calls']:3d}  "
                     f"max_abs {row['err'][0]:.3e} rel {row['err'][1]:.3e}  ms {row['ms']:.4f}  "
                     f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  "
@@ -392,6 +511,12 @@ def phase_kernels(dev, failures):
                 s["share_of_cuda_core_bound"] = s["bound_cuda_core_ms"] / ms
                 extra = (f"  tensor cores {s['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
                          f"{s['bound_cuda_core_ms']:.3f} ({100 * s['share_of_cuda_core_bound']:.1f} %)")
+            if "grad_err" in rows[0]:
+                s.update(grad_err=max(r["grad_err"] for r in rows),
+                         backward_ms=per_batch("backward_ms"),
+                         plain_backward_ms=per_batch("plain_backward_ms"))
+                extra = (f"  (eager; backward {s['backward_ms']:.3f}, plain backward "
+                         f"{s['plain_backward_ms']:.3f})")
             log(f"  {path:4s} {name:14s} per batch: ms {ms:.3f}  plain {s['plain_ms']:.3f}  "
                 f"library {s['library_ms']:.3f}  bound {total_bound:.3f}  "
                 f"{s['tflops']:.2f} TFLOP/s  {100 * s['share_of_bound']:.1f} % of bound{extra}")
@@ -599,7 +724,255 @@ def phase_cpu_bf16(built, failures):
     return out
 
 
-CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py"]
+# ---------------------------------------------------------------------------
+# phases 6, 6b and 7: the training path
+# ---------------------------------------------------------------------------
+
+
+def train_batch(gen, dev, batch, steps=T_TRAIN):
+    """Random images and captions of random lengths (half of ``steps`` to all
+    of them, the EOS included), padded with 0: ``captions_in`` is SOS then the caption
+    (0-based, teacher forcing), ``y_onehot`` the caption one-hot, all-zero
+    rows after its end."""
+    images = torch.randn(batch, IMAGE, IMAGE, 3, generator=gen, device=dev)
+    words = torch.randint(3, VOCAB, (batch, steps), generator=gen, device=dev)
+    lengths = torch.randint(steps // 2, steps + 1, (batch,), generator=gen, device=dev)
+    live = torch.arange(steps, device=dev)[None, :] < lengths[:, None]
+    words = torch.where(torch.arange(steps, device=dev)[None, :] == lengths[:, None] - 1,
+                        EOS - 1, words) * live
+    captions_in = torch.cat([torch.full((batch, 1), SOS - 1, device=dev), words[:, :-1]], dim=1)
+    y = F.one_hot(words, VOCAB).float() * live[..., None]
+    return images, captions_in, y
+
+
+def expected_launches(path, cfg):
+    """Each kernel's launches in one step, derived from the code: K2 once per
+    decoder step of each forward (the train step's one; predict, the cached
+    forward of lrp_weights and the dual loss's in a fine-tune step); K1 at the
+    decoder LRP's output layer, gate-g block per step, W_glob and W_img; K3
+    twice (divide, multiply) per post-ReLU conv per image."""
+    from lrp_imagecaptioning_torch.models.vgg import vgg_layers
+
+    steps = cfg.sentence_length + 1
+    if path == "train":
+        return {"lrp_linear": 0, "lstm_gates": steps, "conv3x3_fused": 0, "lrp_a1b0_fused": 0}
+    convs = sum(op[0] == "conv" for op in vgg_layers(cfg.layer_name)) - 1
+    return {"lrp_linear": steps + 3, "lstm_gates": 3 * steps,
+            "conv3x3_fused": 2 * convs * cfg.batch_size, "lrp_a1b0_fused": 0}
+
+
+def timed(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def counted_steps(step, n, params, state, batch, drop, want, failures, path):
+    """``n`` steps, each with the counts set to 0 before it; every step must
+    launch ``want``. Returns (params, state, per-step records)."""
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    records = []
+    for i in range(n):
+        kernels.reset_launches()
+        (params, state, m), ms = timed(step, params, state, *batch, drop)
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        records.append(dict(ms=ms, loss=float(m["loss"]), accuracy=float(m["accuracy"]),
+                            launches=launches))
+        log(f"  step {i}: {ms:.1f} ms  loss {records[-1]['loss']:.6f}  "
+            f"accuracy {records[-1]['accuracy']:.4f}  launches {launches}")
+        if launches != want:
+            failures.append(f"{path} step {i}: launches {launches}, {want} expected")
+        if not math.isfinite(records[-1]["loss"]):
+            failures.append(f"{path} step {i}: loss {records[-1]['loss']}")
+    return params, state, records
+
+
+def memory_gib():
+    return dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+
+
+def phase_train(dev, failures):
+    """Three train steps on one batch of 32 (dropout 0.5, lr 2e-4, Adam with
+    clipvalue 0.1), with the loss without dropout before and after them."""
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.train.optimizer import make_optimizer
+    from lrp_imagecaptioning_torch.train.step import make_eval_step, make_train_step
+
+    cfg = FlickrConfig()
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    batch = train_batch(torch.Generator(device=dev).manual_seed(2), dev, cfg.batch_size,
+                        cfg.sentence_length + 1)
+    opt = make_optimizer("adaptiveattention", cfg.learning_rate)
+    evaluate = make_eval_step(cap)
+    loss_before = float(evaluate(params, *batch)["loss"])
+    want = expected_launches("train", cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, _, records = counted_steps(make_train_step(cap, opt), 3, params, opt.init(params),
+                                       batch, torch.Generator(device=dev).manual_seed(3), want,
+                                       failures, "train")
+    mem = memory_gib()
+    loss_after = float(evaluate(params, *batch)["loss"])
+    steady = sum(r["ms"] for r in records[1:]) / (len(records) - 1)
+    log(f"  eval loss (no dropout) {loss_before:.6f} -> {loss_after:.6f} after 3 steps; "
+        f"{steady:.1f} ms a step after the first = {cfg.batch_size / steady * 1e3:.2f} img/s; "
+        f"peak memory {mem['peak_gib']:.2f} GiB allocated, {mem['reserved_gib']:.2f} reserved")
+    if not loss_after < loss_before:
+        failures.append(f"train: eval loss {loss_before} -> {loss_after}, not lower")
+    out = dict(batch=cfg.batch_size, drop_rate=cfg.drop_rate, lr=cfg.learning_rate,
+               steps=records, ms_per_step=steady, img_per_s=cfg.batch_size / steady * 1e3,
+               eval_loss_before=loss_before, eval_loss_after=loss_after, expected=want, **mem)
+    return records[-1]["launches"], out
+
+
+def phase_finetune(dev, failures):
+    """Two LRP-inference fine-tune steps on one batch of 32 (mode 'mean', lr
+    1e-6, every word explained), then the three phases of a third step timed
+    apart (its update is discarded)."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.train.lrp_finetune import make_lrp_finetune_step
+    from lrp_imagecaptioning_torch.train.optimizer import make_optimizer
+
+    cfg = FlickrConfig()
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    batch = train_batch(torch.Generator(device=dev).manual_seed(4), dev, cfg.batch_size,
+                        cfg.sentence_length + 1)
+    drop = torch.Generator(device=dev).manual_seed(5)
+    opt = make_optimizer("adaptiveattention", 1e-6)
+    # no stop words: random weights predict any id, and every word is explained anyway
+    step = make_lrp_finetune_step(cap, opt, np.zeros(VOCAB + 1, bool), SOS, EOS, "mean")
+    want = expected_launches("finetune", cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, records = counted_steps(step, 2, params, opt.init(params), batch, drop,
+                                           want, failures, "finetune")
+    mem = memory_gib()
+    ph = step.phases
+    images, captions_in, y = batch
+    y_pred, t_predict = timed(ph["predict"], params, images, captions_in)
+    w, t_weights = timed(ph["lrp_weights"], params, images, y_pred)
+    _, t_update = timed(ph["update"], params, state, images, captions_in, y, w, drop)
+    split = dict(predict=t_predict, lrp_weights=t_weights, update=t_update)
+    scored = int((w != 1.0).any(-1).sum())
+    log(f"  {records[-1]['ms']:.1f} ms a step (the second) = "
+        f"{cfg.batch_size / records[-1]['ms'] * 1e3:.2f} img/s; a third step's phases: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f"; {scored} of {w.shape[0] * w.shape[1]} (image, step) slots scored; peak memory "
+        f"{mem['peak_gib']:.2f} GiB allocated, {mem['reserved_gib']:.2f} reserved")
+    if not bool(torch.isfinite(w).all()):
+        failures.append("finetune: relevance weights hold non-finite values")
+    out = dict(batch=cfg.batch_size, mode="mean", lr=1e-6, steps=records,
+               ms_per_step=records[-1]["ms"], img_per_s=cfg.batch_size / records[-1]["ms"] * 1e3,
+               split_ms=split, scored_slots=scored, expected=want, **mem)
+    return records[-1]["launches"], out
+
+
+def leaf_names(tree, prefix=""):
+    """The '/'-joined key paths of a params dict, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def phase_finetune_cpu(dev, failures, batch_seed=6, mask_seed=7):
+    """One fine-tune step's loss, gradients and relevance weights at batch 1
+    without dropout, on the card, on the CPU in f32 and in f64, all on the
+    card's predicted words. Gradients: the worst leaf's distance from f64
+    over its scale; the card's may be FT_GRAD_RATIO times the CPU-f32 run's.
+    Weights: within TOL_FT_WEIGHTS of their scale from f64. The gradients
+    again with dropout ("_dropout" keys), on one set of masks drawn on the CPU
+    at rate 0.5 and given to all three, each leaf held to the CPU-f32 run's
+    distance on it by the 2-norm (TOL_FT_GRAD_L2_FLOOR). The seeds are the
+    random batch's and the masks' (scripts/phase7_seeds.py varies them)."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.adaptive import draw_dropout_masks
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.train.lrp_finetune import dual_loss, make_lrp_finetune_step
+    from lrp_imagecaptioning_torch.train.optimizer import make_optimizer
+    from lrp_imagecaptioning_torch.train.step import value_and_grad
+    from lrp_imagecaptioning_torch.weights import tree_leaves, tree_to
+
+    cfg = FlickrConfig(drop_rate=0.0)
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    batch = train_batch(torch.Generator(device=dev).manual_seed(batch_seed), dev, 1,
+                        cfg.sentence_length + 1)
+    step = make_lrp_finetune_step(cap, make_optimizer("adaptiveattention", 1e-6),
+                                  np.zeros(VOCAB + 1, bool), SOS, EOS, "mean")
+    y_pred = step.phases["predict"](params, *batch[:2])
+    params_c = tree_to(params, "cpu")
+    masks = draw_dropout_masks(torch.Generator().manual_seed(mask_seed), params_c["decoder"], 1,
+                               cfg, 0.5)
+
+    def run(p, images, captions_in, y, logits, m):
+        """(loss, grads) without dropout, the same with masks ``m``, weights."""
+        w = step.phases["lrp_weights"](p, images, logits)
+        out = []
+        for mk in (None, m):
+            loss, _, grads = value_and_grad(lambda q: (dual_loss(
+                cap.forward_train(q, images, captions_in, None, mk), w, y), None), p)
+            out += [float(loss), [g.cpu().double() for g in tree_leaves(grads)]]
+        return (*out, w.cpu().double())
+
+    runs = {"card": run(params, *batch, y_pred, masks.to(dev))}
+    t0 = time.perf_counter()
+    cpu = [t.cpu() for t in (*batch, y_pred)]
+    runs["f32"] = run(params_c, *cpu, masks)
+    runs["f64"] = run(tree_to(params_c, dtype=torch.float64), cpu[0].double(), cpu[1],
+                      cpu[2].double(), cpu[3].double(), masks.to(torch.float64))
+    cpu_s = time.perf_counter() - t0
+    loss64, g64, loss64_d, g64_d, w64 = runs["f64"]
+    names = leaf_names(params_c)
+    out = dict(cpu_s=cpu_s, loss={k: v[0] for k, v in runs.items()},
+               loss_dropout={k: v[2] for k, v in runs.items()})
+    l2 = {}
+    for name in ("card", "f32"):
+        loss, g, loss_d, g_d, w = runs[name]
+        out[f"loss_{name}_vs_f64"] = abs(loss - loss64) / abs(loss64)
+        out[f"loss_{name}_vs_f64_dropout"] = abs(loss_d - loss64_d) / abs(loss64_d)
+        for sfx, got, ref in (("", g, g64), ("_dropout", g_d, g64_d)):
+            # each leaf's max |diff| over its max |g|, and its 2-norm of the
+            # difference over its 2-norm
+            l2[name + sfx] = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                              for a, b in zip(got, ref)]
+            out[f"grads_{name}_vs_f64{sfx}"], out[f"worst_leaf_{name}{sfx}"] = max(
+                (rel_err(a, b)[1], n) for n, a, b in zip(names, got, ref))
+            out[f"grads_l2_{name}_vs_f64{sfx}"], out[f"worst_l2_leaf_{name}{sfx}"] = max(
+                zip(l2[name + sfx], names))
+        out[f"weights_{name}_vs_f64"] = rel_err(w, w64)[1]
+    out["leaves_over_dropout"] = [
+        (n, card, cpu) for n, card, cpu in zip(names, l2["card_dropout"], l2["f32_dropout"])
+        if card > max(FT_GRAD_RATIO * cpu, TOL_FT_GRAD_L2_FLOOR)]
+    for sfx in ("", "_dropout"):
+        out[f"grad_ratio{sfx}"] = (out[f"grads_card_vs_f64{sfx}"]
+                                   / max(out[f"grads_f32_vs_f64{sfx}"], 1e-6))
+    out["scored_equal"] = bool(torch.equal(runs["card"][-1] != 1.0, w64 != 1.0))
+    log(f"  {out}")
+    if out["grad_ratio"] > FT_GRAD_RATIO:
+        failures.append(f"fine-tune gradients: card {out['grads_card_vs_f64']:.3e} from f64, "
+                        f"CPU f32 {out['grads_f32_vs_f64']:.3e} (limit {FT_GRAD_RATIO}x)")
+    if out["leaves_over_dropout"]:
+        failures.append(f"fine-tune gradients with dropout: (leaf, card, CPU f32) 2-norm "
+                        f"distances from f64 over {FT_GRAD_RATIO}x and {TOL_FT_GRAD_L2_FLOOR}: "
+                        f"{out['leaves_over_dropout']}")
+    if out["weights_card_vs_f64"] > TOL_FT_WEIGHTS or not out["scored_equal"]:
+        failures.append(f"fine-tune weights: card {out['weights_card_vs_f64']:.3e} of scale from "
+                        f"f64 (limit {TOL_FT_WEIGHTS}), same slots scored {out['scored_equal']}")
+    return out
+
+
+CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
+              "tests/test_torch_train_card.py"]
 
 
 def phase_card_tests(failures):
@@ -649,6 +1022,10 @@ def main() -> int:
               ("phase 4: card vs CPU, one image, f32", "cpu"),
               (f"phase 3b: main path at full width, bf16 storage, batch {B_BF16}", "main_bf16"),
               ("phase 4b: card vs CPU, one image, bf16", "cpu_bf16"),
+              (f"phase 6: train steps at full width, batch {B_TRAIN}", "train"),
+              (f"phase 6b: LRP-inference fine-tune steps at full width, batch {B_TRAIN}",
+               "finetune"),
+              ("phase 7: card vs CPU, one fine-tune step, batch 1", "cpu_finetune"),
               ("phase 5: card tests", "card_tests")]
     summary = built = None
     launches = {}   # path -> {kernel: launches in its counted pass}
@@ -674,13 +1051,22 @@ def main() -> int:
                 summary, report["kernel_shapes"] = phase_kernels(dev, failures)
             elif key == "main":
                 built = None
-                dtype, batch = PATHS["f32"]
+                dtype, batch, _ = PATHS["f32"]
                 launches["f32"], report["main"], built = phase_main(dev, failures, batch, dtype)
             elif key == "main_bf16":
                 built = None
-                dtype, batch = PATHS["bf16"]
+                dtype, batch, _ = PATHS["bf16"]
                 launches["bf16"], report["main_bf16"], built = phase_main(
                     dev, failures, batch, dtype)
+            elif key in ("train", "finetune", "cpu_finetune"):
+                built = None
+                torch.cuda.empty_cache()
+                if key == "train":
+                    launches["train"], report["train"] = phase_train(dev, failures)
+                elif key == "finetune":
+                    launches["finetune"], report["finetune"] = phase_finetune(dev, failures)
+                else:
+                    report["cpu_finetune"] = phase_finetune_cpu(dev, failures)
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)
@@ -697,7 +1083,7 @@ def main() -> int:
     report["seconds"] = time.perf_counter() - t_start
 
     kernels_line = []
-    if summary is not None and len(launches) == 2:
+    if summary is not None and set(launches) == set(PATHS):
         for name, (source, replaces, _) in KERNEL_META.items():
             by_path = summary[name]
             # each path must launch its kernels exactly as often as phase 2's
@@ -723,6 +1109,9 @@ def main() -> int:
                 launches_by_path={p: launches[p][name] for p in launches},
                 **{k: s[k] for k in ("eager_ms", "library_eager_ms", "tc_tflops",
                                      "bound_cuda_core_ms", "share_of_cuda_core_bound") if k in s},
+                **({"backward_ms_train": by_path["train"]["backward_ms"],
+                    "plain_backward_ms_train": by_path["train"]["plain_backward_ms"]}
+                   if "backward_ms" in by_path.get("train", {}) else {}),
                 **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})))
     report.update(card=card_line, kernels=kernels_line, failures=failures)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -1,12 +1,13 @@
 """Run configuration for the PyTorch port.
 
 The port's own copy of the fields of the JAX package's ``Config`` /
-``FlickrConfig`` that the caption + explain path reads, with the same names
-and defaults.
+``FlickrConfig`` that the caption + explain path and the training path read,
+with the same names and defaults.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 
@@ -14,9 +15,17 @@ from dataclasses import dataclass
 class Config:
     """Base hyperparameters (reference config.py:6-56)."""
 
+    # optimization
+    learning_rate: float = 2e-4
+    batch_size: int = 32
+
     # model dims
     embedding_dim: int = 512
     hidden_dim: int = 512
+    drop_rate: float = 0.5
+
+    # captions
+    sentence_length: int = 20          # T: max caption length
 
     # encoder
     img_encoder: str = "vgg16"
@@ -28,6 +37,10 @@ class Config:
 
     # 'float32' | 'bfloat16': the encoder's conv operands (Captioner.encode)
     compute_dtype: str = "float32"
+    remat_encoder: bool = False        # recompute the CNN in the backward pass
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass
@@ -35,3 +48,5 @@ class FlickrConfig(Config):
     """Flickr30k defaults."""
 
     dataset_name: str = "flickr30k"
+    learning_rate: float = 2e-4
+    batch_size: int = 32

@@ -19,26 +19,34 @@ from ..ops.kernels import lrp_linear
 from ..ops.lrp_core import lrp_identity
 
 
-def explain_word_adaptive(params, consts, caches, words_0based: torch.Tensor):
-    """LRP of every caption word of every image.
+def explain_word_adaptive(params, consts, caches, words_0based: torch.Tensor,
+                          positions: torch.Tensor | None = None):
+    """LRP of every caption word of every image, or of the steps ``positions``.
 
     Args:
       params: adaptive decoder params.
       consts: AdaptiveConsts with batch B.
       caches: AdaptiveStepCache of (T, B, ...) tensors.
-      words_0based: (B, T) the word predicted at each step, in model space.
+      words_0based: (B, W) the word to explain at each row, in model space;
+        W = T, one per step, when ``positions`` is None.
+      positions: (B, W) the step of each row, or None for every step (W = T).
 
     Returns:
-      (r_feat (B, T, L, D), r_words (B, T, T), attention (B, T, L)): for the
-      word at step t of image b, the relevance of the CNN feature grid, the
-      per-input-word relevance over steps, and the attention at step t.
+      (r_feat (B, W, L, D), r_words (B, W, T), attention (B, W, L)): for row w
+      of image b (the word at step positions[b, w], or at step w), the
+      relevance of the CNN feature grid, the per-input-word relevance over
+      steps, and the attention at that step.
     """
     T, B, H = caches.h.shape
     E = params["embedding"].shape[-1]
     dev, dtype = caches.h.device, caches.h.dtype
-    R = B * T
-    b_idx = torch.arange(B, device=dev)[:, None].expand(B, T).reshape(R)   # row -> image
-    t_idx = torch.arange(T, device=dev).repeat(B)              # row -> explained step
+    W = T if positions is None else positions.shape[1]
+    R = B * W
+    b_idx = torch.arange(B, device=dev)[:, None].expand(B, W).reshape(R)   # row -> image
+    if positions is None:
+        t_idx = torch.arange(T, device=dev).repeat(B)          # row -> explained step
+    else:
+        t_idx = positions.reshape(R).long()
     a_wi, a_wh = params["lstm"]["wi"], params["lstm"]["wh"]
     # gate-g weight block: rows [x; h], columns g
     w_g = torch.cat([a_wi[:, 2 * H:3 * H], a_wh[:, 2 * H:3 * H]], dim=0).contiguous()
@@ -99,5 +107,5 @@ def explain_word_adaptive(params, consts, caches, words_0based: torch.Tensor):
                        context_t[:, None, :])                   # (R, L, H)
     r_feat_from_V = lrp_linear(r_V, feat, consts.v_pre[b_idx], params["image_features"]["kernel"])
     r_feat = r_feat_from_avg + r_feat_from_V
-    return (r_feat.reshape(B, T, L, -1), r_words.reshape(B, T, T),
-            attention_t.reshape(B, T, L))
+    return (r_feat.reshape(B, W, L, -1), r_words.reshape(B, W, T),
+            attention_t.reshape(B, W, L))

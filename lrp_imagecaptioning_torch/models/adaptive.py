@@ -1,8 +1,9 @@
 """Adaptive-attention decoder (Lu et al. visual sentinel).
 
-One ``step`` function serves beam search (infer/beam.py) and the cached
-forward pass whose per-step caches feed the decoder LRP
-(explain/decoder_lrp.py). Step math, batched over B:
+One ``step`` function serves teacher-forced training (``forward_train``),
+greedy decoding and beam search (infer/), and the cached forward pass whose
+per-step caches feed the decoder LRP (explain/decoder_lrp.py). Step math,
+batched over B:
 
     x_t   = [e_t, g]                      g = global image feature
     h',c' = LSTM(x_t, h, c)
@@ -23,8 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from .cells import (LSTMState, _uniform, attn_weight_init, dense, dense_init, lstm_init,
-                    lstm_step)
+from .cells import (LSTMState, _uniform, attn_weight_init, bernoulli_keep, dense, dense_init,
+                    lstm_dropout_masks, lstm_init, lstm_step)
 
 
 class AdaptiveConsts(NamedTuple):
@@ -54,6 +55,36 @@ class AdaptiveStepCache(NamedTuple):
     context: torch.Tensor   # (B, H)
     c_hat: torch.Tensor     # (B, H)
     logits: torch.Tensor    # (B, V)
+
+
+class DropoutMasks(NamedTuple):
+    """The inverted-dropout masks of one training forward (1/keep or 0),
+    where the JAX package's ``forward_train`` draws them (its key split
+    ``ks = split(rng, 5)`` in this field order)."""
+
+    v_feat: torch.Tensor        # (B, L, H) on image_features after relu
+    global_feat: torch.Tensor   # (B, E) on the global image feature
+    out: torch.Tensor           # (B, H) on h + c_hat before the output layer
+    logit: torch.Tensor         # (B, V) on the logits
+    lstm: tuple                 # (x_masks (4, B, 2E), h_masks (4, B, H)), all steps
+
+    def to(self, *args, **kwargs) -> "DropoutMasks":
+        """Every mask through ``Tensor.to(*args, **kwargs)``."""
+        return DropoutMasks(*(f.to(*args, **kwargs) for f in self[:4]),
+                            lstm=tuple(m.to(*args, **kwargs) for m in self.lstm))
+
+
+def draw_dropout_masks(gen: torch.Generator, params, batch: int, cfg, rate: float) -> DropoutMasks:
+    """Fresh masks for one forward from ``gen`` (on the params' device)."""
+    keep = 1.0 - rate
+    L, E = cfg.img_feature_length, params["embedding"].shape[-1]
+    H, V = params["output"]["kernel"].shape
+    return DropoutMasks(
+        v_feat=bernoulli_keep(gen, keep, (batch, L, H)),
+        global_feat=bernoulli_keep(gen, keep, (batch, E)),
+        out=bernoulli_keep(gen, keep, (batch, H)),
+        logit=bernoulli_keep(gen, keep, (batch, V)),
+        lstm=lstm_dropout_masks(gen, 2 * E, cfg.hidden_dim, rate, batch=batch))
 
 
 def init_params(gen: torch.Generator, vocab_size: int, cfg):
@@ -93,12 +124,16 @@ def prepare_consts(params, feat_grid: torch.Tensor) -> AdaptiveConsts:
     )
 
 
-def step(params, consts: AdaptiveConsts, state: LSTMState, token_emb: torch.Tensor):
-    """One decoder step; returns (new_state, AdaptiveStepCache)."""
+def step(params, consts: AdaptiveConsts, state: LSTMState, token_emb: torch.Tensor,
+         masks: DropoutMasks | None = None):
+    """One decoder step; returns (new_state, AdaptiveStepCache).
+    ``masks`` (training) turns on Keras-style LSTM dropout and the masks on
+    h + c_hat and on the logits; ``consts`` then holds the dropped features."""
     a = params["attn"]
     h_prev, c_prev = state
     x_t = torch.cat([token_emb, consts.global_feat], dim=-1)           # (B, 2E)
-    new_state, lstm_cache = lstm_step(params["lstm"], x_t, state)
+    new_state, lstm_cache = lstm_step(params["lstm"], x_t, state,
+                                      None if masks is None else masks.lstm)
     h = new_state.h
     ht_proj = h @ a["Wg"]                                               # (B, H)
     att_pre = torch.tanh(ht_proj[:, None, :] + consts.v_proj)           # (B, L, H)
@@ -109,7 +144,10 @@ def step(params, consts: AdaptiveConsts, state: LSTMState, token_emb: torch.Tens
     beta = torch.softmax(torch.cat([att_logits, z_s], dim=-1), dim=-1)[:, -1:]
     context = torch.einsum("bl,blh->bh", attention, consts.v_feat)
     c_hat = beta * st + (1.0 - beta) * context
-    logits = dense(params["output"], h + c_hat)
+    if masks is None:
+        logits = dense(params["output"], h + c_hat)
+    else:
+        logits = dense(params["output"], (h + c_hat) * masks.out) * masks.logit
     cache = AdaptiveStepCache(
         x_t=x_t, h_prev=h_prev, h=h, c_prev=c_prev, c=new_state.c, z_pre=lstm_cache.z_pre,
         attention=attention, st=st, beta=beta, context=context, c_hat=c_hat, logits=logits,
@@ -120,6 +158,33 @@ def step(params, consts: AdaptiveConsts, state: LSTMState, token_emb: torch.Tens
 def init_state(batch: int, hidden: int, device=None, dtype=torch.float32) -> LSTMState:
     zeros = torch.zeros((batch, hidden), device=device, dtype=dtype)
     return LSTMState(zeros, zeros.clone())
+
+
+def forward_train(params, feat_grid: torch.Tensor, captions_in: torch.Tensor, cfg,
+                  generator: torch.Generator | None = None, drop_rate: float = 0.0,
+                  masks: DropoutMasks | None = None) -> torch.Tensor:
+    """Teacher forcing: (B, L, D) features + (B, T) 0-based ids -> (B, T, V) logits.
+
+    Dropout, as the reference training graph places it: on the image
+    features (v_proj recomputed from the dropped v_feat), the global feature,
+    the LSTM input and recurrent state (per-sequence masks), h + c_hat and
+    the logits. The masks are ``masks`` when given, else drawn from
+    ``generator`` when ``drop_rate > 0``; with neither there is no dropout."""
+    B, T = captions_in.shape
+    consts = prepare_consts(params, feat_grid)
+    if masks is None and generator is not None and drop_rate > 0.0:
+        masks = draw_dropout_masks(generator, params, B, cfg, drop_rate)
+    if masks is not None:
+        v_feat = consts.v_feat * masks.v_feat
+        consts = consts._replace(v_feat=v_feat, global_feat=consts.global_feat * masks.global_feat,
+                                 v_proj=v_feat @ params["attn"]["Wv"])
+    embs = params["embedding"][captions_in]                             # (B, T, E)
+    state = init_state(B, cfg.hidden_dim, embs.device, embs.dtype)
+    logits = []
+    for t in range(T):
+        state, cache = step(params, consts, state, embs[:, t], masks)
+        logits.append(cache.logits)
+    return torch.stack(logits, dim=1)                                  # (B, T, V)
 
 
 def forward_cached_from_inputs(params, consts: AdaptiveConsts, input_tokens_0based: torch.Tensor,

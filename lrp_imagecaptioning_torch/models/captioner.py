@@ -1,15 +1,36 @@
-"""Captioning model assembly: VGG encoder + adaptive-attention decoder."""
+"""Captioning model assembly: VGG encoder + adaptive-attention decoder, and
+the training loss ``masked_ce_from_logits``: softmax-CE on logits, last
+timestep discarded, all-zero label rows (padding) contribute 0.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..runtime import resolve_device
 from ..weights import tree_to
 from . import adaptive, vgg
+
+
+def masked_ce_from_logits(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
+    """(B, T, V) logits, (B, T, V) one-hot (all-zero rows = padding) -> scalar,
+    the mean over (B, T - 1)."""
+    logits = logits[:, :-1, :]
+    y = y_onehot[:, :-1, :].to(logits.dtype)
+    return -(y * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def masked_accuracy(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
+    """Share of the non-padding steps (last step discarded) whose argmax is
+    the label's (categorical_accuracy_with_variable_timestep)."""
+    logits, y = logits[:, :-1, :], y_onehot[:, :-1, :]
+    valid = y.sum(-1) > 0
+    match = logits.argmax(-1) == y.argmax(-1)
+    return (match & valid).sum().float() / valid.sum().clamp(min=1).float()
 
 
 @dataclass
@@ -52,6 +73,28 @@ class Captioner:
 
     def prepare_consts(self, params, feat_grid: torch.Tensor):
         return self.decoder.prepare_consts(params["decoder"], feat_grid)
+
+    def forward_train(self, params, images: torch.Tensor, captions_in: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      masks: adaptive.DropoutMasks | None = None) -> torch.Tensor:
+        """Teacher-forced logits (B, T, V). Dropout at ``cfg.drop_rate`` when a
+        ``generator`` (or ready ``masks``) is given, none otherwise.
+        ``cfg.remat_encoder`` recomputes the CNN in the backward pass instead
+        of keeping its activations."""
+        if self.cfg.remat_encoder:
+            feat_grid = checkpoint(self.encode, params, images, use_reentrant=False)
+        else:
+            feat_grid = self.encode(params, images)
+        drop = self.cfg.drop_rate if generator is not None else 0.0
+        return self.decoder.forward_train(params["decoder"], feat_grid, captions_in, self.cfg,
+                                          generator, drop, masks)
+
+    def loss_fn(self) -> Callable:
+        return masked_ce_from_logits
+
+    def loss(self, params, images, captions_in, y_onehot, generator=None, masks=None):
+        logits = self.forward_train(params, images, captions_in, generator, masks)
+        return self.loss_fn()(logits, y_onehot)
 
 
 def build_captioner(model_type: str, cfg, vocab_size: int) -> Captioner:

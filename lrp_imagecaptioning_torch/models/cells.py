@@ -55,12 +55,40 @@ def lstm_init(gen: torch.Generator, in_dim: int, hidden: int):
             "b": b}
 
 
-def lstm_step(params, x: torch.Tensor, state: LSTMState):
-    """One LSTM step (no dropout). Returns (new_state, cache)."""
+def lstm_step(params, x: torch.Tensor, state: LSTMState, dropout_masks=None):
+    """One LSTM step. Returns (new_state, cache).
+
+    ``dropout_masks``, when given, is ``(x_masks (4, [B,] in_dim), h_masks
+    (4, [B,] H))``: Keras LSTM dropout, one inverted-dropout mask per gate for
+    the input and one for the recurrent state, constant across timesteps."""
     h, c = state
-    # z = x @ wi + h @ wh + b: the two adds are in the kernel, in this order
-    z, h_new, c_new = lstm_gates(x @ params["wi"], h @ params["wh"], params["b"], c)
+    if dropout_masks is None:
+        zx, zh = x @ params["wi"], h @ params["wh"]
+    else:
+        # gate by gate, as the JAX cell: (x xm[g]) @ wi_g and (h hm[g]) @ wh_g
+        x_masks, h_masks = dropout_masks
+        wi, wh = params["wi"].chunk(4, dim=-1), params["wh"].chunk(4, dim=-1)
+        zx = torch.cat([(x * x_masks[g]) @ wi[g] for g in range(4)], dim=-1)
+        zh = torch.cat([(h * h_masks[g]) @ wh[g] for g in range(4)], dim=-1)
+    # z = zx + zh + b: the two adds are in the kernel, in this order
+    z, h_new, c_new = lstm_gates(zx, zh, params["b"], c)
     return LSTMState(h_new, c_new), LSTMCache(z_pre=z, c=c_new)
+
+
+def bernoulli_keep(gen: torch.Generator, keep: float, shape, dtype=torch.float32) -> torch.Tensor:
+    """Inverted-dropout mask on ``gen``'s device: 1/keep with probability
+    ``keep``, else 0."""
+    return (torch.rand(shape, generator=gen, device=gen.device) < keep).to(dtype) / keep
+
+
+def lstm_dropout_masks(gen: torch.Generator, in_dim: int, hidden: int, rate: float,
+                       batch: int | None = None):
+    """Per-gate inverted-dropout masks, shared across timesteps.
+
+    Returns (x_masks, h_masks) with shapes (4, [B,] in_dim) / (4, [B,] H)."""
+    keep = 1.0 - rate
+    lead = (4,) if batch is None else (4, batch)
+    return bernoulli_keep(gen, keep, (*lead, in_dim)), bernoulli_keep(gen, keep, (*lead, hidden))
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int):

@@ -6,6 +6,15 @@ its CUDA kernel (``csrc/*.cu``, built by ``_build.py``) for a tensor on the
 card, or raises: nothing falls back. Each counts its launches in the integer
 attribute ``<wrapper>.launches``; ``reset_launches()`` sets them to 0.
 
+Gradients on the card: ``lstm_gates`` runs through the ``LSTMGates``
+autograd Function when an input requires grad (the forward is the kernel,
+the backward ``lstm_gates_vjp`` in torch ops; the JAX package differentiates
+the jnp cell, so there is no backward kernel to port). ``lrp_linear``,
+``conv3x3_fused`` and ``lrp_a1b0_fused`` have no backward in either package:
+on the card they raise when autograd would have to differentiate them, rather
+than return an output without history. On the CPU the plain versions are
+differentiated by autograd as they are.
+
 ==============  ========================  ============================================================
 wrapper         CUDA source               TPU kernel it replaces
 ==============  ========================  ============================================================
@@ -40,6 +49,13 @@ def _check_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> torch
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel takes contiguous tensors (shape {tuple(t.shape)})")
     return dev
+
+
+def _no_grad_only(name: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate a kernel that has none."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no gradient and an input requires "
+                           "grad; run it under torch.no_grad()")
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:
@@ -83,6 +99,7 @@ def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tenso
     x (..., Din); w (Din, Dout). Leading dims flatten into the kernel's M rows."""
     if x.device.type == "cpu":
         return lrp_linear_plain(r, x, z, w)
+    _no_grad_only("lrp_linear", r, x, z, w)
     dev = _check_cuda("lrp_linear", r, x, z, w)
     din, dout = w.shape
     if x.shape[-1] != din or r.shape[-1] != dout or z.shape != r.shape \
@@ -118,12 +135,54 @@ def lstm_gates_plain(zx: torch.Tensor, zh: torch.Tensor, bias: torch.Tensor,
     return z_pre, h, c
 
 
+def lstm_gates_vjp(z_pre, c_prev, c, dz_pre, dh, dc):
+    """The gradient of ``lstm_gates_plain`` from its saved ``z_pre``, ``c_prev``
+    and ``c``: cotangents (dz_pre, dh, dc) -> (dz, dbias, dc_prev), where dz is
+    the gradient of zx and of zh alike. With i, f, o = sigmoid and g = tanh
+    of z_pre's four blocks:
+
+        dc_tot = dc + dh o (1 - tanh^2 c)
+        dz     = [dc_tot g i(1-i), dc_tot c_prev f(1-f), dc_tot i (1-g^2),
+                  dh tanh(c) o(1-o)] + dz_pre
+        dbias  = dz summed over the batch;   dc_prev = dc_tot f"""
+    zi, zf, zg, zo = z_pre.chunk(4, dim=-1)
+    i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
+    g, tc = torch.tanh(zg), torch.tanh(c)
+    dc_tot = dc + dh * o * (1.0 - tc * tc)
+    dz = torch.cat([dc_tot * g * i * (1.0 - i), dc_tot * c_prev * f * (1.0 - f),
+                    dc_tot * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=-1) + dz_pre
+    return dz, dz.reshape(-1, dz.shape[-1]).sum(dim=0), dc_tot * f
+
+
+class LSTMGates(torch.autograd.Function):
+    """K2 with a gradient: the forward is the CUDA kernel, the backward
+    ``lstm_gates_vjp`` in torch ops."""
+
+    @staticmethod
+    def forward(ctx, zx, zh, bias, c_prev):
+        z_pre, h, c = _lstm_gates_launch(zx, zh, bias, c_prev)
+        ctx.save_for_backward(z_pre, c_prev, c)
+        return z_pre, h, c
+
+    @staticmethod
+    def backward(ctx, dz_pre, dh, dc):
+        dz, dbias, dc_prev = lstm_gates_vjp(*ctx.saved_tensors, dz_pre, dh, dc)
+        return dz, dz, dbias, dc_prev
+
+
 def lstm_gates(zx: torch.Tensor, zh: torch.Tensor, bias: torch.Tensor, c_prev: torch.Tensor):
     """The gate pre-activations ``z_pre = (zx + zh) + bias``, then the gate
     nonlinearities and the cell update, in one launch; returns (z_pre, h, c).
-    zx = x @ W_i and zh = h_prev @ W_h: (B, 4H); bias (4H,); c_prev (B, H)."""
+    zx = x @ W_i and zh = h_prev @ W_h: (B, 4H); bias (4H,); c_prev (B, H).
+    On the card an input that requires grad takes ``LSTMGates``."""
     if zx.device.type == "cpu":
         return lstm_gates_plain(zx, zh, bias, c_prev)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (zx, zh, bias, c_prev)):
+        return LSTMGates.apply(zx, zh, bias, c_prev)
+    return _lstm_gates_launch(zx, zh, bias, c_prev)
+
+
+def _lstm_gates_launch(zx, zh, bias, c_prev):
     dev = _check_cuda("lstm_gates", zx, zh, bias, c_prev)
     hidden = c_prev.shape[-1]
     if (zx.shape != zh.shape or zx.shape[:-1] != c_prev.shape[:-1]
@@ -176,6 +235,7 @@ def conv3x3_fused(x: torch.Tensor, ew: torch.Tensor, kernel: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, ew, kernel, bias, mode)
     tensors = (x, ew, kernel) if bias is None else (x, ew, kernel, bias)
+    _no_grad_only("conv3x3_fused", *tensors)
     dev = _check_cuda("conv3x3_fused", *tensors)
     nc, h, w, cin = x.shape
     ne, cout = ew.shape[0], ew.shape[-1]
@@ -262,6 +322,7 @@ def lrp_a1b0_fused(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
     if x.device.type == "cpu":
         return lrp_a1b0_fused_plain(r, x, kernel, bias)
     tensors = (r, x, kernel) if bias is None else (r, x, kernel, bias)
+    _no_grad_only("lrp_a1b0_fused", *tensors)
     dev = _check_cuda("lrp_a1b0_fused", *tensors, dtype=torch.bfloat16)
     n, h, w, cout = r.shape
     cin = x.shape[-1]
