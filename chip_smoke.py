@@ -29,7 +29,10 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             its autograd Function, its gradient held to the plain version's
             and its backward timed (train), and lrp_linear, lstm_gates (two
             forwards under no_grad, one through the Function) and
-            conv3x3_fused at the fine-tune step's shapes (finetune);
+            conv3x3_fused at the fine-tune step's shapes (finetune); 2d
+            grid-TD's (the Explainer's gridtd_f32 at batch 8, gridtd_bf16 at
+            56): lrp_linear with its two gate blocks a step (K = 1536 and
+            2048), lstm_gates twice a step, the CNN kernel of each;
 3. main:    VGG16 / adaptive attention at full width (224x224 input, 14x14x512
             grid, E = H = 512, vocab 7003, beam 3, T = 20) on random weights
             from seed 0, f32, batch 8: one warm-up pass (it captures the
@@ -56,12 +59,32 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             the CPU-f32 run's distance from f64, relevance weights within
             TOL_FT_WEIGHTS of their scale; the same gradients once more with
             dropout 0.5, one set of masks drawn on the CPU for all three;
+8. Explainer: adaptive attention in bf16 storage at batch 56 over 224 images
+            with natural caption lengths (bench_natural.py's draw): warmup,
+            one timed analyze_many (img/s, the chunk-to-bucket plan, graph
+            captures before and after, pool and output GiB, peak memory,
+            launches held to the plan, one chunk's time by part), one
+            analyze_many that decodes 56 images, warmup(sub_batches=True)
+            and requests of 1-60 images after it (no capture, the pool's
+            size unchanged), and analyze / analyze_batch / analyze_many held
+            equal on three images;
+8b. Explainer, f32, batch 8: analyze_batch with its decode, the entry
+            points held equal, one image against CPU f32 and f64 (captions
+            equal, maps within F64_RATIO of the CPU-f32 run's distance);
+8c. grid-TD lrp: f32 at batch 8 and bf16 at batch 56, launches held to the
+            derived counts, one image against the CPU;
+8d. the gradient methods: each on one image with a 4-word caption (ms, K2's
+            launches); the same Explainer's first word against CPU f32 and
+            f64: the decoder gradient from each run's own encode, the CNN
+            side on one shared seed (the f64 run's decoder gradient);
 5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph and
             training card tests, in a child process (run last).
 
-Every path (f32, bf16, train, finetune) is driven with the launch counts set
-to 0 just before it and read just after; each kernel's count must equal its
-calls on that path as phase 2's shapes derive them, 0 where it is not on it.
+Every path (f32, bf16, train, finetune, gridtd_f32, gridtd_bf16) is driven
+with the launch counts set to 0 just before it and read just after; each
+kernel's count must equal its calls on that path as phase 2's shapes derive
+them, 0 where it is not on it. The Explainer's other runs (phases 8, 8b, 8d)
+are held to the counts their bucket plans derive.
 
 Prints the ``{"kernels": [...]}`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``. Per-shape detail goes to
@@ -70,6 +93,7 @@ line ``{"ok": true, "device": {...}}``. Per-shape detail goes to
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -110,6 +134,15 @@ TOL_BF16_KERNEL = 1e-2
 # maps (1.6e-3 against 3.5e-3 of scale) and 2.0x for the heatmaps (5.6e-4
 # against 2.8e-4); the heatmaps also pass TOL_CPU_MAPS against CPU-f32.
 F64_RATIO = {"r_feat": 2.0, "maps": 4.0}
+# the floor under each ratio. Either run can flip a near-tie that moves a
+# heatmap value by up to a few 1e-3 of the scale: over the first five images
+# of phase 8's workload (scripts/explainer_consistency.py, H100 80GB HBM3 at
+# 700 W) the card's f32 heatmaps read 4.6e-7 to 5.3e-4 from f64 and the
+# CPU-f32 run's 5.9e-7 to 2.6e-3, the largest on different images (0 on the
+# card, which phases 8b and 8c take; 2 on the CPU). Below TOL_CPU_MAPS,
+# phase 4's bound on card against CPU-f32 heatmaps, the ratio reads which
+# run flipped, not the card
+F64_FLOOR = {"r_feat": 1e-5, "maps": TOL_CPU_MAPS}
 # phase 4b: the card-bf16 heatmaps' distance from a CPU-f32 run, as a multiple
 # of the CPU-bf16 run's own distance from it. An H100 80GB HBM3 at 700 W read
 # 0.84x (7.6e-3 against 9.1e-3 of scale); 2x is also the CPU tests' bound for
@@ -199,11 +232,17 @@ def vgg16_conv_layers():
     return out
 
 
-def linear_shapes(batch, words):
-    """The decoder LRP's products: one row per (image, explained word)."""
+def linear_shapes(path, batch, words):
+    """The decoder LRP's products: one row per (image, explained word), as
+    (name, M, Dout, Din, calls a pass). Adaptive: the gate-g block [x; h] a
+    step; grid-TD: the language LSTM's [c_hat, h1; h2] (K = 2H + H) and the
+    TD LSTM's [h2, g, e; h1] (K = H + 2E + H) a step."""
     R = batch * words
-    return [("output", R, VOCAB, H, 1), ("gate_g", R, H, 2 * E + H, words),
-            ("w_glob", R, E, D, 1), ("w_img", R * L, H, D, 1)]
+    if path.startswith("gridtd"):
+        gates = [("lang_gate", R, H, 3 * H, T), ("td_gate", R, H, 2 * H + 2 * E, T)]
+    else:
+        gates = [("gate_g", R, H, 2 * E + H, words)]
+    return [("output", R, VOCAB, H, 1), *gates, ("w_glob", R, E, D, 1), ("w_img", R * L, H, D, 1)]
 
 
 def check_lrp_linear(gen, dev, path):
@@ -211,7 +250,7 @@ def check_lrp_linear(gen, dev, path):
 
     _, batch, words = PATHS[path]
     rows = []
-    for name, m, dout, din, calls in linear_shapes(batch, words):
+    for name, m, dout, din, calls in linear_shapes(path, batch, words):
         r = torch.randn(m, dout, generator=gen, device=dev)
         z = torch.randn(m, dout, generator=gen, device=dev)
         x = torch.randn(m, din, generator=gen, device=dev)
@@ -248,6 +287,8 @@ def check_lstm_gates(gen, dev, path):
         return [lstm_forward_row(gen, dev, batch, 2 * words, "no_grad x2", grad=False)[0],
                 lstm_forward_row(gen, dev, batch, words, "teacher_forced", grad=True)[0]]
     rows = []
+    # grid-TD runs two LSTMs a step
+    calls = 2 * T if path.startswith("gridtd") else T
     for name, b in (("beam", batch * BEAM), ("cached_forward", batch)):
         zx = torch.randn(b, 4 * H, generator=gen, device=dev)
         zh = torch.randn(b, 4 * H, generator=gen, device=dev)
@@ -267,7 +308,8 @@ def check_lstm_gates(gen, dev, path):
         lib = lambda: fused_cell(zx, zh, c, bias, zero_bias)
         # the path replays K2 from CUDA graphs: its time is the in-graph
         # device time; the eager time (host launch cost included) stands beside it
-        rows.append(dict(shape=name, B=b, H=H, calls=T, err=err, z_pre_exact=bool(torch.equal(z1, z0)),
+        rows.append(dict(shape=name, B=b, H=H, calls=calls, err=err,
+                         z_pre_exact=bool(torch.equal(z1, z0)),
                          library_err=max(rel_err(hl, h0), rel_err(cl, c0)),
                          ms=graph_ms(kern), eager_ms=time_ms(kern),
                          plain_ms=time_ms(lambda: kernels.lstm_gates_plain(zx, zh, bias, c)),
@@ -430,14 +472,19 @@ TOLERANCE = {"lrp_linear": ("rel", TOL_KERNEL), "lstm_gates": ("abs", TOL_LSTM_A
 # (phases 3, 3b); "train" is one train step (phase 6), "finetune" one
 # LRP-inference fine-tune step (phase 6b), both f32 at the config's batch
 PATHS = {"f32": (None, B_MAIN, T), "bf16": (torch.bfloat16, B_BF16, T),
-         "train": (None, B_TRAIN, T_TRAIN), "finetune": (None, B_TRAIN, T_TRAIN)}
+         "train": (None, B_TRAIN, T_TRAIN), "finetune": (None, B_TRAIN, T_TRAIN),
+         "gridtd_f32": (None, B_MAIN, T), "gridtd_bf16": (torch.bfloat16, B_BF16, T)}
 PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 "bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
                 "train": ("lstm_gates",),
-                "finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused")}
+                "finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+                "gridtd_f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+                "gridtd_bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused")}
 PATH_TITLES = {"bf16": "phase 2b: the bf16 path's kernels vs their plain versions, batch {b}",
                "train": "phase 2c: the train path's kernel, K2 with its gradient, batch {b}",
-               "finetune": "phase 2c: the fine-tune path's kernels, batch {b} x {w} words"}
+               "finetune": "phase 2c: the fine-tune path's kernels, batch {b} x {w} words",
+               "gridtd_f32": "phase 2d: grid-TD's kernels (Explainer, f32), batch {b} x {w} words",
+               "gridtd_bf16": "phase 2d: grid-TD's kernels (Explainer, bf16), batch {b} x {w} words"}
 
 
 def phase_kernels(dev, failures):
@@ -971,15 +1018,521 @@ def phase_finetune_cpu(dev, failures, batch_seed=6, mask_seed=7):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 8, 8b, 8c and 8d: the Explainer
+# ---------------------------------------------------------------------------
+
+N_NATURAL = 224             # experiments/bench_natural.py: 224 images at batch 56
+BUCKETS = (4, 8, 12, 16)    # the Explainer's default word buckets; T beyond them
+CONVS = 12                  # post-ReLU VGG16 convs: K3 twice or K4 once each, per image
+GRAD_METHODS = ("gradient", "input_times_gradient", "guided_backprop", "guided_gradcam",
+                "deconvnet", "integrated_gradients", "smoothgrad")
+# analyze / analyze_batch / analyze_many on the same images: each array's
+# largest distance over its scale. They run the cached forward at other
+# batch sizes, and cuBLAS sums a product of one row in another order than one
+# of four (scripts/explainer_consistency.py: the encode and the decoder LRP
+# on the same caches agree, K1's split-K plays no part). The decoder LRP's
+# outputs (feat_relevance, word_relevances) divide by z +- 1e-7, which
+# amplifies those ~1e-7 differences, as f32 rounding does: at full width it
+# alone puts feat_relevance 1.3e-4 to 5.3e-3 of its scale from f64 (phases
+# 4, 8b, 8c and the script's five images), so they are held to
+# TOL_CONSISTENT_LRP, inside that range. The decoder LRP itself
+# is held to TOL_CONSISTENT on one set of caches (``lrp_on_shared_caches``).
+# In bf16 storage a difference can flip one bf16 rounding of a heatmap value
+# (2^-8 of it): its maps are held to the bf16 rule's kernel tolerance. Every
+# other array, and the f32 heatmaps, to TOL_CONSISTENT
+TOL_CONSISTENT = 1e-4
+TOL_CONSISTENT_LRP = 1e-3
+EXPLANATION_FIELDS = ("relevance_maps", "feat_relevance", "attentions", "word_relevances",
+                      "betas")
+# phase 8d holds each method's CNN side to CPU f32 and f64 runs of the same
+# function on one shared seed, by the 2-norm of the difference over the f64
+# map's. A ReLU or a max-pool that a near-tie flips between two forwards
+# moves single values by up to 5 % of the map's largest (each run's largest
+# distance is logged beside) and up to 7.6e-3 of its norm: an H100 80GB HBM3
+# at 700 W read the CPU-f32 runs 1.4e-6 to 6.4e-3 from f64 and the card
+# 7.7e-5 to 7.6e-3 (scripts/explainer_consistency.py), deconvnet 1.8e-3
+# where its CPU-f32 run had no flip. The card must lie within
+# GRAD_MAPS_RATIO times the CPU-f32 run's distance, or GRAD_MAPS_FLOOR: a
+# CNN gradient a few % off fails
+GRAD_MAPS_RATIO = 2.0
+GRAD_MAPS_FLOOR = 1e-2
+
+
+class CaptionPP:
+    """The caption preprocessor's surface the Explainer reads, vocab 7003."""
+
+    SOS_TOKEN, EOS_TOKEN = "szeros", "zeros"
+    SOS_TOKEN_LABEL_ENCODED, EOS_TOKEN_LABEL_ENCODED = SOS, EOS
+    word_of = {i: f"w{i}" for i in range(1, VOCAB + 1)}
+
+
+def natural_workload():
+    """bench_natural.py's workload from numpy seed 0: 224 normal images, then
+    caption lengths clip(round(N(10, 3)), 4, 20) and random words, EOS after."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(N_NATURAL, IMAGE, IMAGE, 3)).astype(np.float32)
+    lengths = np.clip(np.round(rng.normal(10.0, 3.0, size=N_NATURAL)), 4, T).astype(int)
+    toks = np.zeros((N_NATURAL, T), np.int32)
+    for i, n in enumerate(lengths):
+        toks[i, :n] = rng.integers(3, VOCAB, size=n)
+        if n < T:
+            toks[i, n] = EOS
+    return images, toks, lengths
+
+
+def bucket_for(n_words):
+    return next((w for w in BUCKETS if n_words <= w), T)
+
+
+def sorted_plan(n_words, batch):
+    """analyze_many's dispatch, derived here: images sorted by caption length
+    (stable), chunks of ``batch``, each on the bucket of its longest caption
+    -> [(images, bucket)]."""
+    import numpy as np
+
+    order = np.argsort(np.asarray(n_words), kind="stable")
+    return [(len(order[i:i + batch]), bucket_for(int(np.asarray(n_words)[order[i:i + batch]].max())))
+            for i in range(0, len(order), batch)]
+
+
+def explain_launches(model_type, storage_dtype, plan, decodes=0, method="lrp"):
+    """Each kernel's launches for ``decodes`` beam searches and the explain
+    calls of ``plan`` [(rows, bucket)], derived from the code: K2 once
+    (adaptive) or twice (grid-TD) a step of every beam search and cached
+    forward; K1 at the LRP's output layer, gate blocks a step (one or two),
+    W_glob and W_img, whatever the bucket; K3 twice (f32) or K4 once (bf16)
+    per post-ReLU conv per image (a dispatch's padded rows skip the CNN
+    side). The gradient methods
+    run no K1, K3 or K4 (torch ops and autograd on cuDNN)."""
+    lstms = 2 if model_type == "gridTD" else 1
+    out = {"lrp_linear": 0, "lstm_gates": lstms * T * decodes, "conv3x3_fused": 0,
+           "lrp_a1b0_fused": 0}
+    for rows, _ in plan:
+        out["lstm_gates"] += lstms * T
+        if method == "lrp":
+            out["lrp_linear"] += lstms * T + 3
+            if storage_dtype is None:
+                out["conv3x3_fused"] += 2 * CONVS * rows
+            else:
+                out["lrp_a1b0_fused"] += CONVS * rows
+    return out
+
+
+def counts():
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    return {k.__name__: k.launches for k in kernels.KERNELS}
+
+
+def pool_gib(ex):
+    """The Explainer's graph pool: the device memory segments it holds."""
+    return ex.graphs.pool_bytes() / 2**30
+
+
+def explanation_dist(got, ref):
+    """For each Explanation array, the largest distance of ``got``'s from
+    ``ref``'s over that array's scale; inf where the words differ."""
+    worst = dict.fromkeys(EXPLANATION_FIELDS, 0.0)
+    for g, r in zip(got, ref):
+        if g.words != r.words or g.caption != r.caption:
+            return dict.fromkeys(EXPLANATION_FIELDS, float("inf"))
+        for name in EXPLANATION_FIELDS:
+            a, b = getattr(g, name), getattr(r, name)
+            if b.size:
+                scale = max(float(abs(b).max()), 1e-30)
+                worst[name] = max(worst[name], float(abs(a - b).max()) / scale)
+    return worst
+
+
+def lrp_on_shared_caches(ex, images, toks):
+    """The decoder backward of each image alone (batch 1) and of all of them
+    (batch n), on the caches of one cached forward at batch n: each output's
+    largest distance over its scale."""
+    with torch.no_grad():
+        n = len(images)
+        tokens = torch.as_tensor(toks[:n], dtype=torch.long, device=images.device)
+        consts, caches = ex.captioner.cached_forward(ex.params, ex._encode(images), tokens, SOS)
+        pos = torch.arange(T, device=images.device).expand(n, T).contiguous()
+        words0 = torch.clamp(tokens - 1, min=0)
+        full = ex._backward(ex.params["decoder"], consts, caches, words0, pos)
+        worst = {}
+        for b in range(n):
+            one = ex._backward(ex.params["decoder"], type(consts)(*(c[b:b + 1] for c in consts)),
+                               type(caches)(*(c[:, b:b + 1] for c in caches)), words0[b:b + 1],
+                               pos[b:b + 1])
+            for name, a, ref in zip(("feat_relevance", "word_relevances", "attentions"), one, full):
+                d = float((a[0] - ref[b]).abs().max() / ref[b].abs().max().clamp_min(1e-30))
+                worst[name] = max(worst.get(name, 0.0), d)
+    return worst
+
+
+def check_entry_points(ex, images, toks, label, failures, maps_tol=TOL_CONSISTENT):
+    """analyze, analyze_batch and analyze_many on the same three images and
+    tokens: the heatmaps within ``maps_tol`` of their scale, the decoder
+    LRP's outputs within TOL_CONSISTENT_LRP, the rest within TOL_CONSISTENT;
+    the decoder LRP at batch 1 and 3 on one cached forward's caches within
+    TOL_CONSISTENT. Batch 1 and 3 capture graphs of their own."""
+    tol = dict.fromkeys(EXPLANATION_FIELDS, TOL_CONSISTENT)
+    tol.update(relevance_maps=maps_tol, feat_relevance=TOL_CONSISTENT_LRP,
+               word_relevances=TOL_CONSISTENT_LRP)
+    one = [ex.analyze(images[i], toks[i]) for i in range(3)]
+    batch = ex.analyze_batch(images[:3], toks[:3])
+    many = ex.analyze_many(images[:3], toks[:3], 3)
+    rep = dict(batch_vs_analyze=explanation_dist(batch, one),
+               many_vs_analyze=explanation_dist(many, one))
+    rep["lrp_shared_caches"] = lrp_on_shared_caches(ex, images[:3], toks)
+    log(f"  {label}: analyze vs analyze_batch vs analyze_many, 3 images, and the decoder LRP "
+        f"at batch 1 and 3 on shared caches: {rep}")
+    for key, dist in rep.items():
+        bad = {f: d for f, d in dist.items()
+               if d > (TOL_CONSISTENT if key == "lrp_shared_caches" else tol[f])}
+        if bad:
+            failures.append(f"{label}: the entry points disagree ({key}): {bad}")
+    return rep
+
+
+def check_explanations(out, n_words, label, failures, nonzero=True):
+    """Shapes, finiteness and (``nonzero``) a map that is not all zero for
+    every explained word."""
+    bad = [i for i, (e, n) in enumerate(zip(out, n_words))
+           if len(e.words) != n or e.relevance_maps.shape != (n, IMAGE, IMAGE, 3)
+           or not (abs(e.relevance_maps) < float("inf")).all()
+           or (nonzero and n and not (abs(e.relevance_maps).reshape(n, -1).max(axis=1) > 0).all())]
+    if bad:
+        failures.append(f"{label}: explanations {bad[:5]} have the wrong words, shape, "
+                        f"non-finite or all-zero maps")
+
+
+def explainer_for(cap, params, dev, **kw):
+    from lrp_imagecaptioning_torch.explain.engine import Explainer
+
+    return Explainer(cap, params, CaptionPP(), beam_size=BEAM, word_buckets=BUCKETS,
+                     device=dev, **kw)
+
+
+def explain_split(ex, images, toks_np, W):
+    """Where one explain call over ``images`` on bucket ``W`` spends its time:
+    ms of the encode, the decoder stage (a graph replay), the CNN side, the
+    copy of the outputs to the host and the assembly of the Explanations, each
+    by the host clock around a synchronised call; and the outputs' GiB."""
+    toks = torch.as_tensor(toks_np, dtype=torch.long, device=images.device)
+    positions = torch.arange(W, device=images.device).expand(len(images), W).contiguous()
+    with torch.no_grad():
+        feat, encode = timed(ex._encode, images)
+        dec, decoder = timed(ex._decoder_stage, ex.params, feat, toks, positions)
+        maps, cnn = timed(ex._cnn, images, feat, dec[0])
+    host, to_host = timed(lambda: [o.float().cpu().numpy() for o in (maps, *dec)])
+    _, assemble = timed(lambda: [ex._assemble(toks_np, host, b) for b in range(len(images))])
+    return dict(bucket=W, encode=encode, decoder=decoder, cnn=cnn, to_host=to_host,
+                assemble=assemble, host_gib=sum(h.nbytes for h in host) / 2**30)
+
+
+def phase_explainer(dev, failures):
+    """The Explainer at bench_natural's workload: adaptive attention, bf16
+    storage, 224 images with natural caption lengths at batch 56."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    cap = build_captioner("adaptiveattention", FlickrConfig(), VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    images_np, toks, lengths = natural_workload()
+    images = torch.from_numpy(images_np).to(dev)
+    del images_np
+    ex = explainer_for(cap, params, dev, storage_dtype=torch.bfloat16, batch_size=B_BF16)
+
+    _, warm_ms = timed(ex.warmup, images[:B_BF16])
+    captures = ex.graphs.captures
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = timed(ex.analyze_many, images, toks, B_BF16)
+    launches, mem = counts(), memory_gib()
+    plan = sorted_plan(lengths, B_BF16)
+    want = explain_launches("adaptiveattention", torch.bfloat16, plan)
+    check_explanations(out, lengths, "phase 8 analyze_many", failures)
+    host_gib = sum(e.relevance_maps.nbytes for e in out) / 2**30
+    del out
+    rep = dict(images=N_NATURAL, batch=B_BF16, mean_words=float(lengths.mean()), warm_ms=warm_ms,
+               ms=ms, img_per_s=N_NATURAL / ms * 1e3, plan=plan, launches=launches, expected=want,
+               captures_after_warmup=captures, captures_after_request=ex.graphs.captures,
+               pool_gib=pool_gib(ex), graph_outputs_gib=ex.graphs.output_bytes() / 2**30,
+               host_maps_gib=host_gib, **mem)
+    log(f"  warm-up {warm_ms:.1f} ms ({captures} graph captures); analyze_many over "
+        f"{N_NATURAL} images ({rep['mean_words']:.2f} words an image): {ms:.1f} ms = "
+        f"{rep['img_per_s']:.2f} img/s; chunks (rows, bucket) {plan}; captures "
+        f"{captures} -> {ex.graphs.captures}; graph pool {rep['pool_gib']:.3f} GiB, its "
+        f"outputs {rep['graph_outputs_gib']:.3f} GiB; peak {mem['peak_gib']:.2f} GiB "
+        f"allocated, {mem['reserved_gib']:.2f} reserved; maps on the host {host_gib:.3f} GiB")
+    log(f"  launches {launches}")
+    if launches != want:
+        failures.append(f"phase 8: launches {launches}, {want} derived from the plan")
+    # the split of the shortest and the longest sorted chunk's explain call
+    order = np.argsort(lengths, kind="stable")
+    rep["split"] = [explain_split(ex, images[torch.as_tensor(sel, device=dev)], toks[sel],
+                                  bucket_for(int(lengths[sel].max())))
+                    for sel in (order[:B_BF16], order[-B_BF16:])]
+    log(f"  one chunk's explain call by part, ms (shortest and longest chunk): {rep['split']}")
+    if ex.graphs.captures != captures:
+        failures.append(f"phase 8: a request captured after warm-up ({captures} -> "
+                        f"{ex.graphs.captures})")
+
+    # the decode: analyze_many without tokens over one chunk
+    kernels.reset_launches()
+    out, ms_d = timed(ex.analyze_many, images[:B_BF16], None, B_BF16)
+    words = np.asarray([len(e.words) for e in out])
+    want_d = explain_launches("adaptiveattention", torch.bfloat16, sorted_plan(words, B_BF16), 1)
+    check_explanations(out, words, "phase 8 decode", failures)
+    rep.update(decode_ms=ms_d, decode_img_per_s=B_BF16 / ms_d * 1e3, decode_launches=counts(),
+               decode_expected=want_d, decode_words=words.tolist()[:8],
+               captures_after_decode=ex.graphs.captures)
+    log(f"  analyze_many decoding {B_BF16} images: {ms_d:.1f} ms = {rep['decode_img_per_s']:.2f} "
+        f"img/s; words {words.tolist()[:8]}...; launches {rep['decode_launches']}; captures "
+        f"{ex.graphs.captures}")
+    if rep["decode_launches"] != want_d or ex.graphs.captures != captures:
+        failures.append(f"phase 8 decode: launches {rep['decode_launches']} ({want_d} derived), "
+                        f"captures {captures} -> {ex.graphs.captures}")
+    del out
+
+    # the latency mode: every size of the halving ladder captured, then
+    # requests of other sizes (split by bucket, decoded, past the batch)
+    # replay those graphs: no capture, the pool as it was
+    _, rep["warm_sub_ms"] = timed(ex.warmup, images[:B_BF16], True)
+    rep["captures_sub"], rep["pool_sub_gib"] = ex.graphs.captures, pool_gib(ex)
+    for k in (1, 5, 23, 60):
+        ex.analyze_many(images[:k], toks[:k], split_buckets=True)
+    for k in (2, 9):
+        ex.analyze_batch(images[:k])
+    rep["captures_sub_after"], rep["pool_sub_after_gib"] = ex.graphs.captures, pool_gib(ex)
+    log(f"  warmup(sub_batches=True) {rep['warm_sub_ms']:.1f} ms: captures {rep['captures_sub']}, "
+        f"pool {rep['pool_sub_gib']:.3f} GiB; after requests of 1-60 images "
+        f"{rep['captures_sub_after']}, {rep['pool_sub_after_gib']:.3f} GiB")
+    if (rep["captures_sub_after"], rep["pool_sub_after_gib"]) != (rep["captures_sub"],
+                                                                  rep["pool_sub_gib"]):
+        failures.append("phase 8: a request of another size captured or grew the pool after "
+                        "warmup(sub_batches=True)")
+
+    rep["consistency"] = check_entry_points(ex, images, toks, "phase 8", failures,
+                                            maps_tol=TOL_BF16_KERNEL)
+    return rep
+
+
+def card_vs_cpu(ex, cap, params, image, tokens, failures, label, words=CPU_WORDS):
+    """One image on the card (``ex``), and on the CPU in f32 and in f64, with
+    ``tokens`` cut to their first ``words`` words (the CPU time): the card's
+    maps must lie within F64_RATIO times the CPU-f32 run's distance from f64
+    (floor F64_FLOOR of the scale), and ``tokens``, the card's decode, must
+    equal the CPU's beam search."""
+    from lrp_imagecaptioning_torch.explain.engine import _n_explained
+    from lrp_imagecaptioning_torch.weights import tree_to
+    import numpy as np
+
+    params_c = tree_to(params, "cpu")
+    n = min(_n_explained(tokens, EOS), words)
+    cut = np.zeros(T, np.int32)
+    cut[:n] = tokens[:n]
+    cut[n] = EOS
+    card = ex.analyze(image, cut)
+    t0 = time.perf_counter()
+    runs = {}
+    for name, p in (("f32", params_c), ("f64", tree_to(params_c, dtype=torch.float64))):
+        cpu = explainer_for(cap, p, "cpu")
+        cpu._buckets = (n,)
+        if name == "f32":
+            cpu_tokens = cpu.predict_caption(image.cpu())[0]
+        runs[name] = cpu.analyze(image.cpu(), cut)
+    out = dict(cpu_s=time.perf_counter() - t0, words=n,
+               tokens_equal=bool(np.array_equal(cpu_tokens, tokens)))
+    for key, field in (("r_feat", "feat_relevance"), ("maps", "relevance_maps")):
+        ref = getattr(runs["f64"], field)
+        scale = max(float(abs(ref).max()), 1e-30)
+        out[f"{key}_card_vs_f64"] = float(abs(getattr(card, field) - ref).max()) / scale
+        out[f"{key}_cpu_vs_f64"] = float(abs(getattr(runs["f32"], field) - ref).max()) / scale
+        if out[f"{key}_card_vs_f64"] > max(F64_RATIO[key] * out[f"{key}_cpu_vs_f64"],
+                                           F64_FLOOR[key]):
+            failures.append(f"{label} {key}: card deviates {out[f'{key}_card_vs_f64']:.3e} "
+                            f"from f64, CPU f32 {out[f'{key}_cpu_vs_f64']:.3e}")
+    if not out["tokens_equal"]:
+        failures.append(f"{label}: card tokens {tokens.tolist()} != CPU {cpu_tokens.tolist()}")
+    log(f"  {label} card vs CPU: {out}")
+    return out
+
+
+def explain_batch_run(cap, params, dev, images, storage_dtype, label, failures):
+    """warmup, then one counted and timed analyze_batch (decode + explain)."""
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    ex = explainer_for(cap, params, dev, storage_dtype=storage_dtype, batch_size=len(images))
+    _, warm_ms = timed(ex.warmup, images)
+    captures = ex.graphs.captures
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = timed(ex.analyze_batch, images)
+    launches, mem = counts(), memory_gib()
+    words = [len(e.words) for e in out]
+    plan = [(len(images), bucket_for(max(words)))]
+    want = explain_launches(cap.model_type, storage_dtype, plan, decodes=1)
+    check_explanations(out, words, label, failures)
+    rep = dict(batch=len(images), storage_dtype=str(storage_dtype), warm_ms=warm_ms, ms=ms,
+               img_per_s=len(images) / ms * 1e3, words=words, plan=plan, launches=launches,
+               expected=want, captures=[captures, ex.graphs.captures], pool_gib=pool_gib(ex),
+               graph_outputs_gib=ex.graphs.output_bytes() / 2**30, **mem)
+    log(f"  {label}: analyze_batch of {len(images)}: {ms:.1f} ms = {rep['img_per_s']:.2f} img/s "
+        f"(bucket {plan[0][1]}, words {words}); warm-up {warm_ms:.1f} ms; launches {launches}; "
+        f"captures {rep['captures']}; pool {rep['pool_gib']:.3f} GiB; peak {mem['peak_gib']:.2f} "
+        f"GiB allocated, {mem['reserved_gib']:.2f} reserved")
+    if launches != want:
+        failures.append(f"{label}: launches {launches}, {want} derived")
+    if ex.graphs.captures != captures:
+        failures.append(f"{label}: analyze_batch captured after warm-up")
+    return ex, out, rep
+
+
+def phase_explainer_f32(dev, failures):
+    """The f32 Explainer at batch 8 (decode + explain), its three entry points
+    on three of the images, then one image on the card against the CPU."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+
+    cap = build_captioner("adaptiveattention", FlickrConfig(), VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    images = torch.from_numpy(natural_workload()[0][:B_MAIN]).to(dev)
+    ex, out, rep = explain_batch_run(cap, params, dev, images, None, "phase 8b f32", failures)
+    rep["consistency"] = check_entry_points(ex, images, np.stack([e.tokens_1based for e in out]),
+                                            "phase 8b", failures)
+    rep["cpu"] = card_vs_cpu(ex, cap, params, images[0], out[0].tokens_1based, failures,
+                             "phase 8b")
+    return rep
+
+
+def phase_gridtd(dev, failures):
+    """grid-TD lrp: f32 at batch 8 and bf16 at batch 56, each one counted
+    analyze_batch; one image on the card against the CPU (f32)."""
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+
+    cap = build_captioner("gridTD", FlickrConfig(), VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    images = torch.from_numpy(natural_workload()[0][:B_BF16]).to(dev)
+    reps, launches = {}, {}
+    for path, storage in (("gridtd_f32", None), ("gridtd_bf16", torch.bfloat16)):
+        _, batch, _ = PATHS[path]
+        ex, out, reps[path] = explain_batch_run(cap, params, dev, images[:batch], storage,
+                                                f"phase 8c {path}", failures)
+        launches[path] = reps[path]["launches"]
+        if storage is None:
+            reps["cpu"] = card_vs_cpu(ex, cap, params, images[0], out[0].tokens_1based,
+                                      failures, "phase 8c")
+        del ex, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, reps
+
+
+def grad_vs_cpu(ex, cap, params, image, tokens, e, failures):
+    """The timed card Explainer ``ex`` (IG 16 steps, SmoothGrad 8 samples)
+    against CPU f32 and f64 runs on the first word. The decoder gradient: the
+    card's in the timed Explanation ``e``, the CPU runs' from their own
+    encode; within F64_RATIO["r_feat"] times the CPU-f32 run's distance from
+    f64 (floor F64_FLOOR). The CNN side: ``ex._cnn`` and the CPU runs' on one
+    shared seed, the f64 run's decoder gradient, so that a ReLU mask the
+    CPU-f32 decoder flips does not widen the bound; by the 2-norm, within
+    GRAD_MAPS_RATIO times the CPU-f32 run's distance from f64 (floor
+    GRAD_MAPS_FLOOR)."""
+    from lrp_imagecaptioning_torch.weights import tree_to
+
+    t0 = time.perf_counter()
+    params_c = tree_to(params, "cpu")
+    seed = torch.zeros(1, 1, dtype=torch.long)
+    toks = torch.as_tensor(tokens[None], dtype=torch.long)
+    runs = {}
+    with torch.no_grad():
+        for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            cpu = explainer_for(cap, tree_to(params_c, dtype=dtype), "cpu", method=ex.method)
+            img = image.cpu().to(dtype)[None]
+            feat = cpu._encode(img)
+            r_feat = cpu._decoder_stage(cpu.params, feat, toks, seed)[0]       # (1, 1, L, D)
+            runs[name] = dict(r_feat=r_feat[0, 0], cpu=cpu, img=img, feat=feat)
+        r64 = runs["f64"]["r_feat"]
+        for run in runs.values():
+            run["maps"] = run["cpu"]._cnn(run["img"], run["feat"],
+                                          r64.to(run["img"].dtype)[None, None])[0, 0]
+        img = image[None]
+        card_maps = ex._cnn(img, ex._encode(img), r64.to(image.device, image.dtype)[None, None])
+    card = dict(r_feat=torch.from_numpy(e.feat_relevance[0]).double(),
+                maps=card_maps[0, 0].cpu().double())
+    out = dict(cpu_s=time.perf_counter() - t0)
+    for key in ("r_feat", "maps"):
+        ref = runs["f64"][key]
+        scale, norm = max(float(ref.abs().max()), 1e-30), max(float(ref.norm()), 1e-30)
+        for name, got in (("card", card[key]), ("cpu", runs["f32"][key].double())):
+            out[f"{key}_{name}_vs_f64"] = float((got - ref).abs().max()) / scale
+            out[f"{key}_{name}_vs_f64_l2"] = float((got - ref).norm()) / norm
+    out["maps_card_vs_cpu_l2"] = float((card["maps"] - runs["f32"]["maps"].double()).norm()) / max(
+        float(runs["f64"]["maps"].norm()), 1e-30)
+    # the decoder gradient by the largest distance, the CNN side by the 2-norm
+    for key, suffix, ratio, floor in (("r_feat", "", F64_RATIO["r_feat"], F64_FLOOR["r_feat"]),
+                                      ("maps", "_l2", GRAD_MAPS_RATIO, GRAD_MAPS_FLOOR)):
+        got, cpu = out[f"{key}_card_vs_f64{suffix}"], out[f"{key}_cpu_vs_f64{suffix}"]
+        if got > max(ratio * cpu, floor):
+            failures.append(f"phase 8d {ex.method} {key}: card deviates {got:.3e} from f64 "
+                            f"({suffix or 'largest'}), CPU f32 {cpu:.3e}")
+    log(f"  phase 8d {ex.method} card vs CPU, word 0 (maps on the f64 seed): {out}")
+    return out
+
+
+def phase_gradients(dev, failures):
+    """Each gradient method on one image with a given 4-word caption: ms of a
+    warmed analyze call and its launches (K2 in the cached forward only),
+    then the same Explainer against the CPU on the first word."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    cap = build_captioner("adaptiveattention", FlickrConfig(), VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    images_np, toks, lengths = natural_workload()
+    image = torch.from_numpy(images_np[0]).to(dev)
+    del images_np
+    tokens = np.zeros(T, np.int32)
+    tokens[:4] = toks[0, :4]
+    tokens[4] = EOS
+    reps = {}
+    for method in GRAD_METHODS:
+        ex = explainer_for(cap, params, dev, method=method)
+        ex.analyze(image, tokens)   # first call: captures, cuDNN's first calls
+        kernels.reset_launches()
+        e, ms = timed(ex.analyze, image, tokens)
+        want = explain_launches("adaptiveattention", None, [(1, bucket_for(4))], method=method)
+        # a Guided-GradCAM map is zero where the word's CAM is all negative
+        check_explanations([e], [4], f"phase 8d {method}", failures,
+                           nonzero=method != "guided_gradcam")
+        launches = counts()
+        reps[method] = dict(ms=ms, launches=launches, expected=want,
+                            cpu=grad_vs_cpu(ex, cap, params, image, tokens, e, failures))
+        log(f"  {method}: {ms:.2f} ms for 4 words at {IMAGE}x{IMAGE} (IG {ex._ig_steps} steps, "
+            f"SmoothGrad {ex._sg_samples} samples); launches {launches}")
+        if reps[method]["launches"] != want:
+            failures.append(f"phase 8d {method}: launches {reps[method]['launches']}, {want}")
+        del ex
+    return reps
+
+
 CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
-              "tests/test_torch_train_card.py"]
+              "tests/test_torch_train_card.py", "tests/test_torch_explainer_card.py"]
 
 
 def phase_card_tests(failures):
     """The tests marked ``cuda`` (kernel edges, graphs against eager), in a
     child pytest without the repo's conftest (it imports JAX)."""
-    import gc
-
     gc.collect()
     torch.cuda.empty_cache()
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
@@ -1026,9 +1579,17 @@ def main() -> int:
               (f"phase 6b: LRP-inference fine-tune steps at full width, batch {B_TRAIN}",
                "finetune"),
               ("phase 7: card vs CPU, one fine-tune step, batch 1", "cpu_finetune"),
+              (f"phase 8: the Explainer, adaptive attention, bf16 storage, {N_NATURAL} "
+               f"natural-length captions at batch {B_BF16}", "explainer"),
+              (f"phase 8b: the Explainer in f32 at batch {B_MAIN}, one image against the CPU",
+               "explainer_f32"),
+              (f"phase 8c: grid-TD lrp, f32 at batch {B_MAIN} and bf16 at batch {B_BF16}, one "
+               "image against the CPU", "gridtd"),
+              ("phase 8d: every gradient method, one image, a 4-word caption", "gradients"),
               ("phase 5: card tests", "card_tests")]
     summary = built = None
     launches = {}   # path -> {kernel: launches in its counted pass}
+    explainer_launches = {}   # the Explainer's runs: each held to its own plan
     t_start = time.perf_counter()
     for title, key in phases:
         log(title)
@@ -1067,6 +1628,24 @@ def main() -> int:
                     launches["finetune"], report["finetune"] = phase_finetune(dev, failures)
                 else:
                     report["cpu_finetune"] = phase_finetune_cpu(dev, failures)
+            elif key in ("explainer", "explainer_f32", "gridtd", "gradients"):
+                # an Explainer refers to itself through its graphed stages: the
+                # cyclic collector frees an earlier phase's graphs and pool
+                gc.collect()
+                torch.cuda.empty_cache()
+                if key == "explainer":
+                    report["explainer"] = phase_explainer(dev, failures)
+                    explainer_launches["explainer_bf16"] = report["explainer"]["launches"]
+                elif key == "explainer_f32":
+                    report["explainer_f32"] = phase_explainer_f32(dev, failures)
+                    explainer_launches["explainer_f32"] = report["explainer_f32"]["launches"]
+                elif key == "gridtd":
+                    gridtd_launches, report["gridtd"] = phase_gridtd(dev, failures)
+                    launches.update(gridtd_launches)
+                else:
+                    report["gradients"] = phase_gradients(dev, failures)
+                    explainer_launches["gradients"] = {
+                        m: r["launches"] for m, r in report["gradients"].items()}
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)
@@ -1107,6 +1686,8 @@ def main() -> int:
                 calls_per_batch=s["calls_per_batch"],
                 by_path={p: dict(v, launches=launches[p][name]) for p, v in by_path.items()},
                 launches_by_path={p: launches[p][name] for p in launches},
+                explainer_launches={p: ({m: c[name] for m, c in v.items()} if p == "gradients"
+                                        else v[name]) for p, v in explainer_launches.items()},
                 **{k: s[k] for k in ("eager_ms", "library_eager_ms", "tc_tflops",
                                      "bound_cuda_core_ms", "share_of_cuda_core_bound") if k in s},
                 **({"backward_ms_train": by_path["train"]["backward_ms"],

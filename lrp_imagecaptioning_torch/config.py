@@ -1,8 +1,8 @@
 """Run configuration for the PyTorch port.
 
 The port's own copy of the fields of the JAX package's ``Config`` /
-``FlickrConfig`` that the caption + explain path and the training path read,
-with the same names and defaults.
+``FlickrConfig`` that the caption + explain path, the Explainer, the parity
+command and the training path read, with the same names and defaults.
 """
 
 from __future__ import annotations
@@ -32,6 +32,9 @@ class Config:
     layer_name: str = "block5_conv3"   # feature tap
     img_feature_length: int = 196      # L = 14*14
     img_feature_dim: int = 512         # D
+    # None = the encoder's default input size (224 for vgg16); an override
+    # such as (32, 32) shrinks the pipeline for tests
+    image_size: tuple | None = None
 
     dataset_name: str = ""
 

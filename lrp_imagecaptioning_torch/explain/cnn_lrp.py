@@ -11,6 +11,8 @@ the ``lrp_conv_a1b0`` pair, in bf16 storage the one-launch
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..models.vgg import vgg_apply_with_acts, vgg_layers
@@ -64,3 +66,18 @@ def vgg_lrp_preset_a_wordbatched(params, image: torch.Tensor, relevance_seeds: t
     _, inputs = vgg_apply_with_acts(params, image.to(storage_dtype), until)
     r = _backward(params, inputs, relevance_seeds.to(storage_dtype), until, lrp_a1b0_fused)
     return r.float()
+
+
+def vgg_lrp_per_image(params, images: torch.Tensor, r_feat: torch.Tensor,
+                      until: str = "block5_conv3",
+                      storage_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``vgg_lrp_preset_a_wordbatched`` for each of B images: images (B, H,
+    W, 3), r_feat (B, Tw, L, D) the feature-grid relevance of Tw words an
+    image (L = h * w, a square grid) -> heatmaps (B, Tw, H, W, 3)."""
+    B, Tw, L, D = r_feat.shape
+    g = math.isqrt(L)
+    seeds = r_feat.reshape(B, Tw, g, g, D)
+    # cast once per batch; the per-image cast then returns these tensors as they are
+    params = tree_to(params, dtype=storage_dtype)
+    return torch.stack([vgg_lrp_preset_a_wordbatched(params, images[b:b + 1], seeds[b], until,
+                                                     storage_dtype) for b in range(B)])

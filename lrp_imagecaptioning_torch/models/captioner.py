@@ -1,5 +1,5 @@
-"""Captioning model assembly: VGG encoder + adaptive-attention decoder, and
-the training loss ``masked_ce_from_logits``: softmax-CE on logits, last
+"""Captioning model assembly: VGG encoder + adaptive-attention or grid-TD
+decoder, and the training loss ``masked_ce_from_logits``: softmax-CE on logits, last
 timestep discarded, all-zero label rows (padding) contribute 0.
 """
 
@@ -13,7 +13,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..runtime import resolve_device
 from ..weights import tree_to
-from . import adaptive, vgg
+from . import adaptive, gridtd, vgg
 
 
 def masked_ce_from_logits(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
@@ -38,10 +38,10 @@ class Captioner:
     """Bundles encoder + decoder functions over one params dict
     ``{'vgg': {...}, 'decoder': {...}}``."""
 
-    model_type: str            # 'adaptiveattention'
+    model_type: str            # 'adaptiveattention' | 'gridTD'
     cfg: Any
     vocab_size: int
-    decoder: Any               # module: adaptive
+    decoder: Any               # module: adaptive | gridtd
 
     def init_params(self, seed: int = 0, device="cuda"):
         """Random params from ``seed`` (a ``torch.Generator`` on the CPU), with
@@ -74,6 +74,20 @@ class Captioner:
     def prepare_consts(self, params, feat_grid: torch.Tensor):
         return self.decoder.prepare_consts(params["decoder"], feat_grid)
 
+    def cached_forward(self, params, feat_grid: torch.Tensor, tokens_1based: torch.Tensor,
+                       sos_id_1based: int):
+        """The decoder over a given caption, keeping every step's cache:
+        (consts, caches of (T, B, ...)). tokens_1based (B, T); the input at
+        step 0 is SOS, at step i the caption's word i - 1 (explainers.py:
+        399-408)."""
+        B = tokens_1based.shape[0]
+        consts = self.prepare_consts(params, feat_grid)
+        prev = torch.cat([torch.full((B, 1), sos_id_1based, dtype=torch.long,
+                                     device=tokens_1based.device), tokens_1based[:, :-1]], dim=1)
+        caches = self.decoder.forward_cached_from_inputs(
+            params["decoder"], consts, torch.clamp(prev - 1, min=0), self.cfg.hidden_dim)
+        return consts, caches
+
     def forward_train(self, params, images: torch.Tensor, captions_in: torch.Tensor,
                       generator: torch.Generator | None = None,
                       masks: adaptive.DropoutMasks | None = None) -> torch.Tensor:
@@ -97,8 +111,15 @@ class Captioner:
         return self.loss_fn()(logits, y_onehot)
 
 
+DECODERS = {"adaptiveattention": adaptive, "gridTD": gridtd}
+
+
 def build_captioner(model_type: str, cfg, vocab_size: int) -> Captioner:
-    if model_type == "adaptiveattention" and cfg.img_encoder == "vgg16":
-        return Captioner(model_type, cfg, vocab_size, adaptive)
+    """``model_type`` 'adaptiveattention' or 'gridTD' (the JAX package's
+    names) over the vgg16 encoder. grid-TD's ``forward_train`` raises: its
+    training is not ported yet."""
+    if model_type in DECODERS and cfg.img_encoder == "vgg16":
+        return Captioner(model_type, cfg, vocab_size, DECODERS[model_type])
     raise NotImplementedError(
-        f"the port has vgg16 + adaptiveattention; got {model_type!r} / {cfg.img_encoder!r}")
+        f"the port has vgg16 + adaptiveattention | gridTD; got {model_type!r} / "
+        f"{cfg.img_encoder!r} (AOA and the other encoders are ROADMAP A11)")

@@ -47,7 +47,7 @@ def init_vgg_params(gen: torch.Generator, until: str = "block5_conv3"):
     return params
 
 
-def _apply_op(op, params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+def _apply_op(op, params, x: torch.Tensor, compute_dtype=None, relu_fn=None) -> torch.Tensor:
     if op[0] == "pool":
         return maxpool2d(x)
     p = params[op[1]]
@@ -55,16 +55,19 @@ def _apply_op(op, params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         y = conv2d(x.to(compute_dtype), p["kernel"].to(compute_dtype)).float()
     else:
         y = conv2d(x, p["kernel"])
-    return torch.relu(y + p["bias"].to(y.dtype))
+    return (relu_fn or torch.relu)(y + p["bias"].to(y.dtype))
 
 
-def vgg_apply(params, x: torch.Tensor, until: str = "block5_conv3", compute_dtype=None):
+def vgg_apply(params, x: torch.Tensor, until: str = "block5_conv3", compute_dtype=None,
+              relu_fn=None):
     """Forward pass -> feature map at ``until`` (B, 14, 14, 512 for 224x224).
 
     ``compute_dtype`` (``torch.bfloat16``) casts both conv operands to it and
-    upcasts each conv output to f32, so bias, ReLU and pooling run in f32."""
+    upcasts each conv output to f32, so bias, ReLU and pooling run in f32.
+    ``relu_fn`` replaces every ReLU (the gradient methods' guided and
+    deconvnet ReLUs, explain/cnn_gradient.py); None is ``torch.relu``."""
     for op in vgg_layers(until):
-        x = _apply_op(op, params, x, compute_dtype)
+        x = _apply_op(op, params, x, compute_dtype, relu_fn)
     return x
 
 

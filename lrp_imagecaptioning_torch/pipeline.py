@@ -24,18 +24,15 @@ the same two stages without graphs.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from .config import FlickrConfig
-from .explain.cnn_lrp import vgg_lrp_preset_a_wordbatched
+from .explain.cnn_lrp import vgg_lrp_per_image
 from .explain.decoder_lrp import explain_word_adaptive
 from .graphs import GraphedStage, param_tensors
 from .infer.beam import beam_search
 from .models.captioner import build_captioner
 from .runtime import resolve_device
-from .weights import tree_to
 
 BEAM = 3
 T = 20
@@ -52,18 +49,12 @@ def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: 
     cfg = cfg if cfg is not None else FlickrConfig()
     dev = resolve_device(device)
     cap = build_captioner("adaptiveattention", cfg, vocab_size)
-    grid = int(round(math.sqrt(cfg.img_feature_length)))
 
     def search(params, feat_grid):
         return beam_search(cap, params, feat_grid, sos, eos, beam, T)
 
     def stage_decoder_lrp(params, feat_grid, tokens):
-        B = tokens.shape[0]
-        consts = cap.prepare_consts(params, feat_grid)
-        prev = torch.cat([torch.full((B, 1), sos, dtype=torch.long, device=tokens.device),
-                          tokens[:, :-1]], dim=1)
-        caches = cap.decoder.forward_cached_from_inputs(
-            params["decoder"], consts, torch.clamp(prev - 1, min=0), cfg.hidden_dim)
+        consts, caches = cap.cached_forward(params, feat_grid, tokens, sos)
         words0 = torch.clamp(tokens - 1, min=0)
         r_feat, _, _ = explain_word_adaptive(params["decoder"], consts, caches, words0)
         return r_feat                                              # (B, T, L, D)
@@ -89,14 +80,7 @@ def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: 
 
     def stage_cnn_lrp(params, images, r_feat):
         """Any number of words per image: r_feat (B, Tw, L, D)."""
-        B, Tw = r_feat.shape[:2]
-        seeds = r_feat.reshape(B, Tw, grid, grid, cfg.img_feature_dim)
-        # cast once per batch; the per-image cast then returns these tensors as they are
-        vgg = tree_to(params["vgg"], dtype=storage_dtype)
-        return torch.stack([
-            vgg_lrp_preset_a_wordbatched(vgg, images[b:b + 1], seeds[b],
-                                         cfg.layer_name, storage_dtype)
-            for b in range(B)])
+        return vgg_lrp_per_image(params["vgg"], images, r_feat, cfg.layer_name, storage_dtype)
 
     @torch.no_grad()
     def caption_and_explain(params, images):

@@ -65,7 +65,8 @@ def apply_updates(params, updates):
 
 def make_optimizer(model_type: str, learning_rate: float, clipvalue: float = 0.1) -> Adam:
     if model_type != "adaptiveattention":
-        raise NotImplementedError(f"the port has adaptiveattention; got {model_type!r}")
+        raise NotImplementedError(f"the port trains adaptiveattention; got {model_type!r} "
+                                  "(grid-TD training is ROADMAP A9b)")
     return Adam(learning_rate, clipvalue=clipvalue)
 
 

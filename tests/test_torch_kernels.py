@@ -166,7 +166,9 @@ def test_lrp_conv_a1b0_matches_pallas(jx):
 # ragged and tiny cases
 SPLIT_SHAPES = [(160, 512, 7003), (1120, 512, 7003), (160, 1536, 512), (1120, 1536, 512),
                 (160, 512, 512), (1120, 512, 512), (31360, 512, 512), (219520, 512, 512),
-                (30, 24, 37), (1, 1, 1), (5, 7, 64), (200, 130, 9)]
+                (30, 24, 37), (1, 1, 1), (5, 7, 64), (200, 130, 9),
+                # grid-TD's TD-LSTM gate block (K = H + 2E + H = 2048), batch 8 and 56
+                (160, 2048, 512), (1120, 2048, 512)]
 
 
 @pytest.mark.parametrize("sms", [132, 1])
@@ -191,10 +193,12 @@ def test_lrp_linear_splits_cover_k(m, n, k, sms):
 
 
 def test_lrp_linear_splits_on_the_main_path():
-    """The thin products split at both batches, W_img never."""
-    split = {shape: kernels.lrp_linear_splits(*shape, 132) for shape in SPLIT_SHAPES[:8]}
+    """The thin products split at both batches, W_img never; grid-TD's gate
+    blocks (K = 1536 and 2048) at batch 8."""
+    split = {shape: kernels.lrp_linear_splits(*shape, 132) for shape in SPLIT_SHAPES}
     assert split[(160, 512, 7003)] > 1 and split[(1120, 512, 7003)] > 1
     assert split[(160, 1536, 512)] > 1 and split[(160, 512, 512)] > 1
+    assert split[(160, 2048, 512)] > 1
     assert split[(31360, 512, 512)] == 1 and split[(219520, 512, 512)] == 1
 
 
