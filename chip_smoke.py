@@ -7,7 +7,9 @@ Run from the repository root on a machine with a card. It fails (exit 1,
 no result line) when ``torch.cuda.is_available()`` is false, and when the
 port's package is not beside it. Phases; any failure makes the exit code 1:
 
-1. card:    the card's name and power limit, as nvidia-smi gives them;
+1. card:    the card's name and power limit, as nvidia-smi gives them, and
+            what the host offers beyond the promised packages (PIL, yaml,
+            nltk, psutil, h5py, java, the libjpeg/libpng headers);
 2. kernels: builds the four CUDA kernels (one nvcc per source, in
             parallel), then holds each against its plain PyTorch version at
             the shapes of every main path it is on and times kernel, plain
@@ -32,7 +34,10 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             conv3x3_fused at the fine-tune step's shapes (finetune); 2d
             grid-TD's (the Explainer's gridtd_f32 at batch 8, gridtd_bf16 at
             56): lrp_linear with its two gate blocks a step (K = 1536 and
-            2048), lstm_gates twice a step, the CNN kernel of each;
+            2048), lstm_gates twice a step, the CNN kernel of each; 2e the
+            entry points' (batch 32): lstm_gates over one epoch of
+            Trainer.run (trainer), a grid-TD train step (gridtd_train) and
+            the beam search of evaluate_test_set (evaluate);
 3. main:    VGG16 / adaptive attention at full width (224x224 input, 14x14x512
             grid, E = H = 512, vocab 7003, beam 3, T = 20) on random weights
             from seed 0, f32, batch 8: one warm-up pass (it captures the
@@ -77,10 +82,22 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             launches); the same Explainer's first word against CPU f32 and
             f64: the decoder gradient from each run's own encode, the CNN
             side on one shared seed (the f64 run's decoder gradient);
-5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph and
-            training card tests, in a child process (run last).
+9. entry points: on a generated dataset whose training vocabulary is
+            bench's 7003 words, its images seeded arrays handed to the
+            provider (``seeded_images``), in ``build/phase9`` (removed after):
+            9a Trainer.run at batch 32, two epochs of 8 steps, a new Trainer
+            resuming the last checkpoint and one more epoch (its epoch split,
+            the targets' copy to the card, peak memory, launches); 9b the
+            trainer at batch 2 on the card and on the CPU in f32 and f64;
+            9c three grid-TD train steps in each loss mode, one step's
+            gradients at batch 1 against the CPU; 9d BeamSearchInference's
+            evaluate_test_set on 9a's checkpoint and LRPFinetuner.run
+            through the provider;
+5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph,
+            training and trainer card tests, in a child process (run last).
 
-Every path (f32, bf16, train, finetune, gridtd_f32, gridtd_bf16) is driven
+Every path (f32, bf16, train, finetune, gridtd_f32, gridtd_bf16, trainer,
+gridtd_train, evaluate) is driven
 with the launch counts set to 0 just before it and read just after; each
 kernel's count must equal its calls on that path as phase 2's shapes derive
 them, 0 where it is not on it. The Explainer's other runs (phases 8, 8b, 8d)
@@ -115,6 +132,8 @@ B_MAIN, VOCAB, BEAM, T = 8, 7003, 3, 20
 B_BF16 = 56                # bench.py's batch
 B_TRAIN = 32               # FlickrConfig.batch_size: the training paths' batch
 T_TRAIN = 21               # FlickrConfig.sentence_length + 1: a training caption's steps
+# phase 9's dataset and trainer run: train steps an epoch, validation and test images
+TRAINER_STEPS, N_VAL, N_TEST = 8, 64, 64
 SOS, EOS = 1, 2            # 1-based token ids
 E = H = D = 512
 L = 196
@@ -167,6 +186,34 @@ TOL_FT_GRAD_L2_FLOOR = 5e-2
 
 def log(*a):
     print(*a, flush=True)
+
+
+def probe_host() -> dict:
+    """What the card's host offers beyond the promised packages: the Python
+    modules the port imports only where a path needs them, the java the
+    metrics' jars need, and the libjpeg/libpng headers ``make -C native``
+    compiles against (a syntax check in a temporary directory; nothing is
+    built in the repository)."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    out = {m: importlib.util.find_spec(m) is not None
+           for m in ("PIL", "yaml", "nltk", "psutil", "h5py")}
+    out["java"] = shutil.which("java") is not None
+    cxx = shutil.which("g++") or shutil.which("c++")
+    out["c++"] = cxx is not None
+    for header in ("jpeglib.h", "png.h"):
+        ok = False
+        if cxx is not None:
+            with tempfile.TemporaryDirectory() as d:
+                src = os.path.join(d, "probe.cpp")
+                with open(src, "w") as f:
+                    f.write(f"#include <cstdio>\n#include <{header}>\nint main() {{ return 0; }}\n")
+                ok = subprocess.run([cxx, "-fsyntax-only", src], capture_output=True,
+                                    timeout=60).returncode == 0
+        out[header] = ok
+    return out
 
 
 def time_ms(fn, min_total_ms: float = 30.0, max_reps: int = 50) -> float:
@@ -281,6 +328,19 @@ def check_lstm_gates(gen, dev, path):
     _, batch, words = PATHS[path]
     if path == "train":
         return [check_lstm_gates_grad(gen, dev, batch, words)]
+    if path == "gridtd_train":   # two LSTMs a step
+        return [check_lstm_gates_grad(gen, dev, batch, 2 * words)]
+    if path == "trainer":
+        # an epoch: the train steps (through the Function), the validation
+        # split's eval steps and the test split's greedy decode (no_grad)
+        return [check_lstm_gates_grad(gen, dev, batch, TRAINER_STEPS * words),
+                lstm_forward_row(gen, dev, batch, N_VAL // batch * words, "validation",
+                                 grad=False)[0],
+                lstm_forward_row(gen, dev, batch, N_TEST // batch * T, "greedy_decode",
+                                 grad=False)[0]]
+    if path == "evaluate":     # eager beam search, BEAM rows an image
+        return [lstm_forward_row(gen, dev, batch * BEAM, N_TEST // batch * T, "beam",
+                                 grad=False)[0]]
     if path == "finetune":
         # predict and lrp_weights' cached forward run K2 under no_grad, the
         # dual loss's forward through the Function
@@ -470,21 +530,32 @@ TOLERANCE = {"lrp_linear": ("rel", TOL_KERNEL), "lstm_gates": ("abs", TOL_LSTM_A
 # the main paths: name -> (storage_dtype, batch, words a caption), and the
 # kernels each launches. "f32" and "bf16" caption and explain a batch
 # (phases 3, 3b); "train" is one train step (phase 6), "finetune" one
-# LRP-inference fine-tune step (phase 6b), both f32 at the config's batch
+# LRP-inference fine-tune step (phase 6b), both f32 at the config's batch;
+# "trainer" is one epoch of Trainer.run (phase 9a: TRAINER_STEPS train steps,
+# the validation split's eval steps, the greedy decode of the test split),
+# "gridtd_train" one grid-TD train step (9c), "evaluate" one
+# BeamSearchInference.evaluate_test_set over the test split (9d)
 PATHS = {"f32": (None, B_MAIN, T), "bf16": (torch.bfloat16, B_BF16, T),
          "train": (None, B_TRAIN, T_TRAIN), "finetune": (None, B_TRAIN, T_TRAIN),
-         "gridtd_f32": (None, B_MAIN, T), "gridtd_bf16": (torch.bfloat16, B_BF16, T)}
+         "gridtd_f32": (None, B_MAIN, T), "gridtd_bf16": (torch.bfloat16, B_BF16, T),
+         "trainer": (None, B_TRAIN, T_TRAIN), "gridtd_train": (None, B_TRAIN, T_TRAIN),
+         "evaluate": (None, B_TRAIN, T)}
 PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 "bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
                 "train": ("lstm_gates",),
                 "finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 "gridtd_f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
-                "gridtd_bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused")}
+                "gridtd_bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
+                "trainer": ("lstm_gates",), "gridtd_train": ("lstm_gates",),
+                "evaluate": ("lstm_gates",)}
 PATH_TITLES = {"bf16": "phase 2b: the bf16 path's kernels vs their plain versions, batch {b}",
                "train": "phase 2c: the train path's kernel, K2 with its gradient, batch {b}",
                "finetune": "phase 2c: the fine-tune path's kernels, batch {b} x {w} words",
                "gridtd_f32": "phase 2d: grid-TD's kernels (Explainer, f32), batch {b} x {w} words",
-               "gridtd_bf16": "phase 2d: grid-TD's kernels (Explainer, bf16), batch {b} x {w} words"}
+               "gridtd_bf16": "phase 2d: grid-TD's kernels (Explainer, bf16), batch {b} x {w} words",
+               "trainer": "phase 2e: one epoch of Trainer.run's kernel, batch {b}",
+               "gridtd_train": "phase 2e: a grid-TD train step's kernel, batch {b}",
+               "evaluate": "phase 2e: beam search over the test split, batch {b}"}
 
 
 def phase_kernels(dev, failures):
@@ -530,7 +601,7 @@ def phase_kernels(dev, failures):
                     failures.append(f"{name} {row['shape']} ({path}) disagrees with its plain "
                                     f"version: {row['err']}")
             detail[name] += rows
-            per_batch = lambda key: sum(r[key] * r["calls"] for r in rows)
+            per_batch = lambda key: sum(r.get(key, 0.0) * r["calls"] for r in rows)
             by_ops = sum(r["bound"][0] * r["calls"] for r in rows if r["bound"][1] == "operations")
             total_bound = sum(r["bound"][0] * r["calls"] for r in rows)
             ms = per_batch("ms")
@@ -559,7 +630,7 @@ def phase_kernels(dev, failures):
                 extra = (f"  tensor cores {s['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
                          f"{s['bound_cuda_core_ms']:.3f} ({100 * s['share_of_cuda_core_bound']:.1f} %)")
             if "grad_err" in rows[0]:
-                s.update(grad_err=max(r["grad_err"] for r in rows),
+                s.update(grad_err=max(r["grad_err"] for r in rows if "grad_err" in r),
                          backward_ms=per_batch("backward_ms"),
                          plain_backward_ms=per_batch("plain_backward_ms"))
                 extra = (f"  (eager; backward {s['backward_ms']:.3f}, plain backward "
@@ -1526,8 +1597,471 @@ def phase_gradients(dev, failures):
     return reps
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the entry points at full width (Trainer, grid-TD training, the
+# inference API, LRPFinetuner) on a generated dataset
+# ---------------------------------------------------------------------------
+N_TRAIN_IMAGES = 421        # x 5 captions of 10 words: every word of the list 3 times
+CAPTION_WORDS = 10
+# phase 9b: the trainer's final params on the card may lie at most this
+# multiple of the CPU-f32 run's distance from a CPU-f64 run (by the 2-norm
+# over all params, over the f64 params' norm), or this share of the two
+# steps' update (its norm over the same). A ReLU or max-pool near-tie that
+# an f32 forward flips against f64 moves every lower VGG leaf's gradient by
+# 1e-4 to 1.5e-3 of its norm, on the CPU as on the card
+# (scripts/train_grad_accuracy.py); Adam's first steps, lr g / (|g| + eps),
+# then turn the sign of each small-|g| element that moved: the run that
+# flipped lies ~1e-4 of the params' norm from f64, ~0.5 % of the update,
+# the one that did not ~1e-7. A lost, repeated or misplaced step moves
+# every element by ~lr: 50-100 % of the update
+TRAINER_F64_RATIO, TRAINER_UPDATE_FLOOR = 2.0, 0.05
+
+
+_SEEDED = {}
+
+
+def seeded_images(paths, random_transform=False):
+    """Stands in for ``ImagePreprocessor.preprocess_batch_paths``: a seeded
+    (224, 224, 3) array per path, at the scale of VGG-preprocessed pixels,
+    made once and kept (as a decoder that releases the GIL would cost the
+    training thread little; drawing them anew in the prefetch thread every
+    epoch held the eager train step back)."""
+    import zlib
+
+    import numpy as np
+
+    for p in paths:
+        if p not in _SEEDED:
+            _SEEDED[p] = np.random.default_rng(zlib.crc32(p.encode())).standard_normal(
+                (IMAGE, IMAGE, 3), dtype=np.float32) * 50
+    return np.stack([_SEEDED[p] for p in paths])
+
+
+def smoke_dataset(cfg):
+    """A caption dataset whose training vocabulary under words_min_occur = 3
+    is bench's 7003 (7001 words, and SOS and EOS): N_TRAIN_IMAGES images of
+    five 10-word captions over the word list, each word three times or more;
+    N_VAL and N_TEST images of five captions each for validation and test."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.data.datasets import Dataset, Datum
+
+    rng = np.random.default_rng(0)
+    words = np.array([f"w{i:04d}" for i in range(VOCAB - 2)])
+    slots = N_TRAIN_IMAGES * 5 * CAPTION_WORDS
+    seq = np.concatenate([np.repeat(np.arange(len(words)), 3),
+                          rng.integers(0, len(words), slots - 3 * len(words))])
+    caps = [" ".join(words[row]) for row in rng.permutation(seq).reshape(-1, CAPTION_WORDS)]
+
+    def split(name, n, captions):
+        out = []
+        for i in range(n):
+            fn = f"{name}_{i:04d}.jpg"
+            five = tuple(captions[5 * i:5 * i + 5])
+            out += [Datum(fn, fn, c, five) for c in (five if name == "train" else five[:1])]
+        return out
+
+    ds = Dataset(cfg)
+    ds.training_set = split("train", N_TRAIN_IMAGES, caps)
+    for name, n in (("val", N_VAL), ("test", N_TEST)):
+        other = [" ".join(rng.choice(words, CAPTION_WORDS)) for _ in range(5 * n)]
+        setattr(ds, "validation_set" if name == "val" else "test_set", split(name, n, other))
+    return ds
+
+
+def timed_method(obj, name, store):
+    """Wrap ``obj.name`` so each call's host time after a synchronize (ms) is
+    appended to ``store[name]``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        store.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def smoke_trainer(cfg, ds, label, device="cuda", parts=None):
+    """A Trainer on ``ds`` with seeded images; with ``parts`` its epoch's
+    pieces are timed into it."""
+    from lrp_imagecaptioning_torch.train.trainer import Trainer
+
+    t = Trainer("adaptiveattention", cfg, ds, label=label, seed=0, device=device)
+    t.provider.image_preprocessor.preprocess_batch_paths = seeded_images
+    if parts is not None:
+        for name in ("_epoch", "_save", "_train_step"):
+            timed_method(t, name, parts)
+        for name in ("predict_test_set", "_evaluate"):
+            timed_method(t.inference, name, parts)
+    return t
+
+
+def epoch_split(parts, e, steps):
+    """Epoch ``e``'s pieces (ms) from the timed calls: each epoch runs
+    _epoch twice (train, validation), the test split's decode and its
+    metrics, and one checkpoint; the train part splits into the step calls
+    and the rest (waiting on the prefetch queue, the copies to the card)."""
+    in_steps = sum(parts["_train_step"][e * steps:(e + 1) * steps])
+    return dict(train=parts["_epoch"][2 * e], ms_per_train_step=parts["_epoch"][2 * e] / steps,
+                step_calls=in_steps / steps, batches_and_copies=parts["_epoch"][2 * e] - in_steps,
+                validation=parts["_epoch"][2 * e + 1], greedy_decode=parts["predict_test_set"][e],
+                metrics=parts["_evaluate"][e], checkpoint=parts["_save"][e])
+
+
+def phase_trainer(dev, failures, report):
+    """9a: Trainer.run(epochs=2, steps_per_epoch=TRAINER_STEPS), then a new
+    Trainer that resumes the latest checkpoint and runs one more epoch (the
+    counted pass of the "trainer" path)."""
+    import csv
+
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.train.checkpoint import latest_checkpoint
+
+    log("  the images are seeded arrays handed to the provider in place of decoded files "
+        "(seeded_images): no dataset ships with the repo, and the card's host need not have "
+        "PIL to decode one")
+    cfg = FlickrConfig()
+    ds = smoke_dataset(cfg)
+    parts = {}
+    t = smoke_trainer(cfg, ds, "phase9", dev, parts)
+    vocab = t.provider.vocab_size
+    if vocab != VOCAB:
+        failures.append(f"9a: the dataset's vocabulary is {vocab}, not {VOCAB}")
+    per_epoch = {"lrp_linear": 0, "conv3x3_fused": 0, "lrp_a1b0_fused": 0,
+                 "lstm_gates": TRAINER_STEPS * T_TRAIN + N_VAL // B_TRAIN * T_TRAIN
+                 + N_TEST // B_TRAIN * T}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    hist, run_ms = timed(t.run, 2, None, TRAINER_STEPS)
+    two = counts()
+    if two != {k: 2 * v for k, v in per_epoch.items()}:
+        failures.append(f"9a: two epochs launched {two}, {per_epoch} an epoch expected")
+
+    # the host-to-device copy of one batch's int32 one-hot targets
+    (_, _), y = next(t.provider.training_set(pad_to_length=T_TRAIN))
+    copy_ms = min(timed(lambda: torch.as_tensor(y, device=dev))[1] for _ in range(5))
+
+    t2 = smoke_trainer(cfg, ds, "phase9", dev, parts)
+    if not t2.resume_latest() or t2._initial_epoch != 2:
+        failures.append(f"9a: resume_latest did not continue at epoch 2 ({t2._initial_epoch})")
+    kernels.reset_launches()
+    hist3, resumed_ms = timed(t2.run, 3, None, TRAINER_STEPS)
+    launches = counts()
+    mem = memory_gib()
+    hist += hist3
+    splits = [epoch_split(parts, e, TRAINER_STEPS) for e in range(3)]
+    with open(os.path.join(t2.result_dir, "metrics-log.csv"), newline="") as f:
+        csv_epochs = [row["epoch"] for row in csv.DictReader(f)]
+    latest = os.path.basename(latest_checkpoint(t2.result_dir) or "")
+    losses = [h[k] for h in hist for k in ("loss", "val_loss")]
+    bare = report.get("train", {}).get("ms_per_step")
+    out = dict(vocab=vocab, epochs=len(hist), run_ms=run_ms, resumed_ms=resumed_ms, split_ms=splits,
+               target_copy=dict(bytes=y.nbytes, ms=copy_ms, gb_s=y.nbytes / copy_ms / 1e6),
+               launches=launches, expected=per_epoch, two_epoch_launches=two, csv_epochs=csv_epochs,
+               latest_checkpoint=latest, bare_train_step_ms=bare,
+               history=[{k: v for k, v in h.items() if isinstance(v, (int, float))} for h in hist],
+               **mem)
+    for e, sp in enumerate(splits):
+        log(f"  epoch {e}: " + ", ".join(f"{k} {v:.1f}" for k, v in sp.items()) + " ms; "
+            f"loss {hist[e]['loss']:.4f} val_loss {hist[e]['val_loss']:.4f} "
+            f"val_cider {hist[e]['val_cider']:.4f} lr {hist[e]['learning_rate']:.3g}")
+    log(f"  a train step in the epoch {splits[-1]['ms_per_train_step']:.1f} ms (phase 6's bare "
+        f"step {bare if bare is None else f'{bare:.1f}'} ms); targets {y.shape} int32 = "
+        f"{y.nbytes / 1e6:.1f} MB to the card in {copy_ms:.2f} ms "
+        f"({out['target_copy']['gb_s']:.1f} GB/s, pageable); peak memory "
+        f"{mem['peak_gib']:.2f} GiB allocated, {mem['reserved_gib']:.2f} reserved")
+    log(f"  the resumed epoch launched {launches}; CSV epochs {csv_epochs}; latest {latest}")
+    if csv_epochs != ["0", "1", "2"]:
+        failures.append(f"9a: the CSV's epochs are {csv_epochs}")
+    if not latest.startswith("ckpt_02_"):
+        failures.append(f"9a: the latest checkpoint is {latest!r}, not epoch 2's")
+    if not all(math.isfinite(v) for v in losses):
+        failures.append(f"9a: a loss is not finite: {losses}")
+    return launches, out, (cfg, ds, t2)
+
+
+def first_difference(a, b):
+    """(position, word of a, word of b) of the first word two captions
+    differ at; None past a caption's end."""
+    wa, wb = a.split(), b.split()
+    i = next((i for i, (x, y) in enumerate(zip(wa, wb)) if x != y), min(len(wa), len(wb)))
+    return i, (wa[i:] or [None])[0], (wb[i:] or [None])[0]
+
+
+def first_step_grads(t):
+    """The loss gradient at the trainer's params on its first training batch
+    (the batch its run starts with), as CPU f64 leaves."""
+    from lrp_imagecaptioning_torch.train.step import value_and_grad
+    from lrp_imagecaptioning_torch.weights import tree_leaves
+
+    (cap_in, imgs), y = next(t.provider.training_set(pad_to_length=t.config.sentence_length + 1))
+    imgs, cap_in, y = t._place(imgs), t._place(cap_in), t._place(y)
+    loss_fn = t.captioner.loss_fn()
+    _, _, g = value_and_grad(lambda p: (loss_fn(
+        t.captioner.forward_train(p, imgs, cap_in, None), y), None), t.params)
+    return [x.cpu().double() for x in tree_leaves(g)]
+
+
+def phase_trainer_cpu(dev, failures, cfg, ds):
+    """9b: one epoch of two steps at batch 2 without dropout, on the card and
+    on the CPU in f32 and in f64 from the same params (validation and test
+    splits cut to 2 images); the greedy test captions on the card must equal
+    the CPU-f32 run's. The first step's gradient, leaf by leaf, is held as
+    phase 7 holds the fine-tune's (the 2-norm within FT_GRAD_RATIO times the
+    CPU-f32 run's distance from f64, or TOL_FT_GRAD_L2_FLOOR), and the final
+    params by the 2-norm over all of them within TRAINER_F64_RATIO times the
+    CPU-f32 run's distance, or TRAINER_UPDATE_FLOOR of the update's norm."""
+    from lrp_imagecaptioning_torch.data.datasets import Dataset
+    from lrp_imagecaptioning_torch.weights import tree_leaves, tree_to
+
+    cfg_b = cfg.replace(batch_size=2, drop_rate=0.0)
+    ds_b = Dataset(cfg_b)
+    ds_b.training_set = ds.training_set
+    ds_b.validation_set, ds_b.test_set = ds.validation_set[:2], ds.test_set[:2]
+    runs, params0 = {}, None
+    t0 = time.perf_counter()
+    for name, device, dtype in (("card", dev, None), ("f32", "cpu", None),
+                                ("f64", "cpu", torch.float64)):
+        t = smoke_trainer(cfg_b, ds_b, f"phase9b-{name}", device)
+        if params0 is None:
+            params0 = tree_to(t.params, "cpu")
+        else:
+            t.params = tree_to(params0, dtype=dtype)
+            t.opt_state = t.optimizer.init(t.params)
+        grads = first_step_grads(t)
+        hist = t.run(epochs=1, steps_per_epoch=2)
+        runs[name] = (hist[0], [x.cpu().double() for x in tree_leaves(t.params)],
+                      [c for c, _ in t.inference.predict_test_set()], grads)
+        if name == "card":
+            t0 = time.perf_counter()
+    cpu_s = time.perf_counter() - t0
+    names, ref, g64 = leaf_names(params0), runs["f64"][1], runs["f64"][3]
+    norm = lambda leaves: float(sum((x ** 2).sum() for x in leaves).sqrt())  # noqa: E731
+    ref_norm = norm(ref)
+    update = norm([b - a.double() for a, b in zip(tree_leaves(params0), ref)]) / ref_norm
+    out = dict(cpu_s=cpu_s, update_norm=update)
+    l2 = {}
+    for name in ("card", "f32"):
+        out[f"params_{name}_vs_f64"] = norm([a - b for a, b in zip(runs[name][1], ref)]) / ref_norm
+        l2[name] = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                    for a, b in zip(runs[name][3], g64)]
+        out[f"grads_{name}_vs_f64_l2_worst"] = max(zip(l2[name], names))
+    bound = max(TRAINER_F64_RATIO * out["params_f32_vs_f64"], TRAINER_UPDATE_FLOOR * update)
+    out["params_bound"] = bound
+    out["grad_leaves_over"] = [(n, a, b) for n, a, b in zip(names, l2["card"], l2["f32"])
+                               if a > max(FT_GRAD_RATIO * b, TOL_FT_GRAD_L2_FLOOR)]
+    caps = {name: r[2] for name, r in runs.items()}
+    out.update(captions=caps, loss={k: r[0]["loss"] for k, r in runs.items()},
+               val_loss={k: r[0]["val_loss"] for k, r in runs.items()})
+    log(f"  {out}")
+    if out["params_card_vs_f64"] > bound:
+        failures.append(f"9b: the card's params lie {out['params_card_vs_f64']:.3e} from f64, CPU "
+                        f"f32 {out['params_f32_vs_f64']:.3e}, the update {update:.3e} (bound "
+                        f"{bound:.3e})")
+    if out["grad_leaves_over"]:
+        failures.append(f"9b: first-step gradients over {FT_GRAD_RATIO}x CPU f32 and "
+                        f"{TOL_FT_GRAD_L2_FLOOR}: {out['grad_leaves_over']}")
+    for i, (a, b) in enumerate(zip(caps["card"], caps["f32"])):
+        if a != b:
+            pos, wa, wb = first_difference(a, b)
+            failures.append(f"9b: test caption {i} differs at word {pos}: card {wa!r}, CPU f32 "
+                            f"{wb!r} (f64: {caps['f64'][i]!r})")
+    return out
+
+
+def phase_gridtd_train(dev, failures, mask_seed=9):
+    """9c: three grid-TD train steps at batch 32 (dropout 0.5, Adam beta1
+    0.8) in each loss mode, then one step's loss and gradients at batch 1
+    on the card, on the CPU in f32 and in f64, without dropout and with one
+    set of masks drawn on the CPU: phase 7's gates."""
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models import gridtd
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.train.optimizer import make_optimizer
+    from lrp_imagecaptioning_torch.train.step import make_train_step, value_and_grad
+    from lrp_imagecaptioning_torch.weights import tree_leaves, tree_to
+
+    want = {"lrp_linear": 0, "lstm_gates": 2 * T_TRAIN, "conv3x3_fused": 0, "lrp_a1b0_fused": 0}
+    out, launches = {}, None
+    for loss_mode in ("from_logits", "keras_categorical"):
+        cfg = FlickrConfig(loss_mode=loss_mode)
+        cap = build_captioner("gridTD", cfg, VOCAB)
+        params = cap.init_params(seed=0, device=dev)
+        opt = make_optimizer("gridTD", cfg.learning_rate)
+        batch = train_batch(torch.Generator(device=dev).manual_seed(2), dev, cfg.batch_size)
+        torch.cuda.reset_peak_memory_stats()
+        _, _, records = counted_steps(make_train_step(cap, opt), 3, params, opt.init(params),
+                                      batch, torch.Generator(device=dev).manual_seed(3), want,
+                                      failures, f"gridtd_train {loss_mode}")
+        launches = records[-1]["launches"]
+        steady = sum(r["ms"] for r in records[1:]) / (len(records) - 1)
+        out[loss_mode] = dict(ms_per_step=steady, beta1=opt.b1, steps=records, **memory_gib())
+        log(f"  {loss_mode}: {steady:.1f} ms a step after the first; Adam beta1 {opt.b1}; peak "
+            f"{out[loss_mode]['peak_gib']:.2f} GiB allocated")
+        del params, batch
+
+    cfg = FlickrConfig(drop_rate=0.0)
+    cap = build_captioner("gridTD", cfg, VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    batch = train_batch(torch.Generator(device=dev).manual_seed(8), dev, 1)
+    params_c = tree_to(params, "cpu")
+    masks = gridtd.draw_dropout_masks(torch.Generator().manual_seed(mask_seed),
+                                      params_c["decoder"], 1, cfg, 0.5)
+
+    def run(p, images, captions_in, y, m):
+        res = []
+        for mk in (None, m):
+            loss, _, grads = value_and_grad(
+                lambda q: (cap.loss(q, images, captions_in, y, None, mk), None), p)
+            res += [float(loss), [g.cpu().double() for g in tree_leaves(grads)]]
+        return res
+
+    t0 = time.perf_counter()
+    cpu = [x.cpu() for x in batch]
+    runs = {"card": run(params, *batch, masks.to(dev)), "f32": run(params_c, *cpu, masks),
+            "f64": run(tree_to(params_c, dtype=torch.float64), cpu[0].double(), cpu[1],
+                       cpu[2].double(), masks.to(torch.float64))}
+    names = leaf_names(params_c)
+    cmp = dict(cpu_s=time.perf_counter() - t0)
+    for sfx, idx in (("", 1), ("_dropout", 3)):
+        ref = runs["f64"][idx]
+        for name in ("card", "f32"):
+            cmp[f"loss_{name}_vs_f64{sfx}"] = abs(runs[name][idx - 1] - runs["f64"][idx - 1]) \
+                / abs(runs["f64"][idx - 1])
+            cmp[f"grads_{name}{sfx}"], cmp[f"worst_leaf_{name}{sfx}"] = max(
+                (rel_err(a, b)[1], n) for n, a, b in zip(names, runs[name][idx], ref))
+            cmp[f"l2_{name}{sfx}"] = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                                      for a, b in zip(runs[name][idx], ref)]
+    cmp["grad_ratio"] = cmp["grads_card"] / max(cmp["grads_f32"], 1e-6)
+    cmp["leaves_over_dropout"] = [
+        (n, a, b) for n, a, b in zip(names, cmp["l2_card_dropout"], cmp["l2_f32_dropout"])
+        if a > max(FT_GRAD_RATIO * b, TOL_FT_GRAD_L2_FLOOR)]
+    log("  batch 1 vs CPU: " + str({k: v for k, v in cmp.items() if not k.startswith("l2_")}))
+    if cmp["grad_ratio"] > FT_GRAD_RATIO:
+        failures.append(f"9c: grid-TD gradients: card {cmp['grads_card']:.3e} from f64, CPU f32 "
+                        f"{cmp['grads_f32']:.3e} (limit {FT_GRAD_RATIO}x)")
+    if cmp["leaves_over_dropout"]:
+        failures.append(f"9c: grid-TD gradients with dropout over {FT_GRAD_RATIO}x CPU f32 and "
+                        f"{TOL_FT_GRAD_L2_FLOOR}: {cmp['leaves_over_dropout']}")
+    out["cpu"] = cmp
+    return launches, out
+
+
+def phase_evaluate_finetune(dev, failures, report, cfg, trainer):
+    """9d: BeamSearchInference(beam_size=3).evaluate_test_set() on 9a's last
+    checkpoint (the counted pass of the "evaluate" path), and two steps of
+    LRPFinetuner.run through the provider at batch 32, mode 'mean'."""
+    from lrp_imagecaptioning_torch.evalx import metrics, ptb
+    from lrp_imagecaptioning_torch.infer.api import BeamSearchInference
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
+    from lrp_imagecaptioning_torch.train.lrp_finetune import LRPFinetuner
+
+    ckpt = latest_checkpoint(trainer.result_dir)
+    params, _ = restore_checkpoint(ckpt, dev)
+    inf = BeamSearchInference(trainer.captioner, params, trainer.provider, beam_size=BEAM,
+                              max_caption_length=cfg.sentence_length, device=dev)
+    inf.predict_batch(seeded_images([f"warm_{i}" for i in range(B_TRAIN)]))
+    parts = {}
+    for name in ("predict_test_set", "_evaluate"):
+        timed_method(inf, name, parts)
+    kernels.reset_launches()
+    m, ms = timed(inf.evaluate_test_set)
+    launches = counts()
+    paths = dict(tokenizer="corenlp jar" if ptb._find_corenlp_jar() else (
+                     "nltk Treebank" if importlib_has("nltk") else "_lite_tokenize"),
+                 meteor="jar" if metrics.METEOR()._jar else (
+                     "fallback, Porter stems" if importlib_has("nltk") else "fallback, no stems"),
+                 spice="jar" if metrics.SPICE()._jar else "fallback")
+    ev = dict(checkpoint=os.path.basename(ckpt), ms=ms, img_per_s=N_TEST / ms * 1e3,
+              decode_ms=parts["predict_test_set"][0], metrics_ms=parts["_evaluate"][0],
+              metrics=m, launches=launches, paths=paths)
+    log(f"  beam {BEAM} over the {N_TEST} test images: {ms:.1f} ms = {ev['img_per_s']:.2f} img/s "
+        f"(decode {ev['decode_ms']:.1f}, metrics {ev['metrics_ms']:.1f} ms); launches {launches}")
+    log(f"  metrics {m}; paths {paths}")
+    if not all(math.isfinite(v) for v in m.values() if isinstance(v, float)):
+        failures.append(f"9d: a metric is not finite: {m}")
+
+    tuner = LRPFinetuner(trainer.captioner, params, trainer.provider, mode="mean",
+                         learning_rate=1e-6, device=dev)
+    parts = {}
+    timed_method(tuner, "_step", parts)
+    kernels.reset_launches()
+    ft, ft_ms = timed(tuner.run, 0, 2, os.path.join(os.getcwd(), "lrp-finetune"))
+    ft_launches = counts()
+    want = {k: 2 * v for k, v in expected_launches("finetune", cfg).items()}
+    bare = report.get("finetune", {}).get("ms_per_step")
+    out = dict(evaluate=ev, finetune=dict(metrics=ft, ms=ft_ms, step_ms=parts["_step"],
+                                          launches=ft_launches, expected=want,
+                                          bare_step_ms=bare))
+    log(f"  LRPFinetuner.run(save_idx=0, epoch_length=2): steps {parts['_step'][0]:.1f}, "
+        f"{parts['_step'][1]:.1f} ms (phase 6b's random batch: "
+        f"{bare if bare is None else f'{bare:.1f}'} ms); {ft}; launches {ft_launches}")
+    if ft_launches != want:
+        failures.append(f"9d: the fine-tune launched {ft_launches}, {want} expected")
+    return launches, out
+
+
+def importlib_has(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def phase_entry_points(dev, failures, report):
+    """Phase 9 in a scratch directory of the checkout (``build/phase9``, not
+    kept: each checkpoint at full width is ~0.28 GB), which it removes."""
+    import shutil
+
+    work = os.path.join(HERE, "build", "phase9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    launches, out = {}, {}
+    try:
+        steps = [("9a: Trainer.run, adaptive attention, two epochs, resume, one more", "trainer"),
+                 ("9b: the trainer on the card against the CPU, batch 2", "trainer_cpu"),
+                 ("9c: grid-TD training", "gridtd_train"),
+                 ("9d: evaluate and finetune-lrp through the provider", "evaluate")]
+        ctx = None
+        for title, key in steps:
+            log(f" phase {title}")
+            t0 = time.perf_counter()
+            try:
+                if key == "trainer":
+                    launches["trainer"], out[key], ctx = phase_trainer(dev, failures, report)
+                elif key == "gridtd_train":
+                    launches["gridtd_train"], out[key] = phase_gridtd_train(dev, failures)
+                elif ctx is None:
+                    failures.append(f"phase {title} skipped: 9a did not run")
+                elif key == "trainer_cpu":
+                    out[key] = phase_trainer_cpu(dev, failures, ctx[0], ctx[1])
+                else:
+                    launches["evaluate"], out[key] = phase_evaluate_finetune(
+                        dev, failures, report, ctx[0], ctx[2])
+            except Exception:  # noqa: BLE001 — a sub-phase that raises is recorded as failed
+                traceback.print_exc()
+                failures.append(f"phase {title} raised")
+            log(f"  ({time.perf_counter() - t0:.1f} s)")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, out
+
+
 CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
-              "tests/test_torch_train_card.py", "tests/test_torch_explainer_card.py"]
+              "tests/test_torch_train_card.py", "tests/test_torch_explainer_card.py",
+              "tests/test_torch_trainer_card.py"]
 
 
 def phase_card_tests(failures):
@@ -1568,6 +2102,9 @@ def main() -> int:
         failures.append("nvidia-smi gave no card line")
     log(f"  {card_line} | {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    report["host"] = probe_host()
+    log("  host offers: " + ", ".join(f"{k} {'yes' if v else 'no'}"
+                                      for k, v in report["host"].items()))
 
     phases = [(f"phase 2: kernels vs plain versions, the f32 path's shapes, batch {B_MAIN}",
                "kernels"),
@@ -1586,6 +2123,8 @@ def main() -> int:
               (f"phase 8c: grid-TD lrp, f32 at batch {B_MAIN} and bf16 at batch {B_BF16}, one "
                "image against the CPU", "gridtd"),
               ("phase 8d: every gradient method, one image, a 4-word caption", "gradients"),
+              (f"phase 9: the entry points at full width on a generated dataset, batch {B_TRAIN}",
+               "entry_points"),
               ("phase 5: card tests", "card_tests")]
     summary = built = None
     launches = {}   # path -> {kernel: launches in its counted pass}
@@ -1646,6 +2185,12 @@ def main() -> int:
                     report["gradients"] = phase_gradients(dev, failures)
                     explainer_launches["gradients"] = {
                         m: r["launches"] for m, r in report["gradients"].items()}
+            elif key == "entry_points":
+                built = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                entry_launches, report["entry_points"] = phase_entry_points(dev, failures, report)
+                launches.update(entry_launches)
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)

@@ -1,13 +1,20 @@
-"""Command line of the port: the published-checkpoint parity harness.
+"""Command line of the port, the JAX package's ``cli.py`` subcommands that
+are ported so far:
 
-    python -m lrp_imagecaptioning_torch.cli parity --h5 ckpt.hdf5 --image img.png --out DIR
-    python -m lrp_imagecaptioning_torch.cli parity --h5 ckpt.hdf5 --image img.png --expect DIR
+    python -m lrp_imagecaptioning_torch.cli train        --dataset flickr30k --model gridTD ...
+    python -m lrp_imagecaptioning_torch.cli finetune-lrp --weights ckpt.npz ...
+    python -m lrp_imagecaptioning_torch.cli evaluate     --weights ckpt.npz --beam-size 3 ...
+    python -m lrp_imagecaptioning_torch.cli parity       --h5 ckpt.hdf5 --image img.png --out DIR
 
-It reads and writes the ``parity-expected.npz`` of the JAX package's
-``cli.py parity`` (keys ``tokens_1based``, ``relevance_maps``,
-``attentions``), so one recording checks both packages. ``--device``
-defaults to ``cuda``. The other subcommands of the JAX package's CLI are
-not ported yet (ROADMAP A10b).
+Every subcommand takes ``--device`` (default ``cuda``; ``cpu`` runs the
+kernels' plain versions) and ``--profile DIR`` writes a ``torch.profiler``
+trace of the whole command. ``--weights`` reads the port's npz checkpoints,
+the JAX package's flat params npz (its ``save_params_npz``) and reference
+Keras .h5/.hdf5 files. ``parity`` reads and writes the JAX command's
+``parity-expected.npz`` (keys ``tokens_1based``, ``relevance_maps``,
+``attentions``), so one recording checks both packages. The JAX CLI's
+``explain`` (ROADMAP A14), ``evaluate-bbox`` and ``analyze-words`` (A10c),
+``serve`` and ``export-serving`` (A13) are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +27,6 @@ from types import SimpleNamespace
 import numpy as np
 
 from .explain.engine import METHODS
-
 
 def _coerce_config_value(cfg, key: str, raw: str):
     """Parse a --set key=value string against the config field's type."""
@@ -36,22 +42,138 @@ def _coerce_config_value(cfg, key: str, raw: str):
         return int(raw)
     if isinstance(current, float):
         return float(raw)
-    if isinstance(current, tuple) or (current is None and "tuple" in str(fields[key].type)):
+    ann = str(fields[key].type)
+    if isinstance(current, tuple) or (current is None and "tuple" in ann):
         vals = tuple(int(x) for x in raw.split(","))
         return vals * 2 if len(vals) == 1 else vals   # "64" -> (64, 64)
+    if current is None and "int" in ann:
+        return int(raw)
+    if current is None and "float" in ann:
+        return float(raw)
     return raw
 
 
 def _build_config(args):
-    """FlickrConfig with the --set overrides (no dataset files are read)."""
-    from .config import FlickrConfig
+    """The dataset's config with the common flags and the --set overrides,
+    without reading the dataset's files."""
+    from .config import COCO2014Config, COCOConfig, FlickrConfig
 
-    cfg = FlickrConfig()
+    cfg = {"flickr30k": FlickrConfig, "coco": COCOConfig, "coco2014": COCO2014Config,
+           "synthetic": FlickrConfig}[getattr(args, "dataset", "flickr30k")]()
     overrides = {}
+    for field in ("batch_size", "learning_rate", "epochs"):
+        v = getattr(args, field, None)
+        if v is not None:
+            overrides[field] = v
+    if getattr(args, "dataset_root", None):
+        overrides["dataset_root"] = args.dataset_root
+    if getattr(args, "bf16", False):
+        overrides["compute_dtype"] = "bfloat16"
     for kv in args.config_set or ():
         key, _, raw = kv.partition("=")
         overrides[key] = _coerce_config_value(cfg, key, raw)
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def _build_dataset(args):
+    from .data import datasets
+
+    cfg = _build_config(args)
+    if args.dataset == "synthetic":
+        return cfg, datasets.SyntheticDataset(cfg)
+    ds_cls = {"flickr30k": datasets.Flickr30kDataset, "coco": datasets.COCODataset,
+              "coco2014": datasets.COCODatasetKarpathy}[args.dataset]
+    return cfg, ds_cls(cfg)
+
+
+def _add_common(p):
+    p.add_argument("--dataset", default="flickr30k",
+                   choices=["flickr30k", "coco", "coco2014", "synthetic"])
+    p.add_argument("--model", dest="model_type", default="adaptiveattention",
+                   choices=["adaptiveattention", "gridTD"])
+    p.add_argument("--weights", default=None, help=".npz (the port's checkpoint or the JAX "
+                                                   "package's flat params) or reference .hdf5")
+    p.add_argument("--batch-size", type=int, dest="batch_size", default=None)
+    p.add_argument("--dataset-root", dest="dataset_root", default=None,
+                   help="override the config's dataset_root path")
+    p.add_argument("--set", dest="config_set", action="append", metavar="KEY=VALUE",
+                   help="override any config field, e.g. --set hidden_dim=64 "
+                        "(repeatable; values parsed by field type)")
+    p.add_argument("--bf16", action="store_true",
+                   help="encoder convolutions in bfloat16 (= --set compute_dtype=bfloat16)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def _load_params(captioner, args):
+    """--weights, else the captioner's random init from seed 0."""
+    if not args.weights:
+        return captioner.init_params(0, args.device)
+    from .train.trainer import load_weights_file
+
+    return load_weights_file(args.weights, captioner, args.device)[0]
+
+
+def cmd_train(args):
+    from .train.trainer import Trainer, reject_unported
+
+    reject_unported(mesh=args.num_devices, steps_per_call=args.steps_per_call)
+    cfg, dataset = _build_dataset(args)
+    t = Trainer(args.model_type, cfg, dataset, label=args.label, device=args.device)
+    if args.weights:
+        t.load_weights(args.weights)
+    if args.resume:
+        t.resume_latest()
+    t.run(epochs=args.epochs, time_limit=args.time_limit)
+
+
+def cmd_finetune_lrp(args):
+    from .data.provider import DatasetProvider
+    from .models.captioner import build_captioner
+    from .train.lrp_finetune import LRPFinetuner
+    from .train.trainer import reject_unported
+
+    reject_unported(steps_per_call=args.steps_per_call)
+    cfg, dataset = _build_dataset(args)
+    provider = DatasetProvider(dataset, cfg)
+    captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
+    tuner = LRPFinetuner(captioner, _load_params(captioner, args), provider, mode=args.lrp_mode,
+                         learning_rate=args.learning_rate or 1e-6,
+                         max_explained_words=args.max_explained_words, device=args.device)
+    # the reference drives 50 chunks x 10 iterations (train.py:696-716)
+    for save_idx in range(args.start_chunk, args.chunks):
+        m = tuner.run(save_idx, args.epoch_length, result_dir=args.out or "results/lrp-finetune")
+        print(f"chunk {save_idx}: {m}")
+
+
+def cmd_evaluate(args):
+    from .data.provider import DatasetProvider
+    from .evalx.metrics import BERT, SPICE, default_metrics
+    from .infer.api import BasicInference, BeamSearchInference
+    from .models.captioner import build_captioner
+
+    cfg, dataset = _build_dataset(args)
+    provider = DatasetProvider(dataset, cfg)
+    captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
+    params = _load_params(captioner, args)
+    cls = BeamSearchInference if args.beam_size > 1 else BasicInference
+    kw = {"beam_size": args.beam_size} if args.beam_size > 1 else {}
+    if args.spice_detailed:
+        # the detailed SPICE in place of the plain one: the corpus is parsed once
+        kw["metrics"] = [SPICE(detailed=True) if isinstance(m, SPICE) else m
+                         for m in default_metrics()]
+    inference = cls(captioner, params, provider, max_caption_length=cfg.sentence_length,
+                    device=args.device, **kw)
+    metrics, preds, refs = inference.evaluate_test_set(include_prediction=True)
+    if args.bert_model:
+        metrics.update(BERT(model_path=args.bert_model).calculate(preds, refs))
+    print(metrics)
+    if args.out:
+        import yaml
+
+        os.makedirs(args.out, exist_ok=True)
+        for name, obj in [("metrics", metrics), ("predictions", preds), ("reference", refs)]:
+            with open(os.path.join(args.out, f"test-{name}.yaml"), "w") as f:
+                yaml.safe_dump(obj, f)
 
 
 def parity_diff(got: dict, exp, tol: float) -> list:
@@ -97,10 +219,17 @@ def cmd_parity(args):
     cfg = _build_config(args).replace(embedding_dim=dims["embedding_dim"],
                                       hidden_dim=dims["hidden_dim"])
     vocab_size = dims["vocab_size"]
-    pp = SimpleNamespace(SOS_TOKEN="szeros", EOS_TOKEN="zeros",
-                         SOS_TOKEN_LABEL_ENCODED=1, EOS_TOKEN_LABEL_ENCODED=2,
-                         word_of={i: f"w{i}" for i in range(1, vocab_size + 1)})
-    pp.word_of[1], pp.word_of[2] = "szeros", "zeros"
+    if args.dataset_root:
+        # the dataset's vocabulary decodes real words
+        from .data.provider import DatasetProvider
+
+        _, dataset = _build_dataset(args)
+        pp = DatasetProvider(dataset, cfg).caption_preprocessor
+    else:
+        pp = SimpleNamespace(SOS_TOKEN="szeros", EOS_TOKEN="zeros",
+                             SOS_TOKEN_LABEL_ENCODED=1, EOS_TOKEN_LABEL_ENCODED=2,
+                             word_of={i: f"w{i}" for i in range(1, vocab_size + 1)})
+        pp.word_of[1], pp.word_of[2] = "szeros", "zeros"
 
     captioner = build_captioner(args.model_type, cfg, vocab_size)
     params = load_reference_checkpoint_h5(args.h5, args.model_type, cfg.img_encoder,
@@ -133,15 +262,53 @@ def cmd_parity(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m lrp_imagecaptioning_torch.cli")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the whole command to DIR/trace.json "
+                         "(utils/profiling.py::trace)")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train", help="train a captioner (train.py main_attention parity)")
+    _add_common(p)
+    p.add_argument("--label", default="run")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--learning-rate", type=float, dest="learning_rate", default=None)
+    p.add_argument("--time-limit", default=None, help="e.g. '12 hours'")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="data-parallel mesh size: not ported yet (ROADMAP A13), raises")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="only 1: the port has no K-steps-a-call variants")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("finetune-lrp", help="LRP-inference fine-tuning (train.py:519-673)")
+    _add_common(p)
+    p.add_argument("--lrp-mode", default="mean", choices=["mean", "pos_mean", "quantile"])
+    p.add_argument("--learning-rate", type=float, dest="learning_rate", default=1e-6)
+    p.add_argument("--chunks", type=int, default=50)
+    p.add_argument("--start-chunk", type=int, default=0)
+    p.add_argument("--epoch-length", type=int, default=10)
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="only 1: the port has no K-steps-a-call variants")
+    p.add_argument("--max-explained-words", type=int, default=None, dest="max_explained_words",
+                   help="run the per-word LRP backward for at most this many non-stop pre-EOS "
+                        "positions per sample (default: all positions)")
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_finetune_lrp)
+
+    p = sub.add_parser("evaluate", help="caption-metric evaluation (inference.py main)")
+    p.add_argument("--bert-model", dest="bert_model", default=None,
+                   help="local transformers model dir: also report BERTScore")
+    p.add_argument("--spice-detailed", dest="spice_detailed", action="store_true",
+                   help="also report the SPICE per-category breakdown")
+    _add_common(p)
+    p.add_argument("--beam-size", type=int, default=3)
+    p.add_argument("--out", default=None, help="dir for test-{metrics,predictions,reference}.yaml")
+    p.set_defaults(fn=cmd_evaluate)
+
     p = sub.add_parser("parity",
                        help="published-checkpoint parity: decode + explain one image from a "
                             "reference .hdf5 and diff against a recorded expectation")
-    p.add_argument("--model", dest="model_type", default="adaptiveattention",
-                   choices=["adaptiveattention", "gridTD"])
-    p.add_argument("--set", dest="config_set", action="append", metavar="KEY=VALUE",
-                   help="override a field of FlickrConfig, e.g. --set image_size=8,8 "
-                        "(repeatable)")
+    _add_common(p)
     p.add_argument("--h5", required=True, help="reference Keras .hdf5 checkpoint")
     p.add_argument("--image", required=True, help="image file to caption and explain")
     p.add_argument("--expect", default=None, help="dir with parity-expected.npz to diff against")
@@ -151,10 +318,16 @@ def main(argv=None):
     p.add_argument("--beam-size", type=int, default=3)
     p.add_argument("--tol", type=float, default=1e-3,
                    help="max allowed map deviation as a fraction of the expectation's scale")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_parity)
+
     args = ap.parse_args(argv)
-    args.fn(args)
+    if args.profile:
+        from .utils.profiling import trace
+
+        with trace(args.profile):
+            args.fn(args)
+    else:
+        args.fn(args)
 
 
 if __name__ == "__main__":

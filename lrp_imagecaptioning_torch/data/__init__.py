@@ -1,2 +1,2 @@
-"""Data helpers: the training path's prefetch, the caption tokenizer and the
-image preprocessing of the Explainer and the parity command."""
+"""Data: dataset parsers, the batch provider, the caption tokenizer, the image
+preprocessing (PIL or the native loader) and background prefetch."""

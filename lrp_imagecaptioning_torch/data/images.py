@@ -61,6 +61,18 @@ class ImagePreprocessor:
         return np.asarray(img_list, dtype=np.float32)
 
     def preprocess_batch_paths(self, img_paths, random_transform: bool = False) -> np.ndarray:
+        """(B, H, W, 3) float32. The native loader takes the batch when it is
+        built, the size is square and no augmentation is asked for, as in the
+        JAX package; an image it cannot decode sends the batch down the PIL
+        path."""
+        from . import loader_native
+
+        if (self._size[0] == self._size[1] and loader_native.available()
+                and not (self._augment and random_transform)):
+            try:
+                return loader_native.load_batch(list(img_paths), self._size[0], "caffe")
+            except RuntimeError:
+                pass
         return self.preprocess_batch(self.preprocess_images(img_paths, random_transform))
 
     def _preprocess_one(self, img_path: str, random_transform: bool) -> np.ndarray:

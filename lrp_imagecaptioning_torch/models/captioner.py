@@ -1,6 +1,8 @@
 """Captioning model assembly: VGG encoder + adaptive-attention or grid-TD
-decoder, and the training loss ``masked_ce_from_logits``: softmax-CE on logits, last
-timestep discarded, all-zero label rows (padding) contribute 0.
+decoder, and the training losses: ``masked_ce_from_logits`` (softmax-CE on
+logits, last timestep discarded, all-zero label rows (padding) contribute 0)
+and, for grid-TD with ``loss_mode='keras_categorical'``,
+``keras_categorical_ce``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,23 @@ def masked_ce_from_logits(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch
     logits = logits[:, :-1, :]
     y = y_onehot[:, :-1, :].to(logits.dtype)
     return -(y * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def keras_categorical_ce(logits: torch.Tensor, y_onehot: torch.Tensor,
+                         eps: float = 1e-7) -> torch.Tensor:
+    """Keras categorical_crossentropy applied to raw logits (the reference
+    grid-TD's loss, model.py:662-664): the output renormalized to sum 1,
+    clipped to [eps, 1 - eps], then -y log p, the mean over (B, T).
+
+    A step whose logits sum below 0 keeps its negative sum (Keras' raw
+    ``output /= sum``): its target probability clips to eps. The denominator
+    gets a stabilizer of its own sign, so an exactly-zero sum cannot give a
+    NaN gradient."""
+    y = y_onehot.to(logits.dtype)
+    s = logits.sum(-1, keepdim=True)
+    s = s + torch.where(s >= 0, torch.full_like(s, eps), torch.full_like(s, -eps))
+    p = torch.clamp(logits / s, eps, 1.0 - eps)
+    return -(y * torch.log(p)).sum(-1).mean()
 
 
 def masked_accuracy(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
@@ -90,9 +109,10 @@ class Captioner:
 
     def forward_train(self, params, images: torch.Tensor, captions_in: torch.Tensor,
                       generator: torch.Generator | None = None,
-                      masks: adaptive.DropoutMasks | None = None) -> torch.Tensor:
+                      masks=None) -> torch.Tensor:
         """Teacher-forced logits (B, T, V). Dropout at ``cfg.drop_rate`` when a
-        ``generator`` (or ready ``masks``) is given, none otherwise.
+        ``generator`` (or ready ``masks``: the decoder's ``DropoutMasks`` or
+        ``GridTDDropoutMasks``) is given, none otherwise.
         ``cfg.remat_encoder`` recomputes the CNN in the backward pass instead
         of keeping its activations."""
         if self.cfg.remat_encoder:
@@ -104,6 +124,8 @@ class Captioner:
                                           generator, drop, masks)
 
     def loss_fn(self) -> Callable:
+        if self.cfg.loss_mode == "keras_categorical" and self.model_type == "gridTD":
+            return keras_categorical_ce
         return masked_ce_from_logits
 
     def loss(self, params, images, captions_in, y_onehot, generator=None, masks=None):
@@ -116,8 +138,7 @@ DECODERS = {"adaptiveattention": adaptive, "gridTD": gridtd}
 
 def build_captioner(model_type: str, cfg, vocab_size: int) -> Captioner:
     """``model_type`` 'adaptiveattention' or 'gridTD' (the JAX package's
-    names) over the vgg16 encoder. grid-TD's ``forward_train`` raises: its
-    training is not ported yet."""
+    names) over the vgg16 encoder."""
     if model_type in DECODERS and cfg.img_encoder == "vgg16":
         return Captioner(model_type, cfg, vocab_size, DECODERS[model_type])
     raise NotImplementedError(

@@ -16,8 +16,8 @@ sentinel), two LSTMs a step:
 
 Both LSTMs run through ``cells.lstm_step``, so the ``lstm_gates`` kernel
 (K2) launches twice a step. The logits take h2 + c_hat as the JAX package's
-(and the reference's training graph) do. Training grid-TD (its loss mode and
-Adam beta1) is not ported yet: ``forward_train`` raises.
+(and the reference's training graph) do. ``forward_train`` is the teacher-
+forced training forward with the reference graph's dropout (model.py:630-660).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from .cells import LSTMState, _uniform, attn_weight_init, dense, dense_init, lstm_init, lstm_step
+from .cells import (LSTMState, _uniform, attn_weight_init, bernoulli_keep, dense, dense_init,
+                    lstm_dropout_masks, lstm_init, lstm_step)
 
 
 class GridTDState(NamedTuple):
@@ -68,6 +69,41 @@ class GridTDStepCache(NamedTuple):
     logits: torch.Tensor
 
 
+class GridTDDropoutMasks(NamedTuple):
+    """The inverted-dropout masks of one training forward (1/keep or 0), in
+    the order the JAX package's ``forward_train`` draws them (its key split
+    ``ks = split(rng, 6)``)."""
+
+    v_feat: torch.Tensor        # (B, L, H) on image_features after relu
+    global_feat: torch.Tensor   # (B, E) on the global image feature
+    out: torch.Tensor           # (B, H) on h2 + c_hat, the output kernel's input
+    logit: torch.Tensor         # (B, V) on the logits, the output kernel's output
+    # ((x (4, B, H + 2E), h (4, B, H)) of the TD LSTM, (x (4, B, 2H), h (4, B, H))
+    # of the language LSTM), the same at every step
+    lstm: tuple
+
+    def to(self, *args, **kwargs) -> "GridTDDropoutMasks":
+        """Every mask through ``Tensor.to(*args, **kwargs)``."""
+        return GridTDDropoutMasks(*(f.to(*args, **kwargs) for f in self[:4]),
+                                  lstm=tuple(tuple(m.to(*args, **kwargs) for m in pair)
+                                             for pair in self.lstm))
+
+
+def draw_dropout_masks(gen: torch.Generator, params, batch: int, cfg,
+                       rate: float) -> GridTDDropoutMasks:
+    """Fresh masks for one forward from ``gen`` (on the params' device)."""
+    keep = 1.0 - rate
+    L, E = cfg.img_feature_length, params["embedding"].shape[-1]
+    H, V = params["output"]["kernel"].shape
+    return GridTDDropoutMasks(
+        v_feat=bernoulli_keep(gen, keep, (batch, L, H)),
+        global_feat=bernoulli_keep(gen, keep, (batch, E)),
+        out=bernoulli_keep(gen, keep, (batch, H)),
+        logit=bernoulli_keep(gen, keep, (batch, V)),
+        lstm=(lstm_dropout_masks(gen, H + 2 * E, cfg.hidden_dim, rate, batch=batch),
+              lstm_dropout_masks(gen, 2 * H, cfg.hidden_dim, rate, batch=batch)))
+
+
 def init_params(gen: torch.Generator, vocab_size: int, cfg):
     """Decoder params on the CPU, shapes and init laws of the JAX package."""
     E, H, D = cfg.embedding_dim, cfg.hidden_dim, cfg.img_feature_dim
@@ -105,12 +141,16 @@ def prepare_consts(params, feat_grid: torch.Tensor) -> GridTDConsts:
     )
 
 
-def step(params, consts: GridTDConsts, state: GridTDState, token_emb: torch.Tensor):
-    """One decoder step; returns (new_state, GridTDStepCache)."""
+def step(params, consts: GridTDConsts, state: GridTDState, token_emb: torch.Tensor,
+         masks: GridTDDropoutMasks | None = None):
+    """One decoder step; returns (new_state, GridTDStepCache). ``masks``
+    (training) turns on Keras-style dropout in both LSTMs and the masks on
+    h2 + c_hat and on the logits; ``consts`` then holds the dropped features."""
     a = params["attn"]
+    td_masks, lang_masks = (None, None) if masks is None else masks.lstm
     h1, c1, h2, c2 = state
     x1_t = torch.cat([h2, consts.global_feat, token_emb], dim=-1)
-    td_state, td_cache = lstm_step(params["td_lstm"], x1_t, LSTMState(h1, c1))
+    td_state, td_cache = lstm_step(params["td_lstm"], x1_t, LSTMState(h1, c1), td_masks)
     h1_new, c1_new = td_state
     h_proj = h1_new @ a["W_ha"]
     att_pre = torch.tanh(consts.v_proj + h_proj[:, None, :])
@@ -122,9 +162,12 @@ def step(params, consts: GridTDConsts, state: GridTDState, token_emb: torch.Tens
     context = torch.einsum("bl,blh->bh", attention, consts.v_feat)
     c_hat = beta * st + (1.0 - beta) * context
     x2_t = torch.cat([c_hat, h1_new], dim=-1)
-    lang_state, lang_cache = lstm_step(params["lang_lstm"], x2_t, LSTMState(h2, c2))
+    lang_state, lang_cache = lstm_step(params["lang_lstm"], x2_t, LSTMState(h2, c2), lang_masks)
     h2_new, c2_new = lang_state
-    logits = dense(params["output"], h2_new + c_hat)
+    if masks is None:
+        logits = dense(params["output"], h2_new + c_hat)
+    else:
+        logits = dense(params["output"], (h2_new + c_hat) * masks.out) * masks.logit
     cache = GridTDStepCache(
         x1_t=x1_t, x2_t=x2_t, h1_prev=h1, c1_prev=c1, h2_prev=h2, c2_prev=c2,
         h1=h1_new, c1=c1_new, h2=h2_new, c2=c2_new,
@@ -139,9 +182,34 @@ def init_state(batch: int, hidden: int, device=None, dtype=torch.float32) -> Gri
                          for _ in range(4)))
 
 
-def forward_train(*args, **kwargs):
-    raise NotImplementedError("grid-TD training (its loss mode, keras_categorical_ce and Adam "
-                              "beta1 0.8) is not ported yet: ROADMAP A9b")
+def forward_train(params, feat_grid: torch.Tensor, captions_in: torch.Tensor, cfg,
+                  generator: torch.Generator | None = None, drop_rate: float = 0.0,
+                  masks: GridTDDropoutMasks | None = None) -> torch.Tensor:
+    """Teacher forcing: (B, L, D) features + (B, T) 0-based ids -> (B, T, V)
+    logits (model.py:630-660).
+
+    Dropout, as the JAX package places it: on the image features (v_proj
+    recomputed from the dropped v_feat) and the global feature, in both
+    LSTMs (per-sequence masks at input widths H + 2E and 2H), on h2 + c_hat
+    and on the logits. The masks are ``masks`` when given, else drawn from
+    ``generator`` when ``drop_rate > 0``; with neither there is no dropout."""
+    if masks is not None and not isinstance(masks, GridTDDropoutMasks):
+        raise TypeError(f"grid-TD takes GridTDDropoutMasks, got {type(masks).__name__}")
+    B, T = captions_in.shape
+    consts = prepare_consts(params, feat_grid)
+    if masks is None and generator is not None and drop_rate > 0.0:
+        masks = draw_dropout_masks(generator, params, B, cfg, drop_rate)
+    if masks is not None:
+        v_feat = consts.v_feat * masks.v_feat
+        consts = consts._replace(v_feat=v_feat, global_feat=consts.global_feat * masks.global_feat,
+                                 v_proj=v_feat @ params["attn"]["W_va"])
+    embs = params["embedding"][captions_in]                             # (B, T, E)
+    state = init_state(B, cfg.hidden_dim, embs.device, embs.dtype)
+    logits = []
+    for t in range(T):
+        state, cache = step(params, consts, state, embs[:, t], masks)
+        logits.append(cache.logits)
+    return torch.stack(logits, dim=1)                                  # (B, T, V)
 
 
 def forward_cached_from_inputs(params, consts: GridTDConsts, input_tokens_0based: torch.Tensor,

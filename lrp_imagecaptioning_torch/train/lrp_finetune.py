@@ -27,7 +27,7 @@ import torch
 
 from ..data.prefetch import prefetch
 from ..explain.cnn_lrp import vgg_lrp_preset_a_wordbatched
-from ..explain.decoder_lrp import explain_word_adaptive
+from ..explain.decoder_lrp import explain_word_adaptive, explain_word_gridtd
 from ..models.captioner import masked_accuracy, masked_ce_from_logits
 from ..runtime import resolve_device
 from .checkpoint import save_checkpoint
@@ -113,8 +113,10 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
     else:
         pos = torch.arange(T, device=dev).expand(B, T)
         pos_valid = valid
-    r_feat, _, _ = explain_word_adaptive(params["decoder"], consts, caches,
-                                         words0.gather(1, pos), positions=pos)  # (B, W, L, D)
+    backward = explain_word_adaptive if cap.model_type == "adaptiveattention" \
+        else explain_word_gridtd
+    r_feat, _, _ = backward(params["decoder"], consts, caches,
+                            words0.gather(1, pos), positions=pos)               # (B, W, L, D)
 
     g = int(round(math.sqrt(cfg.img_feature_length)))
     seeds = r_feat.reshape(B, pos.shape[1], g, g, cfg.img_feature_dim)

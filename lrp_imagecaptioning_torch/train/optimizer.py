@@ -1,6 +1,7 @@
 """Adam with element-wise gradient clipping, the reference's Keras config.
 
-Adam(lr, clipvalue=0.1) for adaptive attention. Keras ``clipvalue`` clips
+Adam(lr, clipvalue=0.1) for adaptive attention and Adam(lr, beta_1=0.8,
+clipvalue=0.1) for grid-TD (model.py:468-470, :662-664). Keras ``clipvalue`` clips
 each gradient element to [-c, c] before the moments (optax's ``clip``, not a
 clip of the norm).
 
@@ -31,7 +32,8 @@ class Adam:
 
     def init(self, params):
         return {"count": 0, "mu": tree_map(torch.zeros_like, params),
-                "nu": tree_map(torch.zeros_like, params), "learning_rate": self.learning_rate}
+                "nu": tree_map(torch.zeros_like, params),
+                "learning_rate": _f32(self.learning_rate)}
 
     def update(self, grads, state, params=None):
         """(grads, state) -> (updates, new state); ``params + updates`` is the
@@ -63,11 +65,15 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
+ADAM_BETAS = {"adaptiveattention": (0.9, 0.999), "gridTD": (0.8, 0.999)}
+
+
 def make_optimizer(model_type: str, learning_rate: float, clipvalue: float = 0.1) -> Adam:
-    if model_type != "adaptiveattention":
-        raise NotImplementedError(f"the port trains adaptiveattention; got {model_type!r} "
-                                  "(grid-TD training is ROADMAP A9b)")
-    return Adam(learning_rate, clipvalue=clipvalue)
+    if model_type not in ADAM_BETAS:
+        raise NotImplementedError(f"the port trains {sorted(ADAM_BETAS)}; got {model_type!r} "
+                                  "(AOA is ROADMAP A11)")
+    b1, b2 = ADAM_BETAS[model_type]
+    return Adam(learning_rate, b1=b1, b2=b2, clipvalue=clipvalue)
 
 
 def get_learning_rate(opt_state) -> float:
@@ -76,4 +82,10 @@ def get_learning_rate(opt_state) -> float:
 
 def set_learning_rate(opt_state, lr: float):
     """A new state with the learning rate ``lr``; the moments are shared."""
-    return dict(opt_state, learning_rate=float(lr))
+    return dict(opt_state, learning_rate=_f32(lr))
+
+
+def _f32(lr: float) -> float:
+    """The learning rate as the float32 the step uses (optax keeps it as a
+    float32 array): ``get_learning_rate`` then reads what the JAX package's does."""
+    return float(torch.tensor(lr, dtype=torch.float32))

@@ -103,8 +103,14 @@ def test_gridtd_beam_search_matches_jax():
 
 
 def test_gridtd_forward_train_raises():
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tgt.forward_train(None, None, None, None)
+    """grid-TD trains (tests/test_torch_gridtd_train.py); its forward_train
+    raises on adaptive attention's masks, whose fields differ."""
+    from lrp_imagecaptioning_torch.models.adaptive import DropoutMasks
+
+    z = torch.zeros(1)
+    with pytest.raises(TypeError, match="GridTDDropoutMasks"):
+        tgt.forward_train(None, None, torch.zeros((1, 2), dtype=torch.long), None,
+                          masks=DropoutMasks(z, z, z, z, (z, z)))
 
 
 @pytest.mark.parametrize("model_type, port_fn, jax_fn", [

@@ -240,8 +240,9 @@ def test_optimizer_matches_optax_over_three_steps(grad_scale):
 
 def test_make_optimizer_has_only_the_ported_model():
     assert topt.make_optimizer("adaptiveattention", 1e-3).b1 == 0.9
-    with pytest.raises(NotImplementedError, match="gridTD"):
-        topt.make_optimizer("gridTD", 1e-3)
+    assert topt.make_optimizer("gridTD", 1e-3).b1 == 0.8
+    with pytest.raises(NotImplementedError, match="A11"):
+        topt.make_optimizer("aoa", 1e-3)
 
 
 def test_set_learning_rate():
