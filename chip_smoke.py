@@ -9,7 +9,7 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
 
 1. card:    the card's name and power limit, as nvidia-smi gives them, and
             what the host offers beyond the promised packages (PIL, yaml,
-            nltk, psutil, h5py, java, the libjpeg/libpng headers);
+            nltk, psutil, h5py, matplotlib, java, the libjpeg/libpng headers);
 2. kernels: builds the four CUDA kernels (one nvcc per source, in
             parallel), then holds each against its plain PyTorch version at
             the shapes of every main path it is on and times kernel, plain
@@ -93,15 +93,36 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             gradients at batch 1 against the CPU; 9d BeamSearchInference's
             evaluate_test_set on 9a's checkpoint and LRPFinetuner.run
             through the provider;
+10. explanation entry points: on 9d's checkpoint (its EOS logit pushed
+            down: three epochs leave it decoding EOS first) and phase 9's
+            dataset, its test images written as seeded JPEGs that the
+            provider and the drivers decode, in ``build/phase10`` (removed
+            after): 10a the f32
+            Explainer's deep_taylor and deep_lift, analyze_batch of 8 images
+            (img/s, launches held to the plan: deep_lift runs no K3), one
+            image against CPU f32 and f64 (deep_taylor as 8b, deep_lift as
+            8d); 10b evaluate_dataset and analyze_results over the 64 test
+            images at batch 32, with an entities dict of two words of each
+            image's own caption (img/s, analyze_many and the host's scoring
+            apart, launches held to the plan), one image's scores against a
+            CPU-f32 Explainer's; 10c frequent_object_map over beam
+            evaluate_test_set's predictions, collect_word_stats on their 10
+            commonest words and the three ROC-AUCs; 10d explain_image_file for lrp, deep_taylor
+            and deep_lift and process_beam_search over 4 images (figures
+            where the host has matplotlib); 10e ``cli.main`` explain,
+            evaluate-bbox and analyze-words --roc-auc on the default device,
+            on the mini-Flickr30k fixture at full width; 10f a Trainer with
+            pretrained GloVe vectors over half the vocabulary;
 5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph,
             training and trainer card tests, in a child process (run last).
 
 Every path (f32, bf16, train, finetune, gridtd_f32, gridtd_bf16, trainer,
-gridtd_train, evaluate) is driven
+gridtd_train, evaluate, and phase 10's deep_taylor and bbox) is driven
 with the launch counts set to 0 just before it and read just after; each
 kernel's count must equal its calls on that path as phase 2's shapes derive
-them, 0 where it is not on it. The Explainer's other runs (phases 8, 8b, 8d)
-are held to the counts their bucket plans derive.
+them (for deep_taylor and bbox the shapes of the run's chunks, timed after
+it), 0 where it is not on it. The Explainer's other runs (phases 8, 8b, 8d,
+10a's deep_lift, 10c) are held to the counts their bucket plans derive.
 
 Prints the ``{"kernels": [...]}`` line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``. Per-shape detail goes to
@@ -199,7 +220,7 @@ def probe_host() -> dict:
     import tempfile
 
     out = {m: importlib.util.find_spec(m) is not None
-           for m in ("PIL", "yaml", "nltk", "psutil", "h5py")}
+           for m in ("PIL", "yaml", "nltk", "psutil", "h5py", "matplotlib")}
     out["java"] = shutil.which("java") is not None
     cxx = shutil.which("g++") or shutil.which("c++")
     out["c++"] = cxx is not None
@@ -283,19 +304,20 @@ def linear_shapes(path, batch, words):
     """The decoder LRP's products: one row per (image, explained word), as
     (name, M, Dout, Din, calls a pass). Adaptive: the gate-g block [x; h] a
     step; grid-TD: the language LSTM's [c_hat, h1; h2] (K = 2H + H) and the
-    TD LSTM's [h2, g, e; h1] (K = H + 2E + H) a step."""
+    TD LSTM's [h2, g, e; h1] (K = H + 2E + H) a step. The Explainer's word
+    buckets (PLAN_PATHS) explain ``words`` positions over all T steps."""
     R = batch * words
     if path.startswith("gridtd"):
         gates = [("lang_gate", R, H, 3 * H, T), ("td_gate", R, H, 2 * H + 2 * E, T)]
     else:
-        gates = [("gate_g", R, H, 2 * E + H, words)]
+        gates = [("gate_g", R, H, 2 * E + H, T if path in PLAN_PATHS else words)]
     return [("output", R, VOCAB, H, 1), *gates, ("w_glob", R, E, D, 1), ("w_img", R * L, H, D, 1)]
 
 
-def check_lrp_linear(gen, dev, path):
+def check_lrp_linear(gen, dev, path, dims=None):
     from lrp_imagecaptioning_torch.ops import kernels
 
-    _, batch, words = PATHS[path]
+    _, batch, words = dims or PATHS[path]
     rows = []
     for name, m, dout, din, calls in linear_shapes(path, batch, words):
         r = torch.randn(m, dout, generator=gen, device=dev)
@@ -317,7 +339,7 @@ def check_lrp_linear(gen, dev, path):
     return rows
 
 
-def check_lstm_gates(gen, dev, path):
+def check_lstm_gates(gen, dev, path, dims=None):
     """The serving paths replay K2 from CUDA graphs (beam search, cached
     forward); the training paths run it eagerly: the train step's teacher-
     forced forward with its gradient (``check_lstm_gates_grad``), the fine-
@@ -325,7 +347,7 @@ def check_lstm_gates(gen, dev, path):
     the dual loss's)."""
     from lrp_imagecaptioning_torch.ops import kernels
 
-    _, batch, words = PATHS[path]
+    _, batch, words = dims or PATHS[path]
     if path == "train":
         return [check_lstm_gates_grad(gen, dev, batch, words)]
     if path == "gridtd_train":   # two LSTMs a step
@@ -429,10 +451,10 @@ def check_lstm_gates_grad(gen, dev, batch, words):
                     lambda: torch.autograd.grad(ref_outs, ins, cot, retain_graph=True)))
 
 
-def check_conv3x3_fused(gen, dev, path):
+def check_conv3x3_fused(gen, dev, path, dims=None):
     from lrp_imagecaptioning_torch.ops import kernels
 
-    _, batch, n = PATHS[path]   # per image: its n explained words as the batch
+    _, batch, n = dims or PATHS[path]   # per image: its n explained words as the batch
     rows = []
     for name, size, cin, cout in vgg16_conv_layers():
         hw = size * size
@@ -475,12 +497,12 @@ def check_conv3x3_fused(gen, dev, path):
     return rows
 
 
-def check_lrp_a1b0_fused(gen, dev, path):
+def check_lrp_a1b0_fused(gen, dev, path, dims=None):
     """The bf16 rule at the 12 post-ReLU conv shapes, 20 words."""
     from lrp_imagecaptioning_torch.ops import kernels
     from lrp_imagecaptioning_torch.ops.lrp_conv import conv2d
 
-    _, batch, n = PATHS[path]
+    _, batch, n = dims or PATHS[path]
     rows = []
     bf = torch.bfloat16
     for name, size, cin, cout in vgg16_conv_layers():
@@ -547,7 +569,14 @@ PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 "gridtd_f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 "gridtd_bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
                 "trainer": ("lstm_gates",), "gridtd_train": ("lstm_gates",),
-                "evaluate": ("lstm_gates",)}
+                "evaluate": ("lstm_gates",),
+                "deep_taylor": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+                "bbox": ("lrp_linear", "lstm_gates", "conv3x3_fused")}
+# the paths whose dispatches the Explainer plans from its captions' lengths
+# (phase 10): "deep_taylor" one analyze_batch of B_MAIN images, "bbox" the
+# analyze_many calls of evaluate_dataset over the test split at B_TRAIN; their
+# kernels are timed at the shapes of that run's chunks, (images, word bucket)
+PLAN_PATHS = ("deep_taylor", "bbox")
 PATH_TITLES = {"bf16": "phase 2b: the bf16 path's kernels vs their plain versions, batch {b}",
                "train": "phase 2c: the train path's kernel, K2 with its gradient, batch {b}",
                "finetune": "phase 2c: the fine-tune path's kernels, batch {b} x {w} words",
@@ -570,75 +599,81 @@ def phase_kernels(dev, failures):
             if name not in PATH_KERNELS[path]:
                 continue
             rows = check(gen, dev, path)
-            kind, tol = TOLERANCE[name]
-            for row in rows:
-                row["path"] = path
-                row["tflops"] = row["flops"] / row["ms"] / 1e9
-                row["share_of_bound"] = row["bound"][0] / row["ms"]
-                extra = f"  library rel {row['library_err'][1]:.3e}" if "library_err" in row else ""
-                if "eager_ms" in row:
-                    extra += (f"  (in a graph; eager {row['eager_ms']:.4f}, library eager "
-                              f"{row['library_eager_ms']:.4f}; z_pre exact {row['z_pre_exact']})")
-                if "bound_cuda_core" in row:
-                    extra += (f"  tensor cores {row['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
-                              f"{row['bound_cuda_core'][0]:.4f}")
-                if "grad_err" in row:
-                    extra += (f"  (eager; gradient rel {row['grad_err']:.3e}; backward "
-                              f"{row['backward_ms']:.4f}, plain backward "
-                              f"{row['plain_backward_ms']:.4f})")
-                    if row["grad_err"] > TOL_LSTM_GRAD:
-                        failures.append(f"{name} {row['shape']} ({path}): gradient differs from "
-                                        f"the plain version's by {row['grad_err']:.3e} of scale")
-                log(f"  {path:4s} {name:14s} {row['shape']:22s} calls/batch {row['calls']:3d}  "
-                    f"max_abs {row['err'][0]:.3e} rel {row['err'][1]:.3e}  ms {row['ms']:.4f}  "
-                    f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  "
-                    f"bound {row['bound'][0]:.4f} ({row['bound'][1]})  "
-                    f"{row['tflops']:.2f} TFLOP/s  {100 * row['share_of_bound']:.1f} % of bound"
-                    f"{extra}")
-                if row.get("z_pre_exact") is False:
-                    failures.append(f"{name} {row['shape']} ({path}): z_pre differs from the plain sum")
-                if (row["err"][0] if kind == "abs" else row["err"][1]) > tol:
-                    failures.append(f"{name} {row['shape']} ({path}) disagrees with its plain "
-                                    f"version: {row['err']}")
+            summary[name][path] = summarize_rows(name, path, batch, rows, failures)
             detail[name] += rows
-            per_batch = lambda key: sum(r.get(key, 0.0) * r["calls"] for r in rows)
-            by_ops = sum(r["bound"][0] * r["calls"] for r in rows if r["bound"][1] == "operations")
-            total_bound = sum(r["bound"][0] * r["calls"] for r in rows)
-            ms = per_batch("ms")
-            summary[name][path] = dict(
-                batch=batch,
-                calls_per_batch=sum(r["calls"] for r in rows),
-                max_abs_err=max(r["err"][0] for r in rows),
-                max_rel_err=max(r["err"][1] for r in rows),
-                ms=ms, plain_ms=per_batch("plain_ms"),
-                bound_ms=total_bound,
-                bound_by="operations" if by_ops >= total_bound / 2 else "bytes",
-                library_ms=per_batch("library_ms"),
-                tflops=per_batch("flops") / ms / 1e9,
-                share_of_bound=total_bound / ms,
-            )
-            s = summary[name][path]
-            extra = ""
-            if "eager_ms" in rows[0]:
-                s.update(eager_ms=per_batch("eager_ms"), library_eager_ms=per_batch("library_eager_ms"))
-                extra = (f"  (in graphs; eager {s['eager_ms']:.3f}, library eager "
-                         f"{s['library_eager_ms']:.3f})")
-            if "bound_cuda_core" in rows[0]:
-                s.update(tc_tflops=per_batch("tc_flops") / ms / 1e9,
-                         bound_cuda_core_ms=sum(r["bound_cuda_core"][0] * r["calls"] for r in rows))
-                s["share_of_cuda_core_bound"] = s["bound_cuda_core_ms"] / ms
-                extra = (f"  tensor cores {s['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
-                         f"{s['bound_cuda_core_ms']:.3f} ({100 * s['share_of_cuda_core_bound']:.1f} %)")
-            if "grad_err" in rows[0]:
-                s.update(grad_err=max(r["grad_err"] for r in rows if "grad_err" in r),
-                         backward_ms=per_batch("backward_ms"),
-                         plain_backward_ms=per_batch("plain_backward_ms"))
-                extra = (f"  (eager; backward {s['backward_ms']:.3f}, plain backward "
-                         f"{s['plain_backward_ms']:.3f})")
-            log(f"  {path:4s} {name:14s} per batch: ms {ms:.3f}  plain {s['plain_ms']:.3f}  "
-                f"library {s['library_ms']:.3f}  bound {total_bound:.3f}  "
-                f"{s['tflops']:.2f} TFLOP/s  {100 * s['share_of_bound']:.1f} % of bound{extra}")
     return summary, detail
+
+
+def summarize_rows(name, path, batch, rows, failures):
+    """Log ``name``'s rows on ``path`` (each against its plain version and
+    tolerance) and their per-batch sums: ms, plain and library ms, bound, calls."""
+    kind, tol = TOLERANCE[name]
+    for row in rows:
+        row["path"] = path
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound"][0] / row["ms"]
+        extra = f"  library rel {row['library_err'][1]:.3e}" if "library_err" in row else ""
+        if "eager_ms" in row:
+            extra += (f"  (in a graph; eager {row['eager_ms']:.4f}, library eager "
+                      f"{row['library_eager_ms']:.4f}; z_pre exact {row['z_pre_exact']})")
+        if "bound_cuda_core" in row:
+            extra += (f"  tensor cores {row['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
+                      f"{row['bound_cuda_core'][0]:.4f}")
+        if "grad_err" in row:
+            extra += (f"  (eager; gradient rel {row['grad_err']:.3e}; backward "
+                      f"{row['backward_ms']:.4f}, plain backward "
+                      f"{row['plain_backward_ms']:.4f})")
+            if row["grad_err"] > TOL_LSTM_GRAD:
+                failures.append(f"{name} {row['shape']} ({path}): gradient differs from "
+                                f"the plain version's by {row['grad_err']:.3e} of scale")
+        log(f"  {path:4s} {name:14s} {row['shape']:22s} calls/batch {row['calls']:3d}  "
+            f"max_abs {row['err'][0]:.3e} rel {row['err'][1]:.3e}  ms {row['ms']:.4f}  "
+            f"plain {row['plain_ms']:.4f}  library {row['library_ms']:.4f}  "
+            f"bound {row['bound'][0]:.4f} ({row['bound'][1]})  "
+            f"{row['tflops']:.2f} TFLOP/s  {100 * row['share_of_bound']:.1f} % of bound"
+            f"{extra}")
+        if row.get("z_pre_exact") is False:
+            failures.append(f"{name} {row['shape']} ({path}): z_pre differs from the plain sum")
+        if (row["err"][0] if kind == "abs" else row["err"][1]) > tol:
+            failures.append(f"{name} {row['shape']} ({path}) disagrees with its plain "
+                            f"version: {row['err']}")
+    per_batch = lambda key: sum(r.get(key, 0.0) * r["calls"] for r in rows)
+    by_ops = sum(r["bound"][0] * r["calls"] for r in rows if r["bound"][1] == "operations")
+    total_bound = sum(r["bound"][0] * r["calls"] for r in rows)
+    ms = per_batch("ms")
+    s = dict(
+        batch=batch,
+        calls_per_batch=sum(r["calls"] for r in rows),
+        max_abs_err=max(r["err"][0] for r in rows),
+        max_rel_err=max(r["err"][1] for r in rows),
+        ms=ms, plain_ms=per_batch("plain_ms"),
+        bound_ms=total_bound,
+        bound_by="operations" if by_ops >= total_bound / 2 else "bytes",
+        library_ms=per_batch("library_ms"),
+        tflops=per_batch("flops") / ms / 1e9,
+        share_of_bound=total_bound / ms,
+    )
+    extra = ""
+    if "eager_ms" in rows[0]:
+        s.update(eager_ms=per_batch("eager_ms"), library_eager_ms=per_batch("library_eager_ms"))
+        extra = (f"  (in graphs; eager {s['eager_ms']:.3f}, library eager "
+                 f"{s['library_eager_ms']:.3f})")
+    if "bound_cuda_core" in rows[0]:
+        s.update(tc_tflops=per_batch("tc_flops") / ms / 1e9,
+                 bound_cuda_core_ms=sum(r["bound_cuda_core"][0] * r["calls"] for r in rows))
+        s["share_of_cuda_core_bound"] = s["bound_cuda_core_ms"] / ms
+        extra = (f"  tensor cores {s['tc_tflops']:.2f} TFLOP/s; CUDA-core bound "
+                 f"{s['bound_cuda_core_ms']:.3f} ({100 * s['share_of_cuda_core_bound']:.1f} %)")
+    if "grad_err" in rows[0]:
+        s.update(grad_err=max(r["grad_err"] for r in rows if "grad_err" in r),
+                 backward_ms=per_batch("backward_ms"),
+                 plain_backward_ms=per_batch("plain_backward_ms"))
+        extra = (f"  (eager; backward {s['backward_ms']:.3f}, plain backward "
+                 f"{s['plain_backward_ms']:.3f})")
+    log(f"  {path:4s} {name:14s} per batch: ms {ms:.3f}  plain {s['plain_ms']:.3f}  "
+        f"library {s['library_ms']:.3f}  bound {total_bound:.3f}  "
+        f"{s['tflops']:.2f} TFLOP/s  {100 * s['share_of_bound']:.1f} % of bound{extra}")
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -1173,22 +1208,23 @@ def explain_launches(model_type, storage_dtype, plan, decodes=0, method="lrp"):
     """Each kernel's launches for ``decodes`` beam searches and the explain
     calls of ``plan`` [(rows, bucket)], derived from the code: K2 once
     (adaptive) or twice (grid-TD) a step of every beam search and cached
-    forward; K1 at the LRP's output layer, gate blocks a step (one or two),
-    W_glob and W_img, whatever the bucket; K3 twice (f32) or K4 once (bf16)
-    per post-ReLU conv per image (a dispatch's padded rows skip the CNN
-    side). The gradient methods
-    run no K1, K3 or K4 (torch ops and autograd on cuDNN)."""
+    forward; for lrp, deep_taylor and deep_lift K1 at the LRP's output layer,
+    gate blocks a step (one or two), W_glob and W_img, whatever the bucket;
+    K3 twice (f32: lrp, and deep_taylor whatever the storage) or K4 once (lrp
+    in bf16) per post-ReLU conv per image (a dispatch's padded rows skip the
+    CNN side). deep_lift's CNN side and the gradient methods run no K3 or K4
+    (torch ops, cuDNN), the gradient methods no K1."""
     lstms = 2 if model_type == "gridTD" else 1
     out = {"lrp_linear": 0, "lstm_gates": lstms * T * decodes, "conv3x3_fused": 0,
            "lrp_a1b0_fused": 0}
     for rows, _ in plan:
         out["lstm_gates"] += lstms * T
-        if method == "lrp":
+        if method in ("lrp", "deep_taylor", "deep_lift"):
             out["lrp_linear"] += lstms * T + 3
-            if storage_dtype is None:
-                out["conv3x3_fused"] += 2 * CONVS * rows
-            else:
-                out["lrp_a1b0_fused"] += CONVS * rows
+        if method == "deep_taylor" or (method == "lrp" and storage_dtype is None):
+            out["conv3x3_fused"] += 2 * CONVS * rows
+        elif method == "lrp":
+            out["lrp_a1b0_fused"] += CONVS * rows
     return out
 
 
@@ -1277,10 +1313,10 @@ def check_explanations(out, n_words, label, failures, nonzero=True):
                         f"non-finite or all-zero maps")
 
 
-def explainer_for(cap, params, dev, **kw):
+def explainer_for(cap, params, dev, pp=None, **kw):
     from lrp_imagecaptioning_torch.explain.engine import Explainer
 
-    return Explainer(cap, params, CaptionPP(), beam_size=BEAM, word_buckets=BUCKETS,
+    return Explainer(cap, params, pp or CaptionPP(), beam_size=BEAM, word_buckets=BUCKETS,
                      device=dev, **kw)
 
 
@@ -1411,7 +1447,7 @@ def card_vs_cpu(ex, cap, params, image, tokens, failures, label, words=CPU_WORDS
     t0 = time.perf_counter()
     runs = {}
     for name, p in (("f32", params_c), ("f64", tree_to(params_c, dtype=torch.float64))):
-        cpu = explainer_for(cap, p, "cpu")
+        cpu = explainer_for(cap, p, "cpu", pp=ex._pp, method=ex.method)
         cpu._buckets = (n,)
         if name == "f32":
             cpu_tokens = cpu.predict_caption(image.cpu())[0]
@@ -1433,11 +1469,13 @@ def card_vs_cpu(ex, cap, params, image, tokens, failures, label, words=CPU_WORDS
     return out
 
 
-def explain_batch_run(cap, params, dev, images, storage_dtype, label, failures):
+def explain_batch_run(cap, params, dev, images, storage_dtype, label, failures, method="lrp",
+                      pp=None):
     """warmup, then one counted and timed analyze_batch (decode + explain)."""
     from lrp_imagecaptioning_torch.ops import kernels
 
-    ex = explainer_for(cap, params, dev, storage_dtype=storage_dtype, batch_size=len(images))
+    ex = explainer_for(cap, params, dev, pp=pp, storage_dtype=storage_dtype,
+                       batch_size=len(images), method=method)
     _, warm_ms = timed(ex.warmup, images)
     captures = ex.graphs.captures
     kernels.reset_launches()
@@ -1446,7 +1484,7 @@ def explain_batch_run(cap, params, dev, images, storage_dtype, label, failures):
     launches, mem = counts(), memory_gib()
     words = [len(e.words) for e in out]
     plan = [(len(images), bucket_for(max(words)))]
-    want = explain_launches(cap.model_type, storage_dtype, plan, decodes=1)
+    want = explain_launches(cap.model_type, storage_dtype, plan, decodes=1, method=method)
     check_explanations(out, words, label, failures)
     rep = dict(batch=len(images), storage_dtype=str(storage_dtype), warm_ms=warm_ms, ms=ms,
                img_per_s=len(images) / ms * 1e3, words=words, plan=plan, launches=launches,
@@ -1506,12 +1544,13 @@ def phase_gridtd(dev, failures):
     return launches, reps
 
 
-def grad_vs_cpu(ex, cap, params, image, tokens, e, failures):
+def grad_vs_cpu(ex, cap, params, image, tokens, e, failures, label="phase 8d"):
     """The timed card Explainer ``ex`` (IG 16 steps, SmoothGrad 8 samples)
     against CPU f32 and f64 runs on the first word. The decoder gradient: the
     card's in the timed Explanation ``e``, the CPU runs' from their own
     encode; within F64_RATIO["r_feat"] times the CPU-f32 run's distance from
-    f64 (floor F64_FLOOR). The CNN side: ``ex._cnn`` and the CPU runs' on one
+    f64 (floor F64_FLOOR); deep_lift's decoder side is the LRP relevance.
+    The CNN side: ``ex._cnn`` and the CPU runs' on one
     shared seed, the f64 run's decoder gradient, so that a ReLU mask the
     CPU-f32 decoder flips does not widen the bound; by the 2-norm, within
     GRAD_MAPS_RATIO times the CPU-f32 run's distance from f64 (floor
@@ -1525,7 +1564,8 @@ def grad_vs_cpu(ex, cap, params, image, tokens, e, failures):
     runs = {}
     with torch.no_grad():
         for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
-            cpu = explainer_for(cap, tree_to(params_c, dtype=dtype), "cpu", method=ex.method)
+            cpu = explainer_for(cap, tree_to(params_c, dtype=dtype), "cpu", pp=ex._pp,
+                                method=ex.method)
             img = image.cpu().to(dtype)[None]
             feat = cpu._encode(img)
             r_feat = cpu._decoder_stage(cpu.params, feat, toks, seed)[0]       # (1, 1, L, D)
@@ -1552,9 +1592,9 @@ def grad_vs_cpu(ex, cap, params, image, tokens, e, failures):
                                       ("maps", "_l2", GRAD_MAPS_RATIO, GRAD_MAPS_FLOOR)):
         got, cpu = out[f"{key}_card_vs_f64{suffix}"], out[f"{key}_cpu_vs_f64{suffix}"]
         if got > max(ratio * cpu, floor):
-            failures.append(f"phase 8d {ex.method} {key}: card deviates {got:.3e} from f64 "
+            failures.append(f"{label} {ex.method} {key}: card deviates {got:.3e} from f64 "
                             f"({suffix or 'largest'}), CPU f32 {cpu:.3e}")
-    log(f"  phase 8d {ex.method} card vs CPU, word 0 (maps on the f64 seed): {out}")
+    log(f"  {label} {ex.method} card vs CPU, word 0 (maps on the f64 seed): {out}")
     return out
 
 
@@ -1669,9 +1709,10 @@ def smoke_dataset(cfg):
     return ds
 
 
-def timed_method(obj, name, store):
+def timed_method(obj, name, store, keep=None):
     """Wrap ``obj.name`` so each call's host time after a synchronize (ms) is
-    appended to ``store[name]``."""
+    appended to ``store[name]`` and, with ``keep``, ``keep(result)`` to
+    ``store[name + ":out"]``. Returns the unwrapped attribute."""
     fn = getattr(obj, name)
 
     def wrapper(*a, **kw):
@@ -1680,9 +1721,12 @@ def timed_method(obj, name, store):
         out = fn(*a, **kw)
         torch.cuda.synchronize()
         store.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        if keep is not None:
+            store.setdefault(name + ":out", []).append(keep(out))
         return out
 
     setattr(obj, name, wrapper)
+    return fn
 
 
 def smoke_trainer(cfg, ds, label, device="cuda", parts=None):
@@ -1957,7 +2001,8 @@ def phase_gridtd_train(dev, failures, mask_seed=9):
 def phase_evaluate_finetune(dev, failures, report, cfg, trainer):
     """9d: BeamSearchInference(beam_size=3).evaluate_test_set() on 9a's last
     checkpoint (the counted pass of the "evaluate" path), and two steps of
-    LRPFinetuner.run through the provider at batch 32, mode 'mean'."""
+    LRPFinetuner.run through the provider at batch 32, mode 'mean'. Returns
+    the launches, the report, and the checkpoint's params for phase 10."""
     from lrp_imagecaptioning_torch.evalx import metrics, ptb
     from lrp_imagecaptioning_torch.infer.api import BeamSearchInference
     from lrp_imagecaptioning_torch.ops import kernels
@@ -2006,7 +2051,7 @@ def phase_evaluate_finetune(dev, failures, report, cfg, trainer):
         f"{bare if bare is None else f'{bare:.1f}'} ms); {ft}; launches {ft_launches}")
     if ft_launches != want:
         failures.append(f"9d: the fine-tune launched {ft_launches}, {want} expected")
-    return launches, out
+    return launches, out, restore_checkpoint(ckpt, dev)[0]
 
 
 def importlib_has(name: str) -> bool:
@@ -2017,7 +2062,9 @@ def importlib_has(name: str) -> bool:
 
 def phase_entry_points(dev, failures, report):
     """Phase 9 in a scratch directory of the checkout (``build/phase9``, not
-    kept: each checkpoint at full width is ~0.28 GB), which it removes."""
+    kept: each checkpoint at full width is ~0.28 GB), which it removes.
+    Returns the launches, the report and, for phase 10, 9a's config and
+    dataset with 9d's checkpoint params (None where 9a or 9d did not run)."""
     import shutil
 
     work = os.path.join(HERE, "build", "phase9")
@@ -2025,7 +2072,7 @@ def phase_entry_points(dev, failures, report):
     os.makedirs(work)
     cwd = os.getcwd()
     os.chdir(work)
-    launches, out = {}, {}
+    launches, out, handoff = {}, {}, None
     try:
         steps = [("9a: Trainer.run, adaptive attention, two epochs, resume, one more", "trainer"),
                  ("9b: the trainer on the card against the CPU, batch 2", "trainer_cpu"),
@@ -2045,8 +2092,9 @@ def phase_entry_points(dev, failures, report):
                 elif key == "trainer_cpu":
                     out[key] = phase_trainer_cpu(dev, failures, ctx[0], ctx[1])
                 else:
-                    launches["evaluate"], out[key] = phase_evaluate_finetune(
+                    launches["evaluate"], out[key], params = phase_evaluate_finetune(
                         dev, failures, report, ctx[0], ctx[2])
+                    handoff = dict(cfg=ctx[0], ds=ctx[1], params=params)
             except Exception:  # noqa: BLE001 — a sub-phase that raises is recorded as failed
                 traceback.print_exc()
                 failures.append(f"phase {title} raised")
@@ -2056,7 +2104,495 @@ def phase_entry_points(dev, failures, report):
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
+    return launches, out, handoff
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the explanation entry points (the Explainer's deep_taylor and
+# deep_lift, evaluate-bbox, analyze-words, the drivers, the CLI, word vectors)
+# on phase 9's checkpoint and dataset
+# ---------------------------------------------------------------------------
+# 10b: the bbox scores of one image from the card's Explanation and from a
+# CPU-f32 Explainer's. Their heatmaps lie within TOL_CPU_MAPS of each other
+# (phase 4); a score is a ratio of sums over the thresholded map, which a
+# value within that distance of a threshold moves by its own mass only
+TOL_BBOX_SCORE = 1e-3
+N_BBOX_WORDS = 2            # category words an image: two of its caption's first BBOX_SPAN
+BBOX_SPAN = 4               # (the CPU-f32 run explains that many words at most)
+TOP_WORDS = 10              # 10c: the commonest predicted words as the categories
+
+
+def write_test_jpegs(ds):
+    """Phase 9's test images as JPEGs in the working directory, at the paths
+    its test datums name: each the seeded array of ``seeded_images`` shifted
+    into 0..255, so that the provider and the drivers decode real files."""
+    import numpy as np
+    from PIL import Image
+
+    for d in ds.test_set:
+        if not os.path.exists(d.img_path):
+            arr = np.clip(seeded_images([d.img_path])[0] + 128, 0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(d.img_path, quality=90)
+
+
+def provider_test_images(provider):
+    """The test split through the provider (JPEG decode, VGG preprocessing):
+    (images (N, 224, 224, 3), their file names)."""
+    import numpy as np
+
+    gen = provider.test_set(include_datum=True)
+    imgs, names = [], []
+    for _ in range(provider.test_steps):
+        (_, x), _, data = next(gen)
+        imgs.append(x)
+        names += [d.img_filename for d in data]
+    return np.concatenate(imgs), names
+
+
+def analyze_many_plan(calls, batch):
+    """The dispatches of recorded ``analyze_many`` calls (each one decode and
+    the sorted chunks of its captions' word counts at ``batch``)."""
+    return [c for words in calls for c in sorted_plan(words, batch)]
+
+
+def plan_summary(dev, path, plan, failures, detail):
+    """``path``'s kernels timed at the shapes of ``plan`` [(images, bucket)],
+    one row set per chunk, summed over the chunks; a chunk at phase 2's f32
+    shapes (B_MAIN images, T words) takes phase 2's rows."""
+    import copy
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out, cache = {}, {}
+    for name, (_, _, check) in KERNEL_META.items():
+        if name not in PATH_KERNELS[path]:
+            continue
+        rows = []
+        for images, bucket in plan:
+            key = (name, images, bucket)
+            if key not in cache:
+                if (images, bucket) == (B_MAIN, T):
+                    cache[key] = [r for r in detail[name] if r["path"] == "f32"]
+                else:
+                    cache[key] = check(gen, dev, path, (None, images, bucket))
+            rows += copy.deepcopy(cache[key])
+        log(f"  {path}: {name} at the run's chunks {plan}")
+        out[name] = summarize_rows(name, path, B_TRAIN if path == "bbox" else B_MAIN, rows,
+                                   failures)
+        detail[name] += rows
+    return out
+
+
+def phase_deep_methods(dev, failures, cap, params, pp, images):
+    """10a: deep_taylor and deep_lift, f32, one counted analyze_batch of
+    B_MAIN images each (launches as derived: deep_taylor as f32 lrp,
+    deep_lift without K3), then the first image with a word against CPU f32
+    and f64: deep_taylor as phase 8b, deep_lift as phase 8d."""
+    out, launches = {}, None
+    images = torch.from_numpy(images[:B_MAIN]).to(dev)
+    for method in ("deep_taylor", "deep_lift"):
+        ex, res, rep = explain_batch_run(cap, params, dev, images, None, f"10a {method}",
+                                         failures, method=method, pp=pp)
+        if method == "deep_taylor":
+            launches = rep["launches"]
+        i = next((i for i, e in enumerate(res) if e.words), None)
+        if i is None:
+            failures.append(f"10a {method}: every caption is empty")
+        elif method == "deep_taylor":
+            rep["cpu"] = card_vs_cpu(ex, cap, params, images[i], res[i].tokens_1based, failures,
+                                     "10a deep_taylor")
+        else:
+            rep["cpu"] = grad_vs_cpu(ex, cap, params, images[i], res[i].tokens_1based, res[i],
+                                     failures, label="10a")
+        out[method] = rep
+        del ex, res
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches, out
+
+
+def bbox_entities(names, toks, pp):
+    """An entities dict for the images: N_BBOX_WORDS words of each image's own
+    beam caption (from its first BBOX_SPAN, past the articles) as categories,
+    each with one or two seeded boxes on the 224x224 image."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.evalx.bbox import FILTER
+    from lrp_imagecaptioning_torch.explain.engine import _n_explained
+
+    rng = np.random.default_rng(10)
+    out = {}
+    for name, row in zip(names, toks):
+        n = _n_explained(row, EOS)
+        words = [pp.word_of[int(t)] for t in row[:min(n, BBOX_SPAN)]]
+        pool = sorted({w for w in words if w not in FILTER})
+        picked = rng.permutation(pool)[:N_BBOX_WORDS] if pool else []
+        cats = {str(w): str(k) for k, w in enumerate(picked)}
+        boxes = {}
+        for cid in cats.values():
+            boxes[cid] = []
+            for _ in range(rng.integers(1, 3)):
+                x0, y0 = (int(v) for v in rng.integers(0, 160, size=2))
+                w, h = (int(v) for v in rng.integers(32, 224 - max(x0, y0), size=2))
+                boxes[cid].append([x0, y0, min(x0 + w, 224), min(y0 + h, 224)])
+        out[name] = {"categories": cats, "bbox": boxes, "shape": (IMAGE, IMAGE),
+                     "resize_ratio": (1.0, 1.0)}
+    return out
+
+
+def phase_bbox(dev, failures, cap, params, provider, images, names, detail):
+    """10b: evaluate_dataset then analyze_results over the test split at the
+    provider's batch (B_TRAIN), f32 lrp, with an entities dict that puts two
+    words of each image's caption in its boxes; img/s, the time in
+    analyze_many on the card and in the scoring on the host, launches held to
+    analyze_many's plan. Then one image's scores from the card against a
+    CPU-f32 Explainer's, both explaining the first BBOX_SPAN words."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.evalx import bbox
+    from lrp_imagecaptioning_torch.explain.engine import Explainer, _n_explained
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.weights import tree_to
+
+    pp = provider.caption_preprocessor
+    ex = Explainer(cap, params, pp, beam_size=BEAM, word_buckets=BUCKETS, batch_size=B_TRAIN,
+                   device=dev)
+    toks = ex._decode(ex._as_images(images))
+    entities = bbox_entities(names, toks, pp)
+    ex.warmup(images[:B_TRAIN])
+    parts = {}
+    timed_method(ex, "analyze_many", parts, keep=lambda out: [len(e.words) for e in out])
+    evaluate = timed_method(bbox.EvaluationBbox, "evaluate", parts)
+    kernels.reset_launches()
+    try:
+        results, ms = timed(lambda: bbox.evaluate_dataset(ex, provider, entities,
+                                                          "bbox-correctness.json"))
+    finally:
+        bbox.EvaluationBbox.evaluate = evaluate
+        del ex.analyze_many
+    launches = counts()
+    agg = bbox.analyze_results(results, out_csv="bbox-correctness.csv")
+    calls = parts["analyze_many:out"]
+    plan = analyze_many_plan(calls, B_TRAIN)
+    want = explain_launches("adaptiveattention", None, plan, decodes=len(calls))
+    scored = sum(len(r["lrp"]) for r in results.values())
+    rep = dict(images=len(results), ms=ms, img_per_s=len(results) / ms * 1e3,
+               analyze_many_ms=sum(parts["analyze_many"]), scoring_ms=sum(parts["evaluate"]),
+               plan=plan, launches=launches, expected=want, categories_scored=scored,
+               aggregate={k: v["0.0"] for k, v in agg.items()})
+    rep["rest_ms"] = ms - rep["analyze_many_ms"] - rep["scoring_ms"]
+    log(f"  evaluate_dataset over {len(results)} images: {ms:.1f} ms = {rep['img_per_s']:.2f} "
+        f"img/s (analyze_many on the card {rep['analyze_many_ms']:.1f} ms, scoring on the host "
+        f"{rep['scoring_ms']:.1f}, the rest {rep['rest_ms']:.1f}: provider, json); plan {plan}; "
+        f"{scored} categories scored; launches {launches}; at threshold 0 {rep['aggregate']}")
+    if launches != want:
+        failures.append(f"10b: launches {launches}, {want} derived from the plan")
+    if len(results) != len(names) or not scored:
+        failures.append(f"10b: {len(results)} images, {scored} categories scored")
+    if not all(os.path.exists(f) for f in ("bbox-correctness.json", "bbox-correctness.csv")):
+        failures.append("10b: the json or csv was not written")
+    summary = plan_summary(dev, "bbox", plan, failures, detail)
+
+    # one image on the card and on the CPU (f32), the same words explained
+    i = next((i for i, n in enumerate(names) if entities[n]["categories"]), None)
+    if i is None:
+        failures.append("10b: no caption has a category word")
+        return ex, launches, summary, rep
+    n = min(_n_explained(toks[i], EOS), BBOX_SPAN)
+    cut = np.zeros(T, np.int32)
+    cut[:n] = toks[i][:n]
+    cut[n] = EOS
+    t0 = time.perf_counter()
+    cpu = Explainer(cap, tree_to(params, "cpu"), pp, beam_size=BEAM, word_buckets=(n,),
+                    device="cpu")
+    cpu_tokens = cpu.predict_caption(images[i])[0]
+    ev = bbox.EvaluationBbox(entities, ex)
+    card_s = ev.evaluate(None, names[i], explanation=ex.analyze(images[i], cut))
+    cpu_s = ev.evaluate(None, names[i], explanation=cpu.analyze(images[i], cut))
+    worst = max((abs(a[c][t] - b[c][t]) for a, b in zip(card_s[:2], cpu_s[:2]) for c in b
+                 for t in b[c]), default=0.0)
+    rep["cpu"] = dict(image=names[i], words=n, cpu_s=time.perf_counter() - t0,
+                      tokens_equal=bool(np.array_equal(cpu_tokens, toks[i])),
+                      categories=card_s[2], worst_score_diff=worst)
+    log(f"  one image on the card and on the CPU (f32), {n} words: {rep['cpu']}")
+    if not rep["cpu"]["tokens_equal"] or card_s[2] != cpu_s[2]:
+        failures.append(f"10b: card and CPU captions or categories differ: {rep['cpu']}")
+    elif worst > TOL_BBOX_SCORE:
+        failures.append(f"10b: a card score lies {worst:.3e} from the CPU's")
+    return ex, launches, summary, rep
+
+
+def phase_words(dev, failures, ex, provider, ds):
+    """10c: BeamSearchInference.evaluate_test_set's predictions (9d's call, on
+    phase 10's params), frequent_object_map over them, collect_word_stats with
+    their TOP_WORDS commonest words (EOS aside) as the categories (img/s,
+    launches held to analyze_many's plan), the three ROC-AUCs."""
+    from collections import Counter
+
+    from lrp_imagecaptioning_torch.evalx import words as ew
+    from lrp_imagecaptioning_torch.infer.api import BeamSearchInference
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    inf = BeamSearchInference(ex.captioner, ex.params, provider, beam_size=BEAM,
+                              max_caption_length=T, device=dev)
+    (_, predictions, _), predict_ms = timed(
+        lambda: inf.evaluate_test_set(include_prediction=True))
+
+    id_to_pred = {k: (v[0]["caption"] if isinstance(v, list) else v)
+                  for k, v in predictions.items()}
+    refs = {d.img_filename: list(d.all_captions_txt) for d in ds.test_set}
+    eos = provider.caption_preprocessor.EOS_TOKEN   # the predictions end with it
+    cats = [w for w, _ in Counter(w for c in id_to_pred.values() for w in c.split()
+                                  if w != eos).most_common(TOP_WORDS)]
+    m_ap, map_ms = timed(lambda: ew.frequent_object_map(id_to_pred, refs, cats))
+    parts = {}
+    timed_method(ex, "analyze_many", parts, keep=lambda out: [len(e.words) for e in out])
+    kernels.reset_launches()
+    try:
+        stats, ms = timed(lambda: ew.collect_word_stats(ex, provider, id_to_pred, cats))
+    finally:
+        del ex.analyze_many
+    launches = counts()
+    calls = parts.get("analyze_many:out", [])
+    explained = sum(len(w) for w in calls)
+    want = explain_launches("adaptiveattention", None, analyze_many_plan(calls, B_TRAIN),
+                            decodes=len(calls))
+    labels = [int(any(c in r.split() for r in e["true_captions"]))
+              for e in stats.values() for c, _ in e["beta"]]
+    aucs = {"beta": ew.beta_roc_auc(stats)[2],
+            "lrp_mean": ew.mean_roc_auc(stats, "lrp_mean")[2],
+            "attention_mean": ew.mean_roc_auc(stats, "attention_mean")[2]}
+    rep = dict(predict_ms=predict_ms, categories=cats, frequent_object_map=m_ap, map_ms=map_ms,
+               images=explained,
+               ms=ms, img_per_s=explained / ms * 1e3, analyze_many_ms=sum(parts["analyze_many"]),
+               words=len(labels), positives=sum(labels), roc_auc=aucs, launches=launches,
+               expected=want)
+    log(f"  mAP over the {TOP_WORDS} commonest predicted words {cats}: {m_ap:.4f} "
+        f"({map_ms:.2f} ms); collect_word_stats: {explained} images explained in {ms:.1f} ms = "
+        f"{rep['img_per_s']:.2f} img/s (analyze_many {rep['analyze_many_ms']:.1f} ms), "
+        f"{len(labels)} words of which {sum(labels)} in the references; ROC-AUC {aucs}; "
+        f"launches {launches}")
+    if launches != want:
+        failures.append(f"10c: launches {launches}, {want} derived from the plan")
+    if not stats or len(stats) != explained:
+        failures.append(f"10c: {len(stats)} images with stats, {explained} explained")
+    return rep
+
+
+def phase_drivers(dev, failures, cap, params, provider, render):
+    """10d: explain_image_file on one JPEG for lrp, deep_taylor and deep_lift
+    (ms each, a new Explainer each, its graph captures included), and
+    process_beam_search over 4 test images; the figures are rendered where
+    the host has matplotlib."""
+    from lrp_imagecaptioning_torch.explain import drivers
+
+    pp = provider.caption_preprocessor
+    img = provider.dataset.test_set[0].img_path
+    stem = os.path.basename(img).split(".")[0]
+    rep = {}
+    for method in ("lrp", "deep_taylor", "deep_lift"):
+        e, ms = timed(lambda: drivers.explain_image_file(cap, params, pp, img, "explain",
+                                                         method=method, beam_size=BEAM,
+                                                         device=dev))
+        files = sorted(os.listdir(os.path.join("explain", stem))) if render else []
+        rep[method] = dict(ms=ms, words=len(e.words), files=files)
+        log(f"  explain_image_file {method}: {ms:.1f} ms, {len(e.words)} words; figures {files}")
+        check_explanations([e], [len(e.words)], f"10d {method}", failures)
+        if render and f"{stem}{method}_hm.jpg" not in files:
+            failures.append(f"10d {method}: {stem}{method}_hm.jpg was not written")
+    res, ms = timed(lambda: drivers.process_beam_search(cap, params, provider, "beam",
+                                                        beam_size=BEAM, num_images=4, device=dev))
+    check_explanations(res, [len(e.words) for e in res], "10d process_beam_search", failures)
+    rep["process_beam_search"] = dict(ms=ms, images=len(res),
+                                      folders=sorted(os.listdir("beam")) if render else [])
+    log(f"  process_beam_search over {len(res)} images: {ms:.1f} ms")
+    if len(res) != 4 or (render and len(rep["process_beam_search"]["folders"]) != 4):
+        failures.append(f"10d: process_beam_search gave {rep['process_beam_search']}")
+    return rep
+
+
+def phase_cli(dev, failures, render):
+    """10e: cli.main's explain, evaluate-bbox and analyze-words --roc-auc on
+    the default device, on the mini-Flickr30k fixture at full width (224x224,
+    E = H = 512, the fixture's vocabulary), from an npz of seed-0 params
+    whose EOS logit is pushed down (full-length captions); outputs checked as
+    tests/test_cli_e2e.py checks them."""
+    import contextlib
+    import io
+    import json
+
+    import yaml
+
+    from lrp_imagecaptioning_torch import cli
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.data.datasets import Flickr30kDataset
+    from lrp_imagecaptioning_torch.data.minifixture import write_mini_flickr30k
+    from lrp_imagecaptioning_torch.data.provider import DatasetProvider
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.weights import save_params_npz
+
+    write_mini_flickr30k("mini")
+    cfg = FlickrConfig(dataset_root="mini", batch_size=4, words_min_occur=1,
+                       rare_words_handling="nothing")
+    provider = DatasetProvider(Flickr30kDataset(cfg), cfg)
+    cap = build_captioner("adaptiveattention", cfg, provider.vocab_size)
+    params = cap.init_params(0, "cpu")
+    params["decoder"]["output"]["bias"][provider.caption_preprocessor.EOS_TOKEN_LABEL_ENCODED
+                                        - 1] = -30.0
+    save_params_npz("mini.npz", params)
+    with open("preds.yaml", "w") as f:   # "dog": a frequent object in the first reference
+        yaml.safe_dump({"1016887272.jpg": [{"caption": "a green dog"}],
+                        "1019077836.jpg": [{"caption": "a dog"}]}, f)
+    common = ["--dataset", "flickr30k", "--dataset-root", "mini", "--batch-size", "4",
+              "--set", "words_min_occur=1", "--set", "rare_words_handling=nothing",
+              "--weights", "mini.npz"]
+    img = os.path.join("mini", "Flickr30k_images", "1015118661.jpg")
+    runs = [("explain", ["explain", *common, "--image", img, "--out", "cli-explain"]),
+            ("evaluate-bbox", ["evaluate-bbox", *common, "--entities-json",
+                               os.path.join("mini", "Flickr30kEntities.json"), "--max-images", "2",
+                               "--out", "cli-bbox/correctness.json"]),
+            ("analyze-words", ["analyze-words", *common, "--predictions", "preds.yaml",
+                               "--roc-auc"])]
+    rep = {}
+    for name, argv in runs:
+        out = io.StringIO()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(out):
+            _, ms = timed(lambda: cli.main(argv))
+        rep[name] = dict(ms=ms, launches=counts(), stdout=out.getvalue().strip()[-400:])
+        log(f"  cli {name}: {ms:.1f} ms, launches {rep[name]['launches']}; "
+            f"{rep[name]['stdout'][-200:]!r}")
+        if not any(rep[name]["launches"].values()):
+            failures.append(f"10e {name}: launched no kernel on the card")
+    rendered = [f for _, _, fs in os.walk("cli-explain") for f in fs]
+    if render and not (any(f.endswith("lrp_hm.jpg") for f in rendered)
+                       and any(f.endswith("attention.jpg") for f in rendered)):
+        failures.append(f"10e explain: figures {rendered}")
+    with open("cli-bbox/correctness.json") as f:
+        bbox_results = json.load(f)
+    if sorted(bbox_results) != ["1016887272.jpg", "1019077836.jpg"] or \
+            not os.path.exists("cli-bbox/correctness.csv"):
+        failures.append(f"10e evaluate-bbox: results for {sorted(bbox_results)}")
+    words_out = rep["analyze-words"]["stdout"]
+    if "frequent-object mAP:" not in words_out or "ROC-AUC beta=" not in words_out:
+        failures.append(f"10e analyze-words printed {words_out!r}")
+    return rep
+
+
+def phase_word_vectors(dev, failures, cfg, ds):
+    """10f: a Trainer with pretrained_word_vector="glove" from a generated
+    512-d GloVe file over every other word of the vocabulary: its embedding
+    rows for those words equal the file's, on the card."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.train.trainer import Trainer
+
+    words = [f"w{i:04d}" for i in range(0, VOCAB - 2, 2)]
+    vecs = np.random.default_rng(11).standard_normal((len(words), E)).astype(np.float32)
+    t0 = time.perf_counter()
+    with open("glove.txt", "w") as f:
+        for w, row in zip(words, vecs):
+            f.write(w + " " + " ".join(f"{v:.9g}" for v in row) + "\n")
+    write_s = time.perf_counter() - t0
+    cfg_wv = cfg.replace(pretrained_word_vector="glove")
+    cfg_wv.word_vector_path = "glove.txt"
+    t, ms = timed(lambda: Trainer("adaptiveattention", cfg_wv, ds, label="phase10f",
+                                  eval_metrics=False, device=dev))
+    emb = t.params["decoder"]["embedding"]
+    index = {w: i for i, w in enumerate(t.provider.vocabs)}
+    rows = torch.as_tensor([index[w] for w in words], device=dev)
+    equal = bool(torch.equal(emb[rows], torch.from_numpy(vecs).to(dev)))
+    others = torch.ones(emb.shape[0], dtype=torch.bool, device=dev)
+    others[rows] = False
+    limit = math.sqrt(6.0 / (emb.shape[0] + emb.shape[1]))
+    rest = float(emb[others].abs().max())
+    rep = dict(words=len(words), file_mb=os.path.getsize("glove.txt") / 1e6, write_s=write_s,
+               trainer_ms=ms, device=str(emb.device), rows_equal=equal, other_rows_max=rest,
+               glorot_limit=limit)
+    log(f"  {rep}")
+    if not equal or emb.device.type != "cuda" or not 0 < rest <= limit:
+        failures.append(f"10f: the embedding does not hold the file's rows: {rep}")
+    return rep
+
+
+def phase_explanations(dev, failures, report, handoff, detail):
+    """Phase 10 in ``build/phase10`` (removed after), on phase 9's checkpoint
+    params and generated dataset, its test images written as JPEGs: 10a-10f.
+    Three epochs of phase 9 teach the model the captions' unigram prior, in
+    which EOS is the commonest token: it decodes EOS first for every image.
+    So the EOS logit's bias is set to -30, and every caption runs to T words.
+    Returns the counted launches of the plan paths and their kernel summary."""
+    import shutil
+
+    from lrp_imagecaptioning_torch.data.provider import DatasetProvider
+    from lrp_imagecaptioning_torch.explain import drivers
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+
+    work = os.path.join(HERE, "build", "phase10")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    render = report["host"].get("matplotlib", False)
+    render_explanation = drivers.render_explanation
+    if not render:
+        log("  the host has no matplotlib: the drivers' figures are not rendered "
+            "(render_explanation is a no-op here); the device work runs as it would")
+        drivers.render_explanation = lambda *a, **kw: []
+    launches, summary, out = {}, {}, {}
+    try:
+        cfg, ds, params = handoff["cfg"], handoff["ds"], handoff["params"]
+        write_test_jpegs(ds)
+        provider = DatasetProvider(ds, cfg)
+        bias = params["decoder"]["output"]["bias"]
+        bias[provider.caption_preprocessor.EOS_TOKEN_LABEL_ENCODED - 1] = -30.0
+        cap = build_captioner("adaptiveattention", cfg, provider.vocab_size)
+        images, names = provider_test_images(provider)
+        log(f"  {len(names)} test images decoded from JPEG through the provider, "
+            f"{images.shape}; vocabulary {provider.vocab_size}")
+        pp = provider.caption_preprocessor
+        steps = [("10a: deep_taylor and deep_lift, f32, batch 8", "deep"),
+                 (f"10b: evaluate-bbox over {len(names)} images at batch {B_TRAIN}", "bbox"),
+                 ("10c: analyze-words: frequent-object mAP, word stats, ROC-AUC", "words"),
+                 ("10d: the drivers", "drivers"), ("10e: the CLI", "cli"),
+                 ("10f: word vectors", "word_vectors")]
+        ex = None
+        for title, key in steps:
+            log(f" phase {title}")
+            t0 = time.perf_counter()
+            try:
+                if key == "deep":
+                    launches["deep_taylor"], out[key] = phase_deep_methods(
+                        dev, failures, cap, params, pp, images)
+                    out[key]["summary"] = summary["deep_taylor"] = plan_summary(
+                        dev, "deep_taylor", out[key]["deep_taylor"]["plan"], failures, detail)
+                elif key == "bbox":
+                    ex, launches["bbox"], summary["bbox"], out[key] = phase_bbox(
+                        dev, failures, cap, params, provider, images, names, detail)
+                elif key == "words":
+                    if ex is None:
+                        failures.append(f"phase {title} skipped: 10b did not run")
+                    else:
+                        out[key] = phase_words(dev, failures, ex, provider, ds)
+                elif key == "drivers":
+                    out[key] = phase_drivers(dev, failures, cap, params, provider, render)
+                elif key == "cli":
+                    out[key] = phase_cli(dev, failures, render)
+                else:
+                    out[key] = phase_word_vectors(dev, failures, cfg, ds)
+            except Exception:  # noqa: BLE001 — a sub-phase that raises is recorded as failed
+                traceback.print_exc()
+                failures.append(f"phase {title} raised")
+            log(f"  ({time.perf_counter() - t0:.1f} s)")
+            if key == "words":
+                ex = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        drivers.render_explanation = render_explanation
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, summary, out
 
 
 CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
@@ -2125,8 +2661,11 @@ def main() -> int:
               ("phase 8d: every gradient method, one image, a 4-word caption", "gradients"),
               (f"phase 9: the entry points at full width on a generated dataset, batch {B_TRAIN}",
                "entry_points"),
+              ("phase 10: the explanation entry points on phase 9's checkpoint: deep_taylor and "
+               "deep_lift, evaluate-bbox, analyze-words, the drivers, the CLI, word vectors",
+               "explanations"),
               ("phase 5: card tests", "card_tests")]
-    summary = built = None
+    summary = built = handoff = None
     launches = {}   # path -> {kernel: launches in its counted pass}
     explainer_launches = {}   # the Explainer's runs: each held to its own plan
     t_start = time.perf_counter()
@@ -2189,8 +2728,27 @@ def main() -> int:
                 built = None
                 gc.collect()
                 torch.cuda.empty_cache()
-                entry_launches, report["entry_points"] = phase_entry_points(dev, failures, report)
+                entry_launches, report["entry_points"], handoff = phase_entry_points(
+                    dev, failures, report)
                 launches.update(entry_launches)
+            elif key == "explanations":
+                gc.collect()
+                torch.cuda.empty_cache()
+                if handoff is None or summary is None:
+                    failures.append(f"{title} skipped: phase 2 or 9 did not run")
+                else:
+                    plan_launches, plan_summaries, report["explanations"] = phase_explanations(
+                        dev, failures, report, handoff, report["kernel_shapes"])
+                    launches.update(plan_launches)
+                    for path, by_kernel in plan_summaries.items():
+                        for name, s in by_kernel.items():
+                            summary[name][path] = s
+                    handoff = None
+                    expl = report["explanations"]
+                    if "deep_lift" in expl.get("deep", {}):
+                        explainer_launches["deep_lift"] = expl["deep"]["deep_lift"]["launches"]
+                    if "words" in expl:
+                        explainer_launches["word_stats"] = expl["words"]["launches"]
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)
@@ -2207,13 +2765,13 @@ def main() -> int:
     report["seconds"] = time.perf_counter() - t_start
 
     kernels_line = []
-    if summary is not None and set(launches) == set(PATHS):
+    if summary is not None and set(launches) == set(PATHS) | set(PLAN_PATHS):
         for name, (source, replaces, _) in KERNEL_META.items():
             by_path = summary[name]
             # each path must launch its kernels exactly as often as phase 2's
-            # shapes say (per batch: K1 and K2 once per step, whatever the
-            # batch), and the other path's not at all
-            for path in PATHS:
+            # shapes (phase 10's chunks for PLAN_PATHS) say (per batch: K1 and
+            # K2 once per step, whatever the batch), and the other path's not at all
+            for path in (*PATHS, *PLAN_PATHS):
                 want = by_path[path]["calls_per_batch"] if path in by_path else 0
                 if launches[path][name] != want:
                     failures.append(f"{name}: {launches[path][name]} launches on the {path} "

@@ -1,10 +1,12 @@
-"""Command line of the port, the JAX package's ``cli.py`` subcommands that
-are ported so far:
+"""Command line of the port, the JAX package's ``cli.py`` subcommands:
 
-    python -m lrp_imagecaptioning_torch.cli train        --dataset flickr30k --model gridTD ...
-    python -m lrp_imagecaptioning_torch.cli finetune-lrp --weights ckpt.npz ...
-    python -m lrp_imagecaptioning_torch.cli evaluate     --weights ckpt.npz --beam-size 3 ...
-    python -m lrp_imagecaptioning_torch.cli parity       --h5 ckpt.hdf5 --image img.png --out DIR
+    python -m lrp_imagecaptioning_torch.cli train         --dataset flickr30k --model gridTD ...
+    python -m lrp_imagecaptioning_torch.cli finetune-lrp  --weights ckpt.npz ...
+    python -m lrp_imagecaptioning_torch.cli evaluate      --weights ckpt.npz --beam-size 3 ...
+    python -m lrp_imagecaptioning_torch.cli explain       --weights ckpt.npz --image img.jpg --method lrp
+    python -m lrp_imagecaptioning_torch.cli evaluate-bbox --weights ckpt.npz --entities-json F.json
+    python -m lrp_imagecaptioning_torch.cli analyze-words --weights ckpt.npz --predictions P.yaml --roc-auc
+    python -m lrp_imagecaptioning_torch.cli parity        --h5 ckpt.hdf5 --image img.png --out DIR
 
 Every subcommand takes ``--device`` (default ``cuda``; ``cpu`` runs the
 kernels' plain versions) and ``--profile DIR`` writes a ``torch.profiler``
@@ -13,8 +15,7 @@ the JAX package's flat params npz (its ``save_params_npz``) and reference
 Keras .h5/.hdf5 files. ``parity`` reads and writes the JAX command's
 ``parity-expected.npz`` (keys ``tokens_1based``, ``relevance_maps``,
 ``attentions``), so one recording checks both packages. The JAX CLI's
-``explain`` (ROADMAP A14), ``evaluate-bbox`` and ``analyze-words`` (A10c),
-``serve`` and ``export-serving`` (A13) are not ported yet.
+``serve`` and ``export-serving`` (ROADMAP A13) are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +27,12 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from .explain.engine import METHODS
+# explain.engine.METHODS, as a literal so that `--help` imports no torch
+# (tests hold the two equal)
+_METHOD_CHOICES = ("lrp", "gradient", "input_times_gradient", "guided_gradcam",
+                   "integrated_gradients", "smoothgrad", "guided_backprop",
+                   "deconvnet", "deep_taylor", "deep_lift")
+
 
 def _coerce_config_value(cfg, key: str, raw: str):
     """Parse a --set key=value string against the config field's type."""
@@ -176,6 +182,82 @@ def cmd_evaluate(args):
                 yaml.safe_dump(obj, f)
 
 
+def cmd_explain(args):
+    from .data.provider import DatasetProvider
+    from .explain.drivers import explain_image_file, process_beam_search
+    from .models.captioner import build_captioner
+
+    cfg, dataset = _build_dataset(args)
+    provider = DatasetProvider(dataset, cfg)
+    captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
+    params = _load_params(captioner, args)
+    out = args.out or ((args.weights or "model") + ".explanation")
+    if args.image:
+        ex = explain_image_file(captioner, params, provider.caption_preprocessor, args.image, out,
+                                method=args.method, beam_size=args.beam_size, device=args.device)
+        print(ex.caption)
+    else:
+        for ex in process_beam_search(captioner, params, provider, out, method=args.method,
+                                      beam_size=args.beam_size, num_images=args.num_images,
+                                      device=args.device):
+            print(ex.caption)
+
+
+def cmd_evaluate_bbox(args):
+    """evaluate_bbox.py driver parity: bbox correctness over the test split."""
+    from .data.categories import load_entities_json
+    from .data.provider import DatasetProvider
+    from .evalx.bbox import analyze_results, evaluate_dataset
+    from .explain.engine import Explainer
+    from .models.captioner import build_captioner
+
+    cfg, dataset = _build_dataset(args)
+    provider = DatasetProvider(dataset, cfg)
+    captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
+    params = _load_params(captioner, args)
+    explainer = Explainer(captioner, params, provider.caption_preprocessor, method=args.method,
+                          beam_size=args.beam_size, device=args.device)
+    category_dict = load_entities_json(args.entities_json)
+    out_json = args.out or "bbox-correctness.json"
+    results = evaluate_dataset(explainer, provider, category_dict, out_json,
+                               negate=not args.positive, max_images=args.max_images)
+    print(analyze_results(results, out_csv=out_json.replace(".json", ".csv")))
+
+
+def cmd_analyze_words(args):
+    """exaimin_word.py driver parity: frequent-object mAP and the ROC-AUCs."""
+    import yaml
+
+    from .data.provider import DatasetProvider
+    from .evalx.words import (COCO_FREQUENT_OBJECT, FREQUENT_OBJECT, beta_roc_auc,
+                              collect_word_stats, frequent_object_map, mean_roc_auc)
+    from .explain.engine import Explainer
+    from .models.captioner import build_captioner
+
+    cfg, dataset = _build_dataset(args)
+    with open(args.predictions) as f:
+        raw = yaml.safe_load(f)
+    id_to_pred = {k: (v[0]["caption"] if isinstance(v, list) else v) for k, v in raw.items()}
+    id_to_refs = {d.img_filename: list(d.all_captions_txt) for d in dataset.test_set}
+    cats = COCO_FREQUENT_OBJECT if args.dataset.startswith("coco") else FREQUENT_OBJECT
+    print("frequent-object mAP:", frequent_object_map(id_to_pred, id_to_refs, cats))
+
+    if args.roc_auc:
+        # the provider (a vocabulary fit over every training caption) is
+        # only needed for the Explainer
+        provider = DatasetProvider(dataset, cfg)
+        captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
+        params = _load_params(captioner, args)
+        explainer = Explainer(captioner, params, provider.caption_preprocessor, method="lrp",
+                              beam_size=args.beam_size, device=args.device)
+        stats = collect_word_stats(explainer, provider, id_to_pred, cats,
+                                   max_images=args.max_images)
+        _, _, auc_b = beta_roc_auc(stats)
+        _, _, auc_l = mean_roc_auc(stats, "lrp_mean")
+        _, _, auc_a = mean_roc_auc(stats, "attention_mean")
+        print(f"ROC-AUC beta={auc_b:.4f} lrp_mean={auc_l:.4f} attention_mean={auc_a:.4f}")
+
+
 def parity_diff(got: dict, exp, tol: float) -> list:
     """Compare a freshly computed parity record against a stored one.
 
@@ -305,6 +387,35 @@ def main(argv=None):
     p.add_argument("--out", default=None, help="dir for test-{metrics,predictions,reference}.yaml")
     p.set_defaults(fn=cmd_evaluate)
 
+    p = sub.add_parser("explain", help="word-by-word explanation (explain_image.py)")
+    _add_common(p)
+    p.add_argument("--method", default="lrp", choices=list(_METHOD_CHOICES))
+    p.add_argument("--image", default=None, help="explain one image file")
+    p.add_argument("--num-images", type=int, default=1)
+    p.add_argument("--beam-size", type=int, default=3)
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_explain)
+
+    p = sub.add_parser("evaluate-bbox", help="bbox explanation correctness (evaluate_bbox.py)")
+    _add_common(p)
+    p.add_argument("--entities-json", required=True,
+                   help="COCOvalEntities.json / Flickr30kEntities.json")
+    p.add_argument("--method", default="lrp", choices=list(_METHOD_CHOICES))
+    p.add_argument("--beam-size", type=int, default=3)
+    p.add_argument("--positive", action="store_true",
+                   help="score positive evidence (the reference negates)")
+    p.add_argument("--max-images", type=int, default=None)
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_evaluate_bbox)
+
+    p = sub.add_parser("analyze-words", help="frequent-object mAP + ROC-AUC (exaimin_word.py)")
+    _add_common(p)
+    p.add_argument("--predictions", required=True, help="predictions yaml from `evaluate`")
+    p.add_argument("--roc-auc", action="store_true")
+    p.add_argument("--beam-size", type=int, default=3)
+    p.add_argument("--max-images", type=int, default=None)
+    p.set_defaults(fn=cmd_analyze_words)
+
     p = sub.add_parser("parity",
                        help="published-checkpoint parity: decode + explain one image from a "
                             "reference .hdf5 and diff against a recorded expectation")
@@ -313,8 +424,7 @@ def main(argv=None):
     p.add_argument("--image", required=True, help="image file to caption and explain")
     p.add_argument("--expect", default=None, help="dir with parity-expected.npz to diff against")
     p.add_argument("--out", default=None, help="record the expectation here (default <h5>.parity)")
-    p.add_argument("--method", default="lrp",
-                   choices=[m for m in METHODS if m not in ("deep_taylor", "deep_lift")])
+    p.add_argument("--method", default="lrp", choices=list(_METHOD_CHOICES))
     p.add_argument("--beam-size", type=int, default=3)
     p.add_argument("--tol", type=float, default=1e-3,
                    help="max allowed map deviation as a fraction of the expectation's scale")

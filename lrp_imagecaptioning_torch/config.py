@@ -35,7 +35,7 @@ class Config:
     rnn_type: str = "lstm"
     rnn_layers: int = 1
     bidirectional_rnn: bool = False
-    pretrained_word_vector: Optional[str] = None  # None | 'glove' | 'fasttext' (ROADMAP A14)
+    pretrained_word_vector: Optional[str] = None  # None | 'glove' | 'fasttext'
 
     # captions
     sentence_length: int = 20          # T: max caption length

@@ -1,14 +1,17 @@
-"""Flickr30kEntities annotations -> ``filename -> {'categories', 'bbox',
-'shape', 'resize_ratio'}`` (reference preparedataset.py:77-180).
+"""Ground-truth category and bbox annotations -> ``filename ->
+{'categories', 'bbox', 'shape', 'resize_ratio'}`` dicts for ``evalx/bbox.py``
+(reference preparedataset.py:18-235).
 
-The Flickr30k half of the JAX package's ``data/categories.py``, copied (pure
-Python): ``data/minifixture.py`` writes the fixture's
-``Flickr30kEntities.json`` through it. ``categories`` maps a phrase to its
-id, ``bbox`` an id to [[xmin, ymin, xmax, ymax], ...] in the original
-image's coordinates; ``resize_ratio`` = 224/width, 224/height. Sentences/*.txt
-carry [/EN#<phrase_id>/<type> words...] chains, Annotations/*.xml are
-VOC-style with <object><name>phrase_id</name><bndbox>. COCO's parser and
-``load_entities_json`` come with ``evalx/bbox.py`` (ROADMAP A10c).
+The port's copy of the JAX package's ``data/categories.py`` (pure Python).
+``categories`` maps a name to its id, ``bbox`` an id to [[xmin, ymin, xmax,
+ymax], ...] in the original image's coordinates; ``resize_ratio`` =
+224/width, 224/height maps them onto the model input.
+
+COCO: from an instances_*.json (COCO detection annotation format).
+Flickr30k: from the Flickr30kEntities corpus: Sentences/*.txt carry
+[/EN#<phrase_id>/<type> words...] chains, Annotations/*.xml are VOC-style
+with <object><name>phrase_id</name><bndbox>. ``data/minifixture.py`` writes
+the fixture's ``Flickr30kEntities.json`` through the latter.
 """
 
 from __future__ import annotations
@@ -17,6 +20,47 @@ import json
 import os
 import re
 import xml.etree.ElementTree as ET
+
+
+def load_entities_json(path: str) -> dict:
+    """Load a previously built entities json (COCOvalEntities.json /
+    Flickr30kEntities.json, the artifacts the reference ships)."""
+    with open(path) as f:
+        return json.load(f)
+
+
+class COCOCategory:
+    """instances json -> filename_to_category (preparedataset.py:18-71)."""
+
+    def __init__(self, file_path: str, out_json: str | None = None):
+        with open(file_path) as f:
+            dataset = json.load(f)
+        id_to_file = {
+            img["id"]: (img["file_name"], (img["width"], img["height"]))
+            for img in dataset["images"]
+        }
+        cat_name = {c["id"]: c["name"] for c in dataset["categories"]}
+        per_img_cats: dict = {}
+        per_img_bbox: dict = {}
+        for ann in dataset["annotations"]:
+            img_id, cat_id = ann["image_id"], ann["category_id"]
+            per_img_cats.setdefault(img_id, {})[cat_name[cat_id]] = str(cat_id)
+            x, y, w, h = ann["bbox"]
+            per_img_bbox.setdefault(img_id, {}).setdefault(str(cat_id), []).append(
+                [x, y, x + w, y + h]
+            )
+        self.filename_to_category = {}
+        for img_id, cats in per_img_cats.items():
+            fname, shape = id_to_file[img_id]
+            self.filename_to_category[fname] = {
+                "categories": cats,
+                "bbox": per_img_bbox[img_id],
+                "shape": shape,
+                "resize_ratio": (224.0 / shape[0], 224.0 / shape[1]),
+            }
+        if out_json:
+            with open(out_json, "w") as f:
+                json.dump(self.filename_to_category, f)
 
 
 _PHRASE_RE = re.compile(r"\[/EN#(\d+)(?:/\S+)?\s([^\]]+)\]")

@@ -24,6 +24,8 @@ gradient and are never reached here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -125,30 +127,53 @@ def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
     return torch.where(idx >= n, period - idx, idx)
 
 
+def _linear_upsample_matrix(n: int, upscale: int) -> torch.Tensor:
+    """(n * upscale, n) float64 weights of linear interpolation with
+    half-pixel centres, sources left of the first centre clamped to it: what
+    ``F.interpolate(mode="bilinear", align_corners=False)`` applies along one
+    axis."""
+    src = ((torch.arange(n * upscale, dtype=torch.float64) + 0.5) / upscale - 0.5).clamp(min=0)
+    i0 = src.floor().long().clamp(max=n - 1)
+    i1 = (i0 + 1).clamp(max=n - 1)
+    frac = src - i0
+    rows = torch.arange(n * upscale)
+    m = torch.zeros(n * upscale, n, dtype=torch.float64)
+    m.index_put_((rows, i0), 1 - frac, accumulate=True)
+    m.index_put_((rows, i1), frac, accumulate=True)
+    return m
+
+
+@functools.lru_cache(maxsize=16)
+def _expand_matrix(n: int, upscale: int, sigma: float) -> torch.Tensor:
+    """(n * upscale, n) float64 on the CPU: the linear upsampling by
+    ``upscale``, then the Gaussian blur of ``sigma`` (radius int(4 sigma +
+    0.5), numpy-reflect padding) along one axis, as one linear map. Read
+    only: every caller shares it."""
+    size = n * upscale
+    radius = int(4 * sigma + 0.5)
+    xs = torch.arange(-radius, radius + 1, dtype=torch.float64)
+    kern = torch.exp(-(xs ** 2) / (2 * sigma ** 2))
+    kern = kern / kern.sum()
+    rows = torch.arange(size)[:, None].expand(size, 2 * radius + 1)
+    taps = _reflect_index(size, radius, "cpu")[rows + torch.arange(2 * radius + 1)]
+    blur = torch.zeros(size, size, dtype=torch.float64)
+    blur.index_put_((rows, taps), kern.expand(size, -1), accumulate=True)
+    return blur @ _linear_upsample_matrix(n, upscale)
+
+
 def pyramid_expand(img: torch.Tensor, upscale: int = 16, sigma: float = 20.0) -> torch.Tensor:
     """skimage.transform.pyramid_expand as the JAX package computes it:
     bilinear upsampling by ``upscale`` (half-pixel centres, no antialias: the
     same weights as ``jax.image.resize``), then a separable Gaussian blur of
     ``sigma`` with radius int(4 sigma + 0.5) over numpy-reflect padding.
-    img: (..., h, w) -> (..., h * upscale, w * upscale)."""
+    img: (..., h, w) -> (..., h * upscale, w * upscale).
+
+    Both steps are linear and separable, so each axis is one (h * upscale, h)
+    matrix and the whole is two small products."""
     h, w = img.shape[-2:]
-    lead = img.shape[:-2]
-    x = img.reshape(-1, 1, h, w)
-    x = F.interpolate(x, size=(h * upscale, w * upscale), mode="bilinear",
-                      align_corners=False, antialias=False)[:, 0]           # (N, H, W)
-    radius = int(4 * sigma + 0.5)
-    xs = torch.arange(-radius, radius + 1, dtype=x.dtype, device=x.device)
-    kern = torch.exp(-(xs ** 2) / (2 * sigma ** 2))
-    kern = (kern / kern.sum()).reshape(1, 1, -1)
-    N, Hu, Wu = x.shape
-    # columns: blur along the rows' axis
-    x = x[:, _reflect_index(Hu, radius, x.device)]                         # (N, Hu + 2r, Wu)
-    x = F.conv1d(x.permute(0, 2, 1).reshape(N * Wu, 1, -1), kern).reshape(N, Wu, Hu)
-    x = x.permute(0, 2, 1)
-    # rows: blur along the columns' axis
-    x = x[:, :, _reflect_index(Wu, radius, x.device)]                      # (N, Hu, Wu + 2r)
-    x = F.conv1d(x.reshape(N * Hu, 1, -1), kern).reshape(N, Hu, Wu)
-    return x.reshape(*lead, Hu, Wu)
+    rows = _expand_matrix(h, upscale, float(sigma)).to(img.device, img.dtype)
+    cols = _expand_matrix(w, upscale, float(sigma)).to(img.device, img.dtype)
+    return rows @ img @ cols.T
 
 
 def grad_cam(feat_grid_hw: torch.Tensor, grads_hw: torch.Tensor, upscale: int = 16) -> torch.Tensor:

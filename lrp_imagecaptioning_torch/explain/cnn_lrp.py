@@ -6,7 +6,8 @@ on every conv, winner-take-all on every pool, ReLU passes relevance through.
 The 12 convs whose input is post-ReLU (x >= 0) go through a kernel: in f32
 the ``lrp_conv_a1b0`` pair, in bf16 storage the one-launch
 ``lrp_a1b0_fused``. The signed input layer takes the plain
-``lrp_conv_alpha_beta``.
+``lrp_conv_alpha_beta``. DeepTaylor (``vgg_deep_taylor``) is the same walk
+on a ReLU'd seed, in f32.
 """
 
 from __future__ import annotations
@@ -81,3 +82,23 @@ def vgg_lrp_per_image(params, images: torch.Tensor, r_feat: torch.Tensor,
     params = tree_to(params, dtype=storage_dtype)
     return torch.stack([vgg_lrp_preset_a_wordbatched(params, images[b:b + 1], seeds[b], until,
                                                      storage_dtype) for b in range(B)])
+
+
+def vgg_deep_taylor(params, image: torch.Tensor, relevance_seeds: torch.Tensor,
+                    until: str = "block5_conv3") -> torch.Tensor:
+    """DeepTaylor decomposition (reference: innvestigate/analyzer/deeptaylor.py:38-153).
+
+    Rule wiring per the reference's conditional mappings: kernel layers with
+    ReLU -> Alpha1Beta0 (deeptaylor.py:56-61), max-pooling -> gradient/WTA
+    (deeptaylor.py:85-89). Every conv in the tapped VGG stack carries a ReLU,
+    so the walk is alpha1beta0 throughout (``lrp_conv_a1b0`` on the
+    post-ReLU convs, the plain split rule on the image layer). The
+    reference's ``_prepare_model`` clamps the model outputs through a ReLU
+    so only positive relevance enters (deeptaylor.py:144-153); with a seeded
+    walk that is a ReLU on the seed.
+
+    image: (1 or B, H, W, 3); relevance_seeds: (B, h, w, C), one seed per
+    image or, against a single image, one per word (the words as the batch,
+    the forward run once). Returns (B, H, W, 3)."""
+    _, inputs = vgg_apply_with_acts(params, image, until)
+    return _backward(params, inputs, torch.relu(relevance_seeds), until, lrp_conv_a1b0)

@@ -13,7 +13,9 @@ images and a word bucket W runs three stages:
    relevances' post-processing (SOS column zeroed, max-|.| normalised) and
    the sentinel gates;
 3. CNN: per image, the word-batched PresetA LRP (``explain/cnn_lrp.py``: K3
-   in f32, K4/K5 in bf16 storage) or the gradient method
+   in f32, K4/K5 in bf16 storage), DeepTaylor (the same walk on a ReLU'd
+   seed, K3), DeepLIFT (``explain/cnn_deeplift.py``, two forwards and
+   cuDNN's transposed convs) or the gradient method
    (``explain/cnn_gradient.py``, autograd on cuDNN).
 
 Positions past a caption's end are computed and dropped when the
@@ -28,8 +30,7 @@ decoder stage and are dropped, and the CNN side runs on the real rows only.
 
 The JAX package encodes and runs the cached forward at batch 1 per image;
 here they run at batch B (the same function, summed in another order).
-``deep_taylor`` and ``deep_lift`` (ROADMAP A12) and ``mesh=`` /
-``shard_words=`` (ROADMAP A13) raise ``NotImplementedError``.
+``mesh=`` / ``shard_words=`` (ROADMAP A13) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ from ..infer.beam import beam_search
 from ..runtime import resolve_device
 from ..weights import tree_leaves, tree_to
 from . import cnn_gradient
-from .cnn_lrp import vgg_lrp_per_image
+from .cnn_deeplift import vgg_deeplift
+from .cnn_lrp import vgg_deep_taylor, vgg_lrp_per_image
 from .decoder_grad import grad_word_adaptive, grad_word_gridtd
 from .decoder_lrp import explain_word_adaptive, explain_word_gridtd
 
@@ -112,16 +114,14 @@ class Explainer:
                  batch_size: int = 32, mesh=None, shard_words: bool = False, device="cuda"):
         """``storage_dtype=torch.bfloat16`` holds the CNN LRP's params,
         activations and relevances in bf16 (bench's throughput mode; method
-        ``lrp`` only). ``word_buckets``: the word counts an explain call may
+        ``lrp`` only: the other methods' CNN side runs in f32, as in the JAX
+        package). ``word_buckets``: the word counts an explain call may
         take; a caption's real length picks the smallest bucket that covers
         it (``()``: always all ``max_len`` positions). ``batch_size``: the
         most rows one dispatch carries (``analyze_many``'s default chunk);
         every dispatch is padded to a size of its halving ladder."""
         if method not in METHODS:
             raise ValueError(f"method {method!r} not in {METHODS}")
-        if method in ("deep_taylor", "deep_lift"):
-            raise NotImplementedError(f"method {method!r} (the CNN side's DeepTaylor / DeepLIFT) "
-                                      "is not ported yet: ROADMAP A12")
         if mesh is not None or shard_words:
             raise NotImplementedError("mesh= and shard_words= (torch.distributed over several "
                                       "cards) are not ported yet: ROADMAP A13")
@@ -202,6 +202,10 @@ class Explainer:
             elif self.method == "smoothgrad":
                 noise = self._smoothgrad_noise_on(W, image)
                 m = cnn_gradient.vgg_smoothgrad(vgg, image, s, noise, until, self._sg_noise)
+            elif self.method == "deep_taylor":
+                m = vgg_deep_taylor(vgg, image, s, until)
+            elif self.method == "deep_lift":
+                m = vgg_deeplift(vgg, image, s, until)
             elif self.method == "guided_gradcam":
                 m = cnn_gradient.vgg_guided_gradcam(vgg, image, s, feat_grid[b].reshape(g, g, D),
                                                     until)

@@ -62,13 +62,25 @@ class Captioner:
     vocab_size: int
     decoder: Any               # module: adaptive | gridtd
 
-    def init_params(self, seed: int = 0, device="cuda"):
+    def init_params(self, seed: int = 0, device="cuda", vocab_words=None,
+                    word_vector_path: str | None = None):
         """Random params from ``seed`` (a ``torch.Generator`` on the CPU), with
-        the JAX package's shapes and init laws, moved to ``device``."""
+        the JAX package's shapes and init laws, moved to ``device``.
+
+        ``vocab_words`` (model-id order) and ``cfg.pretrained_word_vector``
+        ('glove' | 'fasttext') seed the embedding table from the vector file
+        ``word_vector_path`` (reference _build_word_embedding, model.py:80-93);
+        its other rows are drawn from the same generator."""
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         params = {"vgg": vgg.init_vgg_params(gen, self.cfg.layer_name),
                   "decoder": self.decoder.init_params(gen, self.vocab_size, self.cfg)}
+        if self.cfg.pretrained_word_vector and vocab_words is not None:
+            from .word_vectors import init_embedding
+
+            params["decoder"]["embedding"] = init_embedding(
+                gen, list(vocab_words), self.cfg.embedding_dim,
+                pretrained=self.cfg.pretrained_word_vector, path=word_vector_path)
         return tree_to(params, dev)
 
     def _cfg_compute_dtype(self):

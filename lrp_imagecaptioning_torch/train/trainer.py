@@ -8,7 +8,9 @@ On one device (``device="cuda"`` by default; it raises without a card).
 Checkpoints are the port's npz files (``train/checkpoint.py``). Not ported,
 and rejected with a message rather than ignored: a device mesh and
 multi-host runs (ROADMAP A13), several steps a call (the port has no
-K-steps-a-call variants, ROADMAP §C), pretrained word vectors (ROADMAP A14).
+K-steps-a-call variants, ROADMAP §C). ``cfg.pretrained_word_vector`` seeds
+the embedding from the file at ``cfg.word_vector_path`` (an attribute the
+caller sets, as in the JAX package; ``models/word_vectors.py``).
 """
 
 from __future__ import annotations
@@ -50,8 +52,7 @@ def parse_timedelta(s: Optional[str]) -> Optional[timedelta]:
     return timedelta(**{unit: float(parts[0])})
 
 
-def reject_unported(mesh=None, multihost: bool = False, steps_per_call: int = 1,
-                    pretrained_word_vector=None) -> None:
+def reject_unported(mesh=None, multihost: bool = False, steps_per_call: int = 1) -> None:
     """Raise for the options of the JAX package's trainer that the port
     lacks, naming where each stands."""
     if mesh is not None or multihost:
@@ -61,9 +62,6 @@ def reject_unported(mesh=None, multihost: bool = False, steps_per_call: int = 1,
         raise NotImplementedError(f"steps_per_call={steps_per_call}: the port has no "
                                   "K-steps-a-call variants (ROADMAP §C, departures by design); "
                                   "each call runs one step")
-    if pretrained_word_vector:
-        raise NotImplementedError(f"pretrained_word_vector={pretrained_word_vector!r}: "
-                                  "word vectors are not ported yet: ROADMAP A14")
 
 
 def load_weights_file(path: str, captioner, device):
@@ -95,7 +93,7 @@ class Trainer:
     def __init__(self, model_type: str, config, dataset, label: str = "run", mesh=None,
                  seed: int = 0, eval_metrics: bool = True, multihost: bool = False,
                  steps_per_call: int = 1, device="cuda"):
-        reject_unported(mesh, multihost, steps_per_call, config.pretrained_word_vector)
+        reject_unported(mesh, multihost, steps_per_call)
         self.model_type = model_type
         self.config = config
         self.dataset = dataset
@@ -105,7 +103,11 @@ class Trainer:
         self.provider = DatasetProvider(dataset, config)
         self.captioner = build_captioner(model_type, config, self.provider.vocab_size)
         self.optimizer = make_optimizer(model_type, config.learning_rate)
-        self.params = self.captioner.init_params(seed, self.device)
+        # vocabs[i] is the word for model id i (1-based token i + 1)
+        self.params = self.captioner.init_params(
+            seed, self.device,
+            vocab_words=self.provider.vocabs if config.pretrained_word_vector else None,
+            word_vector_path=getattr(config, "word_vector_path", None))
         self.opt_state = self.optimizer.init(self.params)
         # every train step's dropout masks
         self.generator = torch.Generator(device=self.device).manual_seed(seed)

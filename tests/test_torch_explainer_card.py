@@ -12,13 +12,16 @@ marked ``cuda``; it skips here):
 * graphs replayed in another order than their capture order, sharing one
   pool, give each output equal to the eager stage within 1e-6 of its scale;
 * grid-TD launches K2 twice a step at 3 B rows in the beam search and at B
-  rows in the cached forward, with the kernel counts the code derives.
+  rows in the cached forward, with the kernel counts the code derives;
+* ``deep_taylor`` runs K3 on the post-ReLU convs and matches its plain
+  version on the card; ``deep_lift`` launches no K3.
 
 This file imports no JAX: the card's machine runs it with ``--noconftest``.
 """
 
 import contextlib
 import gc
+import math
 
 import numpy as np
 import pytest
@@ -337,3 +340,40 @@ class TestExplainerOnCard:
         cpu = Explainer(ex.captioner, tree_to(ex.params, "cpu"), PP(), beam_size=3, device="cpu")
         np.testing.assert_array_equal(cpu._decode(images.cpu()),
                                       np.stack([e.tokens_1based for e in out]))
+
+    def test_deep_taylor_matches_plain_and_deep_lift_runs_no_k3(self):
+        """DeepTaylor's maps against the same walk with the plain alpha1beta0
+        rule in f64 on the card, on the f32 forward's activations, within 1e-4
+        of scale; K1, K2 and K3 launched as for ``lrp``; DeepLIFT's conv VJPs
+        are cuDNN's, so it launches no K3."""
+        from lrp_imagecaptioning_torch.explain.cnn_lrp import _backward
+        from lrp_imagecaptioning_torch.models.vgg import vgg_apply_with_acts
+        from lrp_imagecaptioning_torch.ops.lrp_conv import lrp_conv_alpha_beta
+
+        T, until = SMALL["sentence_length"], SMALL["layer_name"]
+        convs = sum(op[0] == "conv" for op in vgg_layers(until)) - 1
+        images, toks = self._images(2, 6), self._tokens(2, 6)
+        ex = self._explainer(method="deep_taylor", batch_size=2).warmup(images)
+        kernels.reset_launches()
+        out = ex.analyze_batch(images, tokens_1based=toks)
+        assert kernels.conv3x3_fused.launches == 2 * convs * 2
+        assert kernels.lrp_linear.launches == T + 3 and kernels.lstm_gates.launches == T
+        vgg = ex.params["vgg"]
+        vgg64 = tree_to(vgg, dtype=torch.float64)
+        plain = lambda r, x, k, b: lrp_conv_alpha_beta(r, x, k, b, input_nonneg=True)
+        g = math.isqrt(SMALL["img_feature_length"])
+        for b, e in enumerate(out):
+            seeds = torch.as_tensor(e.feat_relevance, device="cuda").reshape(-1, g, g,
+                                                                            SMALL["img_feature_dim"])
+            with torch.no_grad():
+                _, inputs = vgg_apply_with_acts(vgg, images[b:b + 1], until)
+                want = _backward(vgg64, [x.double() for x in inputs], torch.relu(seeds).double(),
+                                 until, plain)
+            got = torch.as_tensor(e.relevance_maps, device="cuda").double()
+            assert got.shape == want.shape and _rel(got, want) <= 1e-4
+        ex = self._explainer(method="deep_lift", batch_size=2).warmup(images)
+        kernels.reset_launches()
+        out = ex.analyze_batch(images, tokens_1based=toks)
+        assert kernels.conv3x3_fused.launches == 0
+        assert kernels.lrp_linear.launches == T + 3 and kernels.lstm_gates.launches == T
+        assert all(np.isfinite(e.relevance_maps).all() for e in out)

@@ -1,5 +1,6 @@
 """The PyTorch port imports neither jax nor the JAX package (nor the JAX
-side's ``experiments/`` and ``bench.py``), and neither does chip_smoke.py."""
+side's ``experiments/`` and ``bench.py``), nor scikit-learn (the card's host
+has none), and neither does chip_smoke.py."""
 
 import ast
 import pathlib
@@ -12,7 +13,8 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "lrp_imagecaptioning_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "lrp_imagecaptioning_tpu", "experiments", "bench")
+FORBIDDEN = ("jax", "jaxlib", "flax", "lrp_imagecaptioning_tpu", "experiments", "bench",
+             "sklearn")
 
 
 def _modules():

@@ -191,9 +191,8 @@ def test_trainer_resume_continues_the_numbering(runs, model_type):
 
 @pytest.mark.parametrize("kw, match", [
     ({"mesh": object()}, "A13"), ({"multihost": True}, "A13"),
-    ({"steps_per_call": 4}, "K-steps-a-call"), ({"pretrained": "glove"}, "A14")])
+    ({"steps_per_call": 4}, "K-steps-a-call")])
 def test_trainer_rejects_unported_options(runs, kw, match):
     t1 = runs["adaptiveattention"]["torch"]["trainer"]
-    cfg = t1.config.replace(pretrained_word_vector=kw.pop("pretrained", None))
     with pytest.raises(NotImplementedError, match=match):
-        ttrainer.Trainer("adaptiveattention", cfg, t1.dataset, device="cpu", **kw)
+        ttrainer.Trainer("adaptiveattention", t1.config, t1.dataset, device="cpu", **kw)
