@@ -174,15 +174,18 @@ TOL_BF16_KERNEL = 1e-2
 # maps (1.6e-3 against 3.5e-3 of scale) and 2.0x for the heatmaps (5.6e-4
 # against 2.8e-4); the heatmaps also pass TOL_CPU_MAPS against CPU-f32.
 F64_RATIO = {"r_feat": 2.0, "maps": 4.0}
-# the floor under each ratio. Either run can flip a near-tie that moves a
-# heatmap value by up to a few 1e-3 of the scale: over the first five images
-# of phase 8's workload (scripts/explainer_consistency.py, H100 80GB HBM3 at
-# 700 W) the card's f32 heatmaps read 4.6e-7 to 5.3e-4 from f64 and the
-# CPU-f32 run's 5.9e-7 to 2.6e-3, the largest on different images (0 on the
-# card, which phases 8b and 8c take; 2 on the CPU). Below TOL_CPU_MAPS,
-# phase 4's bound on card against CPU-f32 heatmaps, the ratio reads which
-# run flipped, not the card
-F64_FLOOR = {"r_feat": 1e-5, "maps": TOL_CPU_MAPS}
+# the floor under each ratio. Either run can flip a near-tie of its f32
+# forward that moves a heatmap value by up to a few 1e-3 of the scale: over
+# the first five images of phase 8's workload (scripts/explainer_consistency.py,
+# H100 80GB HBM3 at 700 W) the card's f32 heatmaps read 4.6e-7 to 5.3e-4 from
+# f64 and the CPU-f32 run's 5.9e-7 to 2.6e-3, the largest on different
+# images; on phase 11's VGG encoders (scripts/config_f64_spread.py) and on
+# phase 10a's checkpoint the card read up to 1.97e-3 where the CPU read
+# 7e-7 to 7e-5. On an f64 forward rounded to f32 the card's walk reads 2e-7
+# on those images, with K3 or its plain version alike (the script's
+# --split): the forward's near-ties, not the walk. The heatmaps' floor is 2x
+# the largest reading
+F64_FLOOR = {"r_feat": 1e-5, "maps": 5.2e-3}
 # phase 4b: the card-bf16 heatmaps' distance from a CPU-f32 run, as a multiple
 # of the CPU-bf16 run's own distance from it. An H100 80GB HBM3 at 700 W read
 # 0.84x (7.6e-3 against 9.1e-3 of scale); 2x is also the CPU tests' bound for
@@ -288,30 +291,106 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def vgg16_conv_layers():
-    from lrp_imagecaptioning_torch.models.vgg import vgg_layers
+# phase 11's configurations: name -> (decoder, FlickrConfig fields over the
+# defaults), and the paths each one's runs are counted on
+CONFIGS = {
+    "resnet101": ("adaptiveattention", dict(img_encoder="resnet101", layer_name="activation_49",
+                                            img_feature_length=49, img_feature_dim=2048)),
+    "resnet50": ("adaptiveattention", dict(img_encoder="resnet50", layer_name="activation_49",
+                                           img_feature_length=49, img_feature_dim=2048)),
+    "inception": ("gridTD", dict(img_encoder="inception_v3", layer_name="mixed10",
+                                 img_feature_length=64, img_feature_dim=2048)),
+    "aoa": ("aoa", {}),
+    "vgg19": ("adaptiveattention", dict(img_encoder="vgg19", layer_name="block5_conv4")),
+}
+PATH_CONFIG = {"resnet101_f32": "resnet101", "inception_f32": "inception",
+               "vgg19_f32": "vgg19", "vgg19_bf16": "vgg19", "aoa_f32": "aoa", "aoa_bf16": "aoa",
+               "aoa_train": "aoa"}
 
-    size, out = IMAGE, []
-    for op in vgg_layers("block5_conv3"):
-        if op[0] == "pool":
-            size //= 2
-        elif op[1] != "block1_conv1":   # the signed input layer takes the plain rule
-            out.append((op[1], size, op[2], op[3]))
+
+def path_config(path):
+    """(decoder, FlickrConfig) of a path: phase 11's, else VGG16's."""
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+
+    model, over = CONFIGS[PATH_CONFIG[path]] if path in PATH_CONFIG else (
+        "gridTD" if path.startswith("gridtd") else "adaptiveattention", {})
+    return model, FlickrConfig(**over)
+
+
+def _out_size(n, k, stride, padding):
+    return -(-n // stride) if padding == "SAME" else (n - k) // stride + 1
+
+
+def k3_layers(cfg):
+    """(name, H = W, Cin, Cout) of each conv the f32 lrp walk hands K3 (a 3x3
+    SAME stride-1 conv over a post-ReLU input), at the encoder's input size,
+    derived from the models' layer lists."""
+    from lrp_imagecaptioning_torch.data.images import encoder_image_size
+
+    size, out = encoder_image_size(cfg.img_encoder)[0], []
+    if cfg.img_encoder.startswith("vgg"):
+        from lrp_imagecaptioning_torch.models.vgg import vgg_layers
+
+        for op in vgg_layers(cfg.layer_name, cfg.img_encoder):
+            if op[0] == "pool":
+                size //= 2
+            elif op[1] != "block1_conv1":   # the signed input layer takes the plain rule
+                out.append((op[1], size, op[2], op[3]))
+    elif cfg.img_encoder.startswith("resnet"):
+        from lrp_imagecaptioning_torch.models.resnet import conv_names
+
+        size = _out_size(_out_size(size + 6, 7, 2, "VALID"), 3, 2, "VALID")   # conv1, pool
+        for name, _, (kh, _, cin, cout), stride in conv_names(cfg.img_encoder)[1:]:
+            if name.endswith("2a"):
+                size = _out_size(size, 1, stride, "VALID")
+            elif name.endswith("2b"):
+                out.append((name, size, cin, cout))
+    else:
+        from lrp_imagecaptioning_torch.models.inception import CONV_DIMS, SPEC
+
+        sizes = {"input": size}
+        for op in SPEC:
+            if op[0] == "concat":
+                sizes[op[1]] = sizes[op[2][0]]
+                continue
+            k, s, p = (op[4][0], op[5], op[6]) if op[0] == "conv" else (op[4], op[5], op[6])
+            sizes[op[1]] = _out_size(sizes[op[2]], k, s, p)
+            if op[0] == "conv" and op[4] == (3, 3) and s == 1 and p == "SAME" \
+                    and op[2] != "input":
+                out.append((op[1], sizes[op[2]], *CONV_DIMS[op[1]]))
     return out
+
+
+def unique_layers(layers):
+    """Layers of one shape taken once: [(names, H, Cin, Cout, count)]."""
+    seen = {}
+    for name, size, cin, cout in layers:
+        seen.setdefault((size, cin, cout), []).append(name)
+    return [(names[0] + (f"+{len(names) - 1}" if len(names) > 1 else ""), *shape, len(names))
+            for shape, names in seen.items()]
 
 
 def linear_shapes(path, batch, words):
     """The decoder LRP's products: one row per (image, explained word), as
     (name, M, Dout, Din, calls a pass). Adaptive: the gate-g block [x; h] a
     step; grid-TD: the language LSTM's [c_hat, h1; h2] (K = 2H + H) and the
-    TD LSTM's [h2, g, e; h1] (K = H + 2E + H) a step. The Explainer's word
-    buckets (PLAN_PATHS) explain ``words`` positions over all T steps."""
-    R = batch * words
-    if path.startswith("gridtd"):
+    TD LSTM's [h2, g, e; h1] (K = H + 2E + H) a step; AOA: the gate-g block
+    [x; h] (K = E + H + H) a step, the GLU over [q; hat], v_proj over L rows
+    a word and q_proj, and image_features on the layer-normed grid. The
+    Explainer's word buckets (PLAN_PATHS) explain ``words`` positions over
+    all T steps."""
+    model, cfg = path_config(path)
+    R, L_, D_ = batch * words, cfg.img_feature_length, cfg.img_feature_dim
+    steps = T if path in PLAN_PATHS else words
+    if model == "gridTD":
         gates = [("lang_gate", R, H, 3 * H, T), ("td_gate", R, H, 2 * H + 2 * E, T)]
+    elif model == "aoa":
+        return [("output", R, VOCAB, H, 1), ("glu", R, H, 2 * H, 1), ("v_proj", R * L_, H, H, 1),
+                ("q_proj", R, H, H, 1), ("gate_g", R, H, 2 * H + E, steps),
+                ("w_img", R * L_, H, D_, 1)]
     else:
-        gates = [("gate_g", R, H, 2 * E + H, T if path in PLAN_PATHS else words)]
-    return [("output", R, VOCAB, H, 1), *gates, ("w_glob", R, E, D, 1), ("w_img", R * L, H, D, 1)]
+        gates = [("gate_g", R, H, 2 * E + H, steps)]
+    return [("output", R, VOCAB, H, 1), *gates, ("w_glob", R, E, D_, 1), ("w_img", R * L_, H, D_, 1)]
 
 
 def check_lrp_linear(gen, dev, path, dims=None):
@@ -348,7 +427,7 @@ def check_lstm_gates(gen, dev, path, dims=None):
     from lrp_imagecaptioning_torch.ops import kernels
 
     _, batch, words = dims or PATHS[path]
-    if path == "train":
+    if path in ("train", "aoa_train"):
         return [check_lstm_gates_grad(gen, dev, batch, words)]
     if path == "gridtd_train":   # two LSTMs a step
         return [check_lstm_gates_grad(gen, dev, batch, 2 * words)]
@@ -370,7 +449,7 @@ def check_lstm_gates(gen, dev, path, dims=None):
                 lstm_forward_row(gen, dev, batch, words, "teacher_forced", grad=True)[0]]
     rows = []
     # grid-TD runs two LSTMs a step
-    calls = 2 * T if path.startswith("gridtd") else T
+    calls = 2 * T if path_config(path)[0] == "gridTD" else T
     for name, b in (("beam", batch * BEAM), ("cached_forward", batch)):
         zx = torch.randn(b, 4 * H, generator=gen, device=dev)
         zh = torch.randn(b, 4 * H, generator=gen, device=dev)
@@ -452,16 +531,21 @@ def check_lstm_gates_grad(gen, dev, batch, words):
 
 
 def check_conv3x3_fused(gen, dev, path, dims=None):
+    """K3's two passes at each shape of the path's walk (layers of one shape
+    timed once, their calls counted); ResNet's and Inception's convs have no
+    bias."""
     from lrp_imagecaptioning_torch.ops import kernels
 
     _, batch, n = dims or PATHS[path]   # per image: its n explained words as the batch
+    cfg = path_config(path)[1]
+    with_bias = cfg.img_encoder.startswith("vgg")
     rows = []
-    for name, size, cin, cout in vgg16_conv_layers():
+    for name, size, cin, cout, count in unique_layers(k3_layers(cfg)):
         hw = size * size
         x = torch.relu(torch.randn(1, size, size, cin, generator=gen, device=dev))
         r = torch.randn(n, size, size, cout, generator=gen, device=dev)
         kp = torch.rand(3, 3, cin, cout, generator=gen, device=dev) * math.sqrt(6.0 / (9 * (cin + cout)))
-        b = torch.rand(cout, generator=gen, device=dev) * 0.01
+        b = torch.rand(cout, generator=gen, device=dev) * 0.01 if with_bias else None
         kt = kernels.flip_transpose_kernel(kp)
         s = kernels.conv3x3_fused(x, r, kp, b, "divide")
         passes = {
@@ -469,7 +553,7 @@ def check_conv3x3_fused(gen, dev, path, dims=None):
             "divide": (lambda: kernels.conv3x3_fused(x, r, kp, b, "divide"),
                        lambda: kernels.conv3x3_fused_plain(x, r, kp, b, "divide"),
                        x, kp,
-                       4 * (hw * cin + 2 * n * hw * cout + 9 * cin * cout + cout),
+                       4 * (hw * cin + 2 * n * hw * cout + 9 * cin * cout + cout * with_bias),
                        2 * hw * 9 * cin * cout, 3 * n * hw * cout),
             # multiply: out = x * conv(s, flipT(W+)) for N seeds
             "multiply": (lambda: kernels.conv3x3_fused(s, x, kt, None, "multiply"),
@@ -483,7 +567,7 @@ def check_conv3x3_fused(gen, dev, path, dims=None):
             ms = time_ms(kern)
             flops = conv_flops + epi_flops
             rows.append(dict(shape=f"{name}/{mode}", N=n, H=size, W=size, Cin=cin, Cout=cout,
-                             calls=batch, err=rel_err(kern(), plain()),
+                             calls=batch * count, err=rel_err(kern(), plain()),
                              ms=ms, plain_ms=time_ms(plain),
                              library_ms=time_ms(lambda: F.conv2d(conv_nchw, taps_oihw, padding=1)),
                              flops=flops,
@@ -498,14 +582,15 @@ def check_conv3x3_fused(gen, dev, path, dims=None):
 
 
 def check_lrp_a1b0_fused(gen, dev, path, dims=None):
-    """The bf16 rule at the 12 post-ReLU conv shapes, 20 words."""
+    """The bf16 rule at the post-ReLU conv shapes of the path's VGG (layers
+    of one shape timed once, their calls counted), 20 words."""
     from lrp_imagecaptioning_torch.ops import kernels
     from lrp_imagecaptioning_torch.ops.lrp_conv import conv2d
 
     _, batch, n = dims or PATHS[path]
     rows = []
     bf = torch.bfloat16
-    for name, size, cin, cout in vgg16_conv_layers():
+    for name, size, cin, cout, count in unique_layers(k3_layers(path_config(path)[1])):
         hw = size * size
         x = torch.relu(torch.randn(1, size, size, cin, generator=gen, device=dev)).to(bf)
         r = torch.randn(n, size, size, cout, generator=gen, device=dev).to(bf)
@@ -523,7 +608,7 @@ def check_lrp_a1b0_fused(gen, dev, path, dims=None):
         nbytes = 2 * (n * hw * cout + hw * cin + 9 * cin * cout + cout + n * hw * cin)
         flops = 2 * hw * 9 * cin * cout + 2 * n * hw * 9 * cin * cout + 3 * n * hw * cout \
             + n * hw * cin
-        rows.append(dict(shape=name, N=n, H=size, W=size, Cin=cin, Cout=cout, calls=batch,
+        rows.append(dict(shape=name, N=n, H=size, W=size, Cin=cin, Cout=cout, calls=batch * count,
                          err=rel_err(kern().float(), plain().float()),
                          ms=time_ms(kern), plain_ms=time_ms(plain),
                          library_ms=time_ms(lambda: F.conv_transpose2d(s_nchw, kp_t, padding=1)),
@@ -561,7 +646,7 @@ PATHS = {"f32": (None, B_MAIN, T), "bf16": (torch.bfloat16, B_BF16, T),
          "train": (None, B_TRAIN, T_TRAIN), "finetune": (None, B_TRAIN, T_TRAIN),
          "gridtd_f32": (None, B_MAIN, T), "gridtd_bf16": (torch.bfloat16, B_BF16, T),
          "trainer": (None, B_TRAIN, T_TRAIN), "gridtd_train": (None, B_TRAIN, T_TRAIN),
-         "evaluate": (None, B_TRAIN, T)}
+         "evaluate": (None, B_TRAIN, T), "aoa_train": (None, B_TRAIN, T_TRAIN)}
 PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 "bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
                 "train": ("lstm_gates",),
@@ -571,12 +656,20 @@ PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 "trainer": ("lstm_gates",), "gridtd_train": ("lstm_gates",),
                 "evaluate": ("lstm_gates",),
                 "deep_taylor": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
-                "bbox": ("lrp_linear", "lstm_gates", "conv3x3_fused")}
+                "bbox": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+                "aoa_train": ("lstm_gates",),
+                **{p: ("lrp_linear", "lstm_gates", "conv3x3_fused")
+                   for p in ("resnet101_f32", "inception_f32", "vgg19_f32", "aoa_f32")},
+                **{p: ("lrp_linear", "lstm_gates", "lrp_a1b0_fused")
+                   for p in ("vgg19_bf16", "aoa_bf16")}}
 # the paths whose dispatches the Explainer plans from its captions' lengths
-# (phase 10): "deep_taylor" one analyze_batch of B_MAIN images, "bbox" the
-# analyze_many calls of evaluate_dataset over the test split at B_TRAIN; their
-# kernels are timed at the shapes of that run's chunks, (images, word bucket)
-PLAN_PATHS = ("deep_taylor", "bbox")
+# (phases 10 and 11): "deep_taylor" one analyze_batch of B_MAIN images, "bbox"
+# the analyze_many calls of evaluate_dataset over the test split at B_TRAIN,
+# phase 11's one analyze_batch each (f32 at B_MAIN, bf16 at B_BF16) on its
+# configuration (PATH_CONFIG); their kernels are timed at the shapes of that
+# run's chunks, (images, word bucket)
+PLAN_PATHS = ("deep_taylor", "bbox", "resnet101_f32", "inception_f32", "vgg19_f32", "vgg19_bf16",
+              "aoa_f32", "aoa_bf16")
 PATH_TITLES = {"bf16": "phase 2b: the bf16 path's kernels vs their plain versions, batch {b}",
                "train": "phase 2c: the train path's kernel, K2 with its gradient, batch {b}",
                "finetune": "phase 2c: the fine-tune path's kernels, batch {b} x {w} words",
@@ -584,7 +677,8 @@ PATH_TITLES = {"bf16": "phase 2b: the bf16 path's kernels vs their plain version
                "gridtd_bf16": "phase 2d: grid-TD's kernels (Explainer, bf16), batch {b} x {w} words",
                "trainer": "phase 2e: one epoch of Trainer.run's kernel, batch {b}",
                "gridtd_train": "phase 2e: a grid-TD train step's kernel, batch {b}",
-               "evaluate": "phase 2e: beam search over the test split, batch {b}"}
+               "evaluate": "phase 2e: beam search over the test split, batch {b}",
+               "aoa_train": "phase 2f: an AOA train step's kernel, batch {b}"}
 
 
 def phase_kernels(dev, failures):
@@ -909,8 +1003,8 @@ def expected_launches(path, cfg):
     steps = cfg.sentence_length + 1
     if path == "train":
         return {"lrp_linear": 0, "lstm_gates": steps, "conv3x3_fused": 0, "lrp_a1b0_fused": 0}
-    convs = sum(op[0] == "conv" for op in vgg_layers(cfg.layer_name)) - 1
-    return {"lrp_linear": steps + 3, "lstm_gates": 3 * steps,
+    convs = sum(op[0] == "conv" for op in vgg_layers(cfg.layer_name, cfg.img_encoder)) - 1
+    return {"lrp_linear": steps + (5 if path == "aoa_finetune" else 3), "lstm_gates": 3 * steps,
             "conv3x3_fused": 2 * convs * cfg.batch_size, "lrp_a1b0_fused": 0}
 
 
@@ -1029,9 +1123,11 @@ def phase_finetune(dev, failures):
 
 
 def leaf_names(tree, prefix=""):
-    """The '/'-joined key paths of a params dict, in ``tree_leaves`` order."""
+    """The '/'-joined key paths of a params tree, in ``tree_leaves`` order."""
     if isinstance(tree, dict):
         return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}/{i}")]
     return [prefix]
 
 
@@ -1204,27 +1300,33 @@ def sorted_plan(n_words, batch):
             for i in range(0, len(order), batch)]
 
 
-def explain_launches(model_type, storage_dtype, plan, decodes=0, method="lrp"):
+def explain_launches(model_type, storage_dtype, plan, decodes=0, method="lrp", cfg=None):
     """Each kernel's launches for ``decodes`` beam searches and the explain
     calls of ``plan`` [(rows, bucket)], derived from the code: K2 once
-    (adaptive) or twice (grid-TD) a step of every beam search and cached
+    (adaptive, AOA) or twice (grid-TD) a step of every beam search and cached
     forward; for lrp, deep_taylor and deep_lift K1 at the LRP's output layer,
-    gate blocks a step (one or two), W_glob and W_img, whatever the bucket;
-    K3 twice (f32: lrp, and deep_taylor whatever the storage) or K4 once (lrp
-    in bf16) per post-ReLU conv per image (a dispatch's padded rows skip the
-    CNN side). deep_lift's CNN side and the gradient methods run no K3 or K4
+    gate blocks a step (one or two), W_glob and W_img (AOA: the GLU, v_proj,
+    q_proj and image_features), whatever the bucket; K3 twice per conv of
+    ``k3_layers(cfg)`` (default VGG16's 12) per image for f32 lrp and, on
+    VGG, for deep_taylor whatever the storage; K4 once (lrp in bf16, VGG
+    only: the other encoders' walks stay f32) per post-ReLU conv per image (a
+    dispatch's padded rows skip the CNN side). deep_lift's CNN side, ResNet's
+    and Inception's deep_taylor and the gradient methods run no K3 or K4
     (torch ops, cuDNN), the gradient methods no K1."""
     lstms = 2 if model_type == "gridTD" else 1
+    convs = CONVS if cfg is None else len(k3_layers(cfg))
+    vgg = cfg is None or cfg.img_encoder.startswith("vgg")
     out = {"lrp_linear": 0, "lstm_gates": lstms * T * decodes, "conv3x3_fused": 0,
            "lrp_a1b0_fused": 0}
     for rows, _ in plan:
         out["lstm_gates"] += lstms * T
         if method in ("lrp", "deep_taylor", "deep_lift"):
-            out["lrp_linear"] += lstms * T + 3
-        if method == "deep_taylor" or (method == "lrp" and storage_dtype is None):
-            out["conv3x3_fused"] += 2 * CONVS * rows
+            out["lrp_linear"] += T + 5 if model_type == "aoa" else lstms * T + 3
+        if (method == "deep_taylor" and vgg) or (method == "lrp" and (storage_dtype is None
+                                                                      or not vgg)):
+            out["conv3x3_fused"] += 2 * convs * rows
         elif method == "lrp":
-            out["lrp_a1b0_fused"] += CONVS * rows
+            out["lrp_a1b0_fused"] += convs * rows
     return out
 
 
@@ -1301,12 +1403,12 @@ def check_entry_points(ex, images, toks, label, failures, maps_tol=TOL_CONSISTEN
     return rep
 
 
-def check_explanations(out, n_words, label, failures, nonzero=True):
-    """Shapes, finiteness and (``nonzero``) a map that is not all zero for
-    every explained word."""
+def check_explanations(out, n_words, label, failures, nonzero=True, size=IMAGE, finite=True):
+    """Shapes (``size`` x ``size`` maps), finiteness (``finite``) and
+    (``nonzero``) a map that is not all zero for every explained word."""
     bad = [i for i, (e, n) in enumerate(zip(out, n_words))
-           if len(e.words) != n or e.relevance_maps.shape != (n, IMAGE, IMAGE, 3)
-           or not (abs(e.relevance_maps) < float("inf")).all()
+           if len(e.words) != n or e.relevance_maps.shape != (n, size, size, 3)
+           or (finite and not (abs(e.relevance_maps) < float("inf")).all())
            or (nonzero and n and not (abs(e.relevance_maps).reshape(n, -1).max(axis=1) > 0).all())]
     if bad:
         failures.append(f"{label}: explanations {bad[:5]} have the wrong words, shape, "
@@ -1428,20 +1530,22 @@ def phase_explainer(dev, failures):
     return rep
 
 
-def card_vs_cpu(ex, cap, params, image, tokens, failures, label, words=CPU_WORDS):
+def card_vs_cpu(ex, cap, params, image, tokens, failures, label, words=CPU_WORDS, caption=None,
+                floor=F64_FLOOR):
     """One image on the card (``ex``), and on the CPU in f32 and in f64, with
-    ``tokens`` cut to their first ``words`` words (the CPU time): the card's
-    maps must lie within F64_RATIO times the CPU-f32 run's distance from f64
-    (floor F64_FLOOR of the scale), and ``tokens``, the card's decode, must
-    equal the CPU's beam search."""
+    ``caption`` (default ``tokens``) cut to its first ``words`` words (the CPU
+    time): the card's maps must lie within F64_RATIO times the CPU-f32 run's
+    distance from f64 (floor F64_FLOOR of the scale), and ``tokens``, the
+    card's decode, must equal the CPU's beam search."""
     from lrp_imagecaptioning_torch.explain.engine import _n_explained
     from lrp_imagecaptioning_torch.weights import tree_to
     import numpy as np
 
     params_c = tree_to(params, "cpu")
-    n = min(_n_explained(tokens, EOS), words)
+    caption = tokens if caption is None else caption
+    n = min(_n_explained(caption, EOS), words)
     cut = np.zeros(T, np.int32)
-    cut[:n] = tokens[:n]
+    cut[:n] = caption[:n]
     cut[n] = EOS
     card = ex.analyze(image, cut)
     t0 = time.perf_counter()
@@ -1460,7 +1564,7 @@ def card_vs_cpu(ex, cap, params, image, tokens, failures, label, words=CPU_WORDS
         out[f"{key}_card_vs_f64"] = float(abs(getattr(card, field) - ref).max()) / scale
         out[f"{key}_cpu_vs_f64"] = float(abs(getattr(runs["f32"], field) - ref).max()) / scale
         if out[f"{key}_card_vs_f64"] > max(F64_RATIO[key] * out[f"{key}_cpu_vs_f64"],
-                                           F64_FLOOR[key]):
+                                           floor[key]):
             failures.append(f"{label} {key}: card deviates {out[f'{key}_card_vs_f64']:.3e} "
                             f"from f64, CPU f32 {out[f'{key}_cpu_vs_f64']:.3e}")
     if not out["tokens_equal"]:
@@ -1484,8 +1588,9 @@ def explain_batch_run(cap, params, dev, images, storage_dtype, label, failures, 
     launches, mem = counts(), memory_gib()
     words = [len(e.words) for e in out]
     plan = [(len(images), bucket_for(max(words)))]
-    want = explain_launches(cap.model_type, storage_dtype, plan, decodes=1, method=method)
-    check_explanations(out, words, label, failures)
+    want = explain_launches(cap.model_type, storage_dtype, plan, decodes=1, method=method,
+                            cfg=cap.cfg)
+    check_explanations(out, words, label, failures, size=images.shape[1])
     rep = dict(batch=len(images), storage_dtype=str(storage_dtype), warm_ms=warm_ms, ms=ms,
                img_per_s=len(images) / ms * 1e3, words=words, plan=plan, launches=launches,
                expected=want, captures=[captures, ex.graphs.captures], pool_gib=pool_gib(ex),
@@ -2170,13 +2275,13 @@ def plan_summary(dev, path, plan, failures, detail):
         for images, bucket in plan:
             key = (name, images, bucket)
             if key not in cache:
-                if (images, bucket) == (B_MAIN, T):
+                if (images, bucket) == (B_MAIN, T) and path in ("deep_taylor", "bbox"):
                     cache[key] = [r for r in detail[name] if r["path"] == "f32"]
                 else:
                     cache[key] = check(gen, dev, path, (None, images, bucket))
             rows += copy.deepcopy(cache[key])
         log(f"  {path}: {name} at the run's chunks {plan}")
-        out[name] = summarize_rows(name, path, B_TRAIN if path == "bbox" else B_MAIN, rows,
+        out[name] = summarize_rows(name, path, B_TRAIN if path == "bbox" else plan[0][0], rows,
                                    failures)
         detail[name] += rows
     return out
@@ -2595,9 +2700,315 @@ def phase_explanations(dev, failures, report, handoff, detail):
     return launches, summary, out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other configurations at full width (ResNet-101/50, InceptionV3
+# with grid-TD, AOA on VGG16, VGG19), random weights from seed 0
+# ---------------------------------------------------------------------------
+CPU_WORDS_11 = 4    # phase 11's one image against the CPU explains 4 words
+# phase 11's decoder-map floors under F64_RATIO, per configuration, on one
+# image each (the heatmaps take F64_FLOOR's): f32 rounding alone puts the
+# decoder LRP's feat_relevance anywhere from 1e-6 to 4.5e-2 of its scale
+# from f64, heavy-tailed over images, on the card and on the CPU alike: over
+# 6 images a configuration (two weight seeds), the card lay over 10x the
+# CPU's distance in 7 of 60 readings (with the heatmaps') and the CPU over
+# 10x the card's in 5 (scripts/config_f64_spread.py; H100 80GB HBM3 at 700
+# W). Each floor is 2x the largest reading of either device there; a fault
+# that moves an output by O(1) of its scale still fails
+F64_FLOOR_CONFIGS = {name: dict(F64_FLOOR, r_feat=floor) for name, floor in (
+    ("resnet101", 5e-3),    # largest 2.3e-3
+    ("resnet50", 1.3e-3),   # 6.3e-4
+    ("inception", 1.6e-2),  # 8.0e-3
+    ("aoa", 9e-2),          # 4.5e-2
+    ("vgg19", 2.3e-3),      # 1.15e-3
+)}
+
+
+def draw_bn(params, seed):
+    """BatchNorm's gamma, beta and moving statistics drawn from ``seed`` in
+    place (gamma and the variance in [0.5, 1.5), beta and the mean N(0,
+    0.1^2)): under the inits' 1 / 0 / 0 / 1 the BN rule gives back its
+    input, and a wrong rule or epsilon would pass unseen."""
+    gen = torch.Generator().manual_seed(seed)
+    for node in params["vgg"].values():
+        for k, v in node.items():
+            if k in ("gamma", "bn_gamma", "moving_var", "bn_var"):
+                node[k] = (torch.rand(v.shape, generator=gen) + 0.5).to(v.device)
+            elif k in ("beta", "bn_beta", "moving_mean", "bn_mean"):
+                node[k] = (torch.randn(v.shape, generator=gen) * 0.1).to(v.device)
+    return params
+
+
+def config_model(name, dev):
+    """(config, captioner, params) of a phase 11 configuration: FlickrConfig's
+    widths (E = H = 512, T = 20), vocab 7003, random weights from seed 0, BN
+    statistics drawn."""
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+
+    model, over = CONFIGS[name]
+    cfg = FlickrConfig(**over)
+    cap = build_captioner(model, cfg, VOCAB)
+    return cfg, cap, draw_bn(cap.init_params(seed=0, device=dev), 100)
+
+
+def config_images(cfg, dev, n, seed=11):
+    """``n`` seeded images at the encoder's size: N(0, 1) for VGG and ResNet
+    (as phases 3-8), N(0, 0.5^2) for Inception's [-1, 1] inputs."""
+    from lrp_imagecaptioning_torch.data.images import encoder_image_size
+
+    size = encoder_image_size(cfg.img_encoder)[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = 0.5 if cfg.img_encoder == "inception_v3" else 1.0
+    return torch.randn(n, size, size, 3, generator=gen, device=dev) * scale
+
+
+def four_words(tokens):
+    """A 4-word caption: the decode's first words, random ids past its end."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.explain.engine import _n_explained
+
+    words = list(tokens[:min(_n_explained(tokens, EOS), CPU_WORDS_11)])
+    words += list(np.random.default_rng(12).integers(3, VOCAB, CPU_WORDS_11 - len(words)))
+    cap = np.zeros(T, np.int32)
+    cap[:CPU_WORDS_11] = words
+    cap[CPU_WORDS_11] = EOS
+    return cap
+
+
+def counted_run(fn, *args):
+    """``fn(*args)`` timed, with the counts set to 0 just before it and read
+    just after -> (output, ms, launches)."""
+    from lrp_imagecaptioning_torch.ops import kernels
+
+    kernels.reset_launches()
+    out, ms = timed(fn, *args)
+    return out, ms, counts()
+
+
+def one_image_methods(cap, params, dev, image, caption, methods, label, failures):
+    """Each method on one image with a given caption: a warm call, then a
+    counted and timed one; launches against the plan (K3 0 but for VGG's
+    deep_taylor), maps finite and not all zero. DeepLIFT through ResNet's
+    random weights is let overflow: its relevance grows by Δx W / Δz a conv
+    over 100 layers, in the JAX package too (f64: 3.8e61 at ResNet-101 on a
+    32x32 input, past f32's range); the share of finite values is logged."""
+    out = {}
+    for method in methods:
+        ex = explainer_for(cap, params, dev, method=method)
+        ex.analyze(image, caption)
+        e, ms, launches = counted_run(ex.analyze, image, caption)
+        want = explain_launches(cap.model_type, None, [(1, bucket_for(CPU_WORDS_11))],
+                                method=method, cfg=cap.cfg)
+        finite = not (method == "deep_lift" and cap.cfg.img_encoder.startswith("resnet"))
+        check_explanations([e], [CPU_WORDS_11], f"{label} {method}", failures,
+                           nonzero=method != "guided_gradcam" and finite, size=image.shape[0],
+                           finite=finite)
+        share = float((abs(e.relevance_maps) < float("inf")).mean())
+        out[method] = dict(ms=ms, launches=launches, expected=want, finite_share=share, ex=ex, e=e)
+        log(f"  {label} {method}: {ms:.2f} ms for {CPU_WORDS_11} words; launches {launches}; "
+            f"finite share of the maps {share:.4f}")
+        if launches != want:
+            failures.append(f"{label} {method}: launches {launches}, {want} derived")
+    return out
+
+
+def explain_path(path, cap, params, dev, images, storage, label, failures, detail):
+    """One counted ``explain_batch_run`` of ``path``, then its kernels timed at
+    the run's chunks -> (explainer, explanations, report, launches, summary)."""
+    ex, out, rep = explain_batch_run(cap, params, dev, images, storage, label, failures)
+    summary = plan_summary(dev, path, rep["plan"], failures, detail)
+    return ex, out, rep, rep["launches"], summary
+
+
+def train_grad_vs_cpu(cap, params, dev, failures, label, mask_seed=13):
+    """One train step's loss gradient at batch 1 with dropout 0.5 on the card
+    and on the CPU in f32 and f64, one set of masks drawn on the CPU given to
+    all three: each leaf's 2-norm distance from f64 within FT_GRAD_RATIO
+    times the CPU-f32 run's or TOL_FT_GRAD_L2_FLOOR, as phase 7 holds it."""
+    from lrp_imagecaptioning_torch.models.aoa import draw_dropout_masks
+    from lrp_imagecaptioning_torch.train.step import value_and_grad
+    from lrp_imagecaptioning_torch.weights import tree_leaves, tree_to
+
+    batch = train_batch(torch.Generator(device=dev).manual_seed(14), dev, 1, T_TRAIN)
+    params_c = tree_to(params, "cpu")
+    masks = draw_dropout_masks(torch.Generator().manual_seed(mask_seed), params_c["decoder"], 1,
+                               cap.cfg, 0.5)
+
+    def run(p, images, captions_in, y, m):
+        loss, _, grads = value_and_grad(
+            lambda q: (cap.loss(q, images, captions_in, y, None, m), None), p)
+        return float(loss), [g.cpu().double() for g in tree_leaves(grads)]
+
+    runs = {"card": run(params, *batch, masks.to(dev))}
+    cpu = [t.cpu() for t in batch]
+    runs["f32"] = run(params_c, *cpu, masks)
+    runs["f64"] = run(tree_to(params_c, dtype=torch.float64), cpu[0].double(), cpu[1],
+                      cpu[2].double(), masks.to(torch.float64))
+    names = leaf_names(params_c)
+    # a leaf whose gradient is 0 in exact arithmetic (the key projection's
+    # bias: softmax is shift-invariant) is held to 1e-6 of the largest leaf's
+    # 2-norm on each run, the others by their own 2-norm
+    top = max(float(g.norm()) for g in runs["f64"][1])
+    scale = [max(float(g.norm()), 1e-6 * top) for g in runs["f64"][1]]
+    l2 = {k: [float((a - b).norm()) / sc for a, b, sc in zip(runs[k][1], runs["f64"][1], scale)]
+          for k in ("card", "f32")}
+    over = [(n, c, f) for n, c, f in zip(names, l2["card"], l2["f32"])
+            if c > max(FT_GRAD_RATIO * f, TOL_FT_GRAD_L2_FLOOR)]
+    out = dict(loss={k: v[0] for k, v in runs.items()},
+               worst_card=max(zip(l2["card"], names)), worst_f32=max(zip(l2["f32"], names)),
+               leaves_over=over)
+    log(f"  {label} train-step gradient at batch 1, dropout 0.5, card vs CPU: {out}")
+    if over or not math.isfinite(out["loss"]["card"]):
+        failures.append(f"{label}: gradient leaves (leaf, card, CPU f32) 2-norm distances from "
+                        f"f64 over {FT_GRAD_RATIO}x and {TOL_FT_GRAD_L2_FLOOR}: {over}")
+    return out
+
+
+def phase_configs(dev, failures, detail):
+    """11a-11d. Returns (launches, kernel summaries) of the phase's paths."""
+    import numpy as np
+
+    launches, summary, rep = {}, {}, {}
+
+    def section(title, fn):
+        log(f" phase {title}")
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception:  # noqa: BLE001 — a sub-phase that raises is recorded as failed
+            traceback.print_exc()
+            failures.append(f"phase {title} raised")
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def resnet():
+        cfg, cap, params = config_model("resnet101", dev)
+        images = config_images(cfg, dev, B_MAIN)
+        ex, out, r, launches["resnet101_f32"], summary["resnet101_f32"] = explain_path(
+            "resnet101_f32", cap, params, dev, images, None, "11a resnet101 lrp", failures,
+            detail)
+        caption = four_words(out[0].tokens_1based)
+        r["methods"] = {m: {k: v for k, v in o.items() if k not in ("ex", "e")}
+                        for m, o in one_image_methods(
+                            cap, params, dev, images[0], caption,
+                            ("deep_taylor", "deep_lift", "gradient", "guided_gradcam"),
+                            "11a", failures).items()}
+        r["cpu"] = card_vs_cpu(ex, cap, params, images[0], out[0].tokens_1based, failures,
+                               "11a resnet101", words=CPU_WORDS_11, caption=caption,
+                               floor=F64_FLOOR_CONFIGS["resnet101"])
+        del ex, out, params
+        gc.collect()
+        _, cap50, params50 = config_model("resnet50", dev)
+        ex50 = explainer_for(cap50, params50, dev)
+        toks50 = ex50.predict_caption(images[0])[0]
+        r["cpu_resnet50"] = card_vs_cpu(ex50, cap50, params50, images[0], toks50, failures,
+                                        "11a resnet50", caption=caption,
+                                        floor=F64_FLOOR_CONFIGS["resnet50"])
+        rep["resnet"] = r
+
+    def inception():
+        cfg, cap, params = config_model("inception", dev)
+        images = config_images(cfg, dev, B_MAIN)
+        ex, out, r, launches["inception_f32"], summary["inception_f32"] = explain_path(
+            "inception_f32", cap, params, dev, images, None, "11b inception lrp", failures,
+            detail)
+        caption = four_words(out[0].tokens_1based)
+        sg = one_image_methods(cap, params, dev, images[0], caption, ("smoothgrad",), "11b",
+                               failures)["smoothgrad"]
+        r["smoothgrad"] = dict(ms=sg["ms"], launches=sg["launches"],
+                               cpu=grad_vs_cpu(sg["ex"], cap, params, images[0], caption,
+                                               sg["e"], failures, label="11b"))
+        r["cpu"] = card_vs_cpu(ex, cap, params, images[0], out[0].tokens_1based, failures,
+                               "11b inception", words=CPU_WORDS_11, caption=caption,
+                               floor=F64_FLOOR_CONFIGS["inception"])
+        rep["inception"] = r
+
+    def aoa():
+        from lrp_imagecaptioning_torch.train.lrp_finetune import make_lrp_finetune_step
+        from lrp_imagecaptioning_torch.train.optimizer import make_optimizer
+        from lrp_imagecaptioning_torch.train.step import make_train_step
+
+        cfg, cap, params = config_model("aoa", dev)
+        images = config_images(cfg, dev, B_BF16)
+        r = {}
+        ex = explainer_for(cap, params, dev, batch_size=B_BF16)
+        ex._decode(images)
+        toks, ms, counted = counted_run(ex._decode, images)
+        r["decode"] = dict(ms=ms, img_per_s=B_BF16 / ms * 1e3, launches=counted,
+                           words=[int(np.sum((t != 0) & (t != EOS))) for t in toks[:8]])
+        log(f"  11c beam decode of {B_BF16} images: {ms:.1f} ms = {r['decode']['img_per_s']:.2f} "
+            f"img/s; launches {counted}")
+        if counted != explain_launches("aoa", None, [], decodes=1, cfg=cfg):
+            failures.append(f"11c decode: launches {counted}")
+        del ex
+        ex8, out8, r["f32"], launches["aoa_f32"], summary["aoa_f32"] = explain_path(
+            "aoa_f32", cap, params, dev, images[:B_MAIN], None, "11c aoa lrp f32", failures,
+            detail)
+        r["cpu"] = card_vs_cpu(ex8, cap, params, images[0], out8[0].tokens_1based, failures,
+                               "11c aoa", floor=F64_FLOOR_CONFIGS["aoa"])
+        del ex8, out8
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, _, r["bf16"], launches["aoa_bf16"], summary["aoa_bf16"] = explain_path(
+            "aoa_bf16", cap, params, dev, images, torch.bfloat16, "11c aoa lrp bf16", failures,
+            detail)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a train step at batch 32 (dropout 0.5), then a fine-tune step at batch 8
+        batch = train_batch(torch.Generator(device=dev).manual_seed(15), dev, B_TRAIN, T_TRAIN)
+        opt = make_optimizer("aoa", cfg.learning_rate)
+        assert opt.b1 == 0.9
+        torch.cuda.reset_peak_memory_stats()
+        p, _, records = counted_steps(make_train_step(cap, opt), 2, params, opt.init(params),
+                                      batch, torch.Generator(device=dev).manual_seed(16),
+                                      expected_launches("train", cfg), failures, "11c aoa_train")
+        launches["aoa_train"] = records[-1]["launches"]
+        r["train"] = dict(steps=records, ms_per_step=records[-1]["ms"],
+                          img_per_s=B_TRAIN / records[-1]["ms"] * 1e3, **memory_gib())
+        del p, batch
+        ft_cfg = cfg.replace(batch_size=B_MAIN)
+        batch = train_batch(torch.Generator(device=dev).manual_seed(17), dev, B_MAIN, T_TRAIN)
+        step = make_lrp_finetune_step(cap, make_optimizer("aoa", 1e-6),
+                                      np.zeros(VOCAB + 1, bool), SOS, EOS, "mean")
+        _, _, ft = counted_steps(step, 1, params, make_optimizer("aoa", 1e-6).init(params), batch,
+                                 torch.Generator(device=dev).manual_seed(18),
+                                 expected_launches("aoa_finetune", ft_cfg), failures,
+                                 "11c aoa finetune")
+        r["finetune"] = dict(steps=ft, ms=ft[-1]["ms"], img_per_s=B_MAIN / ft[-1]["ms"] * 1e3)
+        del batch
+        r["train_grad_cpu"] = train_grad_vs_cpu(cap, params, dev, failures, "11c aoa")
+        rep["aoa"] = r
+
+    def vgg19():
+        cfg, cap, params = config_model("vgg19", dev)
+        images = config_images(cfg, dev, B_BF16)
+        r = {}
+        ex, out, r["f32"], launches["vgg19_f32"], summary["vgg19_f32"] = explain_path(
+            "vgg19_f32", cap, params, dev, images[:B_MAIN], None, "11d vgg19 lrp f32", failures,
+            detail)
+        r["cpu"] = card_vs_cpu(ex, cap, params, images[0], out[0].tokens_1based, failures,
+                               "11d vgg19", floor=F64_FLOOR_CONFIGS["vgg19"])
+        del ex, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, _, r["bf16"], launches["vgg19_bf16"], summary["vgg19_bf16"] = explain_path(
+            "vgg19_bf16", cap, params, dev, images, torch.bfloat16, "11d vgg19 lrp bf16",
+            failures, detail)
+        rep["vgg19"] = r
+
+    for title, fn in (("11a: ResNet-101 + adaptive attention, f32 batch 8; ResNet-50", resnet),
+                      ("11b: InceptionV3 + grid-TD, f32 batch 8, 299x299", inception),
+                      ("11c: AOA on VGG16: decode, f32 and bf16 lrp, train and fine-tune", aoa),
+                      ("11d: VGG19 + adaptive attention at block5_conv4, f32 and bf16", vgg19)):
+        section(title, fn)
+    return launches, summary, rep
+
+
 CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
               "tests/test_torch_train_card.py", "tests/test_torch_explainer_card.py",
-              "tests/test_torch_trainer_card.py"]
+              "tests/test_torch_trainer_card.py", "tests/test_torch_encoders_card.py"]
 
 
 def phase_card_tests(failures):
@@ -2664,6 +3075,8 @@ def main() -> int:
               ("phase 10: the explanation entry points on phase 9's checkpoint: deep_taylor and "
                "deep_lift, evaluate-bbox, analyze-words, the drivers, the CLI, word vectors",
                "explanations"),
+              ("phase 11: the other configurations at full width: ResNet-101/50, InceptionV3 "
+               "+ grid-TD, AOA, VGG19", "configs"),
               ("phase 5: card tests", "card_tests")]
     summary = built = handoff = None
     launches = {}   # path -> {kernel: launches in its counted pass}
@@ -2749,6 +3162,18 @@ def main() -> int:
                         explainer_launches["deep_lift"] = expl["deep"]["deep_lift"]["launches"]
                     if "words" in expl:
                         explainer_launches["word_stats"] = expl["words"]["launches"]
+            elif key == "configs":
+                gc.collect()
+                torch.cuda.empty_cache()
+                if summary is None:
+                    failures.append(f"{title} skipped: phase 2 did not run")
+                else:
+                    config_launches, config_summaries, report["configs"] = phase_configs(
+                        dev, failures, report["kernel_shapes"])
+                    launches.update(config_launches)
+                    for path, by_kernel in config_summaries.items():
+                        for name, s_ in by_kernel.items():
+                            summary[name][path] = s_
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)

@@ -8,6 +8,11 @@
     python -m lrp_imagecaptioning_torch.cli analyze-words --weights ckpt.npz --predictions P.yaml --roc-auc
     python -m lrp_imagecaptioning_torch.cli parity        --h5 ckpt.hdf5 --image img.png --out DIR
 
+``--model`` is adaptiveattention, gridTD or aoa; the encoder is the config's
+(``--set img_encoder=vgg16|vgg19|resnet50|resnet101|inception_v3`` with its
+``layer_name``, ``img_feature_length`` and ``img_feature_dim``, as the JAX
+CLI takes them), and the images are read at the encoder's size (299x299
+for inception_v3, else 224x224) unless ``--set image_size=`` says otherwise.
 Every subcommand takes ``--device`` (default ``cuda``; ``cpu`` runs the
 kernels' plain versions) and ``--profile DIR`` writes a ``torch.profiler``
 trace of the whole command. ``--weights`` reads the port's npz checkpoints,
@@ -96,7 +101,7 @@ def _add_common(p):
     p.add_argument("--dataset", default="flickr30k",
                    choices=["flickr30k", "coco", "coco2014", "synthetic"])
     p.add_argument("--model", dest="model_type", default="adaptiveattention",
-                   choices=["adaptiveattention", "gridTD"])
+                   choices=["adaptiveattention", "gridTD", "aoa"])
     p.add_argument("--weights", default=None, help=".npz (the port's checkpoint or the JAX "
                                                    "package's flat params) or reference .hdf5")
     p.add_argument("--batch-size", type=int, dest="batch_size", default=None)

@@ -1,8 +1,9 @@
-"""Host-side image loading + VGG preprocessing (numpy).
+"""Host-side image loading + preprocessing (numpy).
 
-The port's own copy of the JAX package's ``data/images.py`` for the VGG16
-encoder: load -> resize 224x224 -> RGB->BGR + ImageNet mean subtraction (the
-Keras ``vgg16.preprocess_input`` 'caffe' convention), and the training
+The port's own copy of the JAX package's ``data/images.py``: load -> resize
+-> the encoder's preprocessing. VGG and ResNet take 224x224 RGB->BGR with
+the ImageNet mean subtracted (the Keras 'caffe' convention); InceptionV3
+takes 299x299 scaled to [-1, 1]. And the training
 augmentation (rotation/shift/shear/zoom/hflip) with the same parameter
 draws. PIL is imported inside ``load_img_array`` and scipy inside
 ``apply_affine_transform`` only: the machine with the card has neither
@@ -42,15 +43,24 @@ def vgg_deprocess(img_bgr: np.ndarray) -> np.ndarray:
     return x[..., ::-1]
 
 
+ENCODERS = ("vgg16", "vgg19", "resnet50", "resnet101", "inception_v3")
+INCEPTION_SIZE = (299, 299)
+
+
+def encoder_image_size(encoder: str):
+    """The encoder's input size (rows, cols): 299x299 for InceptionV3, else 224x224."""
+    return INCEPTION_SIZE if encoder == "inception_v3" else IMAGE_SIZE
+
+
 class ImagePreprocessor:
-    """The reference ImagePreprocessor (preprocessors.py:10-53) for vgg16."""
+    """The reference ImagePreprocessor (preprocessors.py:10-53) for every encoder."""
 
     def __init__(self, encoder: str = "vgg16", image_augmentation: bool = False, seed: int = 0,
                  image_size=None):
-        if encoder != "vgg16":
-            raise NotImplementedError(f"the port has the vgg16 encoder; got {encoder!r} "
-                                      "(the other encoders are ROADMAP A11)")
-        self._size = tuple(image_size) if image_size is not None else IMAGE_SIZE
+        if encoder not in ENCODERS:
+            raise ValueError(f"encoder {encoder!r} not in {ENCODERS}")
+        self.encoder = encoder
+        self._size = tuple(image_size) if image_size is not None else encoder_image_size(encoder)
         self._augment = image_augmentation
         self._rng = np.random.default_rng(seed)
 
@@ -69,8 +79,9 @@ class ImagePreprocessor:
 
         if (self._size[0] == self._size[1] and loader_native.available()
                 and not (self._augment and random_transform)):
+            mode = "inception" if self.encoder == "inception_v3" else "caffe"
             try:
-                return loader_native.load_batch(list(img_paths), self._size[0], "caffe")
+                return loader_native.load_batch(list(img_paths), self._size[0], mode)
             except RuntimeError:
                 pass
         return self.preprocess_batch(self.preprocess_images(img_paths, random_transform))
@@ -79,6 +90,10 @@ class ImagePreprocessor:
         arr = load_img_array(img_path, target_size=self._size)
         if self._augment and random_transform:
             arr = self._random_transform(arr)
+        if self.encoder == "inception_v3":
+            from ..models.inception import inception_preprocess
+
+            return inception_preprocess(arr)
         return vgg_preprocess(arr)
 
     # -- augmentation (reference params: rotation 40, shifts 0.2, shear 0.2,

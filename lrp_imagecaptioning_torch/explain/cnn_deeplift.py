@@ -1,7 +1,8 @@
 """DeepLIFT (rescale rule) over the VGG conv stack.
 
-The port of the JAX package's ``explain/cnn_deeplift.py`` (VGG only; its
-ResNet and Inception siblings wait with those encoders), itself the vendored
+The port of the JAX package's ``explain/cnn_deeplift.py`` for VGG16 and
+VGG19 (ResNet's and Inception's walks are in ``resnet_lrp.py`` and
+``inception_lrp.py``), itself the vendored
 ``innvestigate/analyzer/deeplift.py`` analyzer (reference deeplift.py:44-255)
 as one backward walk instead of a reversed Keras graph:
 
@@ -72,32 +73,38 @@ def _deeplift_backward(params, relevance_seed, ops, inputs, inputs_ref, out, out
     return r
 
 
-def _forwards(params, image, until, reference_inputs):
-    ref_img = torch.as_tensor(reference_inputs, dtype=image.dtype,
-                              device=image.device).expand(image.shape)
-    out, inputs = vgg_apply_with_acts(params, image, until)
-    out_ref, inputs_ref = vgg_apply_with_acts(params, ref_img.contiguous(), until)
+def reference_image(image: torch.Tensor, reference_inputs) -> torch.Tensor:
+    """``reference_inputs`` (a scalar or an image) at ``image``'s shape."""
+    return torch.as_tensor(reference_inputs, dtype=image.dtype,
+                           device=image.device).expand(image.shape).contiguous()
+
+
+def _forwards(params, image, until, reference_inputs, arch="vgg16"):
+    out, inputs = vgg_apply_with_acts(params, image, until, arch)
+    out_ref, inputs_ref = vgg_apply_with_acts(params, reference_image(image, reference_inputs),
+                                              until, arch)
     return out, inputs, out_ref, inputs_ref
 
 
 def vgg_deeplift(params, image: torch.Tensor, relevance_seed: torch.Tensor,
                  until: str = "block5_conv3", reference_inputs=0.0,
-                 approximate_gradient: bool = True) -> torch.Tensor:
+                 approximate_gradient: bool = True, arch: str = "vgg16") -> torch.Tensor:
     """DeepLIFT-rescale attribution, seeded at the tapped feature grid.
 
     image: (1 or B, H, W, 3) preprocessed; relevance_seed: (B, h, w, C) at
     ``until``; reference_inputs: a scalar or an image of ``image``'s shape.
     Returns the input-space attribution (B, H, W, 3)."""
-    out, inputs, out_ref, inputs_ref = _forwards(params, image, until, reference_inputs)
-    return _deeplift_backward(params, relevance_seed, vgg_layers(until), inputs, inputs_ref,
-                              out, out_ref, approximate_gradient)
+    out, inputs, out_ref, inputs_ref = _forwards(params, image, until, reference_inputs, arch)
+    return _deeplift_backward(params, relevance_seed, vgg_layers(until, arch), inputs,
+                              inputs_ref, out, out_ref, approximate_gradient)
 
 
 def vgg_deeplift_standalone(params, image: torch.Tensor, until: str = "block5_conv3",
-                            reference_inputs=0.0, approximate_gradient: bool = True):
+                            reference_inputs=0.0, approximate_gradient: bool = True,
+                            arch: str = "vgg16"):
     """The reference's standalone head: seed = features - reference features
     (``_head_mapping``, deeplift.py:217-218), one pair of forwards shared by
     the seed and the backward walk."""
-    out, inputs, out_ref, inputs_ref = _forwards(params, image, until, reference_inputs)
-    return _deeplift_backward(params, out - out_ref, vgg_layers(until), inputs, inputs_ref,
+    out, inputs, out_ref, inputs_ref = _forwards(params, image, until, reference_inputs, arch)
+    return _deeplift_backward(params, out - out_ref, vgg_layers(until, arch), inputs, inputs_ref,
                               out, out_ref, approximate_gradient)

@@ -1,25 +1,27 @@
 """Gradient-family CNN explanations (iNNvestigate's gradient_based.py with
-neuron_selection_mode='replace'), word-batched: every function takes one
-image (1, H, W, 3) and the W words' seeds at the tapped layer (W, h, w, C),
-and returns (W, H, W, 3).
+neuron_selection_mode='replace'), word-batched, through any encoder:
+``gradient_maps`` takes one image (1, H, W, 3), the W words' seeds at the
+tapped layer and the encoder as a function of the image and its ReLU, and
+returns (W, H, W, 3).
 
-* ``vgg_gradient``: d(features)/d(image) contracted with each seed, one VJP.
-* ``vgg_input_times_gradient``: the gradient times the image.
-* ``vgg_guided_backprop``: the backward ReLU also zeroes negative upstream
+* ``gradient``: d(features)/d(image) contracted with each seed.
+* ``input_times_gradient``: the gradient times the image.
+* ``guided_backprop``: the backward ReLU also zeroes negative upstream
   gradients (``GuidedReLU``).
-* ``vgg_deconvnet``: ReLU on the backward signal only (``DeconvReLU``).
-* ``vgg_integrated_gradients``: the mean gradient along the straight path
+* ``deconvnet``: ReLU on the backward signal only (``DeconvReLU``).
+* ``integrated_gradients``: the mean gradient along the straight path
   from a zero baseline, times the image.
-* ``vgg_smoothgrad``: the gradient averaged over noisy copies of the image;
-  the noise comes ready-made (``noise``), so that a caller can feed any
-  generator's draws (the JAX package's ``jax.random`` bits in the tests).
-* ``grad_cam`` / ``vgg_guided_gradcam`` (explainers.py:925-949): the CAM is
-  the ReLU of the gradient-mean-weighted feature map, ``pyramid_expand``-ed
-  and normalised; Guided-GradCAM multiplies the guided-backprop map by it.
+* ``smoothgrad``: the gradient averaged over noisy copies of the image;
+  the noise comes ready-made, so that a caller can feed any generator's
+  draws (the JAX package's ``jax.random`` bits in the tests).
+* ``guided_gradcam`` (explainers.py:925-949): the guided-backprop map times
+  the CAM, the ReLU of the gradient-mean-weighted feature map,
+  ``pyramid_expand``-ed and normalised (``grad_cam``).
 
-Every word's gradient is one image of a batch-W forward under autograd on
-cuDNN's convs (``models/vgg.py``): the LRP kernels (K3, K4) have no
-gradient and are never reached here.
+Each pass (the image, an IG step, a SmoothGrad sample) is one forward and
+the W words' VJPs in one batched backward (``input_gradients``), under
+autograd on cuDNN's convs: the LRP kernels (K3, K4) have no gradient and
+are never reached here.
 """
 
 from __future__ import annotations
@@ -29,17 +31,22 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..models.vgg import vgg_apply
 
 
 class GuidedReLU(torch.autograd.Function):
     """ReLU whose backward passes the gradient only where the input and the
-    gradient are both positive (guided backprop)."""
+    gradient are both positive (guided backprop). Its vmap rule lets
+    ``input_gradients`` batch the backward over the seeds."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return torch.relu(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):
@@ -51,69 +58,81 @@ class DeconvReLU(torch.autograd.Function):
     """ReLU whose backward is the ReLU of the gradient, whatever the forward
     input's sign (deconvnet, gradient_based.py:171-216)."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         return torch.relu(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
         return torch.clamp(g, min=0.0)
 
 
-def _vjp(params, images, seeds, until, relu_fn=None):
-    """d(sum(features * seeds))/d(images) for (W, H, W, 3) images, each row
-    its own forward (a batch of W)."""
+RELU_FNS = {"guided_backprop": GuidedReLU.apply, "guided_gradcam": GuidedReLU.apply,
+            "deconvnet": DeconvReLU.apply}
+
+
+def input_gradients(encode, images, seeds):
+    """d(sum(encode(x) * seed))/dx for each of the W seeds -> (W, H, W, 3).
+
+    images (1, H, W, 3), one image for every seed: one forward, then the W
+    VJPs in one ``torch.autograd.grad(is_grads_batched=True)`` (vmap over
+    the backward), as the reference maps its VJP over the seeds. On the card
+    that beats W calls with ``retain_graph`` by 1.2-1.7x; a forward of W
+    copies is faster still on ResNet and Inception, but the copies' f32
+    sums flip near-tied ReLUs, 4e-3 to 8e-3 of a map from the one-forward result
+    (scripts/gradient_vjp_forms.py). images (W, H, W, 3), each seed its own
+    image: one forward and one backward at batch W."""
     with torch.enable_grad():
+        if images.shape[0] == 1:
+            x = images.detach().requires_grad_(True)
+            feats = encode(x)[0]
+            (grad,) = torch.autograd.grad(feats, x, seeds.reshape(-1, *feats.shape),
+                                          is_grads_batched=True)
+            return grad[:, 0]
         x = images.detach().clone().requires_grad_(True)
-        feats = vgg_apply(params, x, until, relu_fn=relu_fn)
-        (grad,) = torch.autograd.grad(feats, x, seeds)
+        feats = encode(x)
+        (grad,) = torch.autograd.grad(feats, x, seeds.reshape(feats.shape))
     return grad
 
 
-def _per_word(image, seeds):
-    """The image once for each of the W seeds: (W, H, W, 3)."""
-    return image.expand(seeds.shape[0], *image.shape[1:])
+def gradient_maps(method, encode, image, seeds, feat_grid_hw=None, steps: int = 16, noise=None,
+                  noise_scale: float = 16.0):
+    """The gradient method's map for each of the W seeds (W, h, w, D).
 
+    encode(x, relu_fn) -> the tapped features of images x; image (1, H, W,
+    3); ``feat_grid_hw`` (h, w, D) the image's features (Guided-GradCAM);
+    ``steps`` IG's steps; ``noise`` SmoothGrad's standard normal draws (1 or
+    W, n, H, W, 3): n samples shared by the words, or each word its own.
+    Returns (W, H, W, 3)."""
+    relu_fn = RELU_FNS.get(method)
 
-def vgg_gradient(params, image, seeds, until="block5_conv3"):
-    """The 'replace'-mode Gradient analyzer, one map per seed."""
-    return _vjp(params, _per_word(image, seeds), seeds, until)
+    def grads(x):
+        return input_gradients(lambda im: encode(im, relu_fn), x, seeds)
 
-
-def vgg_input_times_gradient(params, image, seeds, until="block5_conv3"):
-    return image * vgg_gradient(params, image, seeds, until)
-
-
-def vgg_guided_backprop(params, image, seeds, until="block5_conv3"):
-    return _vjp(params, _per_word(image, seeds), seeds, until, GuidedReLU.apply)
-
-
-def vgg_deconvnet(params, image, seeds, until="block5_conv3"):
-    return _vjp(params, _per_word(image, seeds), seeds, until, DeconvReLU.apply)
-
-
-def vgg_integrated_gradients(params, image, seeds, until="block5_conv3", steps: int = 16):
-    """IntegratedGradients (PathIntegrator over Gradient, zero baseline): the
-    gradient at alpha * image for alpha = (k + 0.5) / steps, averaged, times
-    the image. One batch-W forward and backward a step."""
-    total = None
-    for k in range(steps):
-        alpha = (k + 0.5) / steps
-        g = _vjp(params, _per_word(alpha * image, seeds), seeds, until)
-        total = g if total is None else total + g
-    return total / steps * image
-
-
-def vgg_smoothgrad(params, image, seeds, noise, until="block5_conv3", noise_scale: float = 16.0):
-    """SmoothGrad: the gradient averaged over ``image + noise_scale * noise``.
-    noise: (W, n, H, W, 3) standard normal draws, n samples for each word.
-    One batch-W forward and backward a sample."""
-    n = noise.shape[1]
-    total = None
-    for k in range(n):
-        g = _vjp(params, image + noise_scale * noise[:, k], seeds, until)
-        total = g if total is None else total + g
-    return total / n
+    if method == "integrated_gradients":
+        total = None
+        for k in range(steps):
+            g = grads((k + 0.5) / steps * image)
+            total = g if total is None else total + g
+        return total / steps * image
+    if method == "smoothgrad":
+        total = None
+        for k in range(noise.shape[1]):
+            g = grads(image + noise_scale * noise[:, k])
+            total = g if total is None else total + g
+        return total / noise.shape[1]
+    maps = grads(image)
+    if method == "input_times_gradient":
+        return maps * image
+    if method == "guided_gradcam":
+        return maps * gradcam_weight(image, seeds, feat_grid_hw)
+    return maps
 
 
 def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
@@ -197,13 +216,10 @@ def resize_bilinear(maps: torch.Tensor, size) -> torch.Tensor:
                          align_corners=False, antialias=False)[:, 0]
 
 
-def vgg_guided_gradcam(params, image, seeds, feat_grid_hw, until="block5_conv3"):
-    """Guided-GradCAM = the guided-backprop map x the CAM (explainers.py:
-    925-935), the CAM upscaled by the tap's stride and resized to the image."""
-    guided = vgg_guided_backprop(params, image, seeds, until)              # (W, H, W, 3)
+def gradcam_weight(image, seeds, feat_grid_hw):
+    """The CAM of each seed, upscaled by the tap's stride and resized to the
+    image: (W, H, W, 1)."""
     H, Wd = image.shape[1:3]
     g = seeds.shape[1]
     cam = grad_cam(feat_grid_hw, seeds, upscale=max(H // g, 1))
-    cam = resize_bilinear(cam, (H, Wd))
-    return guided * cam[:, :, :, None]
-
+    return resize_bilinear(cam, (H, Wd))[:, :, :, None]

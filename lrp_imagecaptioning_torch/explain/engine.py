@@ -1,10 +1,11 @@
 """The Explainer: caption images and explain every word, batched.
 
-The port of the JAX package's ``explain/engine.py`` for the vgg16 encoder
-and both decoders (adaptive attention, grid-TD). One explain call over B
-images and a word bucket W runs three stages:
+The port of the JAX package's ``explain/engine.py`` for every encoder
+(VGG16/19, ResNet-50/101, InceptionV3) and decoder (adaptive attention,
+grid-TD, AOA). One explain call over B images and a word bucket W runs
+three stages:
 
-1. encode: the VGG forward (cuDNN) of the B images;
+1. encode: the CNN forward (cuDNN) of the B images;
 2. decoder: the cached forward over the captions and the decoder backward
    of W word positions an image (``positions = arange(W)``), batched over
    the B x W rows: the LRP recursion (``explain/decoder_lrp.py``, on K1 and,
@@ -43,9 +44,11 @@ import torch
 
 from ..graphs import GraphCache, param_tensors
 from ..infer.beam import beam_search
+from ..models.vgg import vgg_apply
 from ..runtime import resolve_device
 from ..weights import tree_leaves, tree_to
-from . import cnn_gradient
+from . import cnn_gradient, inception_lrp, resnet_lrp
+from .aoa_backward import explain_word_aoa, grad_word_aoa
 from .cnn_deeplift import vgg_deeplift
 from .cnn_lrp import vgg_deep_taylor, vgg_lrp_per_image
 from .decoder_grad import grad_word_adaptive, grad_word_gridtd
@@ -92,13 +95,21 @@ def _pad_rows(x, k: int):
     return cat([x] + [x[-1:]] * (k - x.shape[0]))
 
 
+_BACKWARDS = {"adaptiveattention": (explain_word_adaptive, grad_word_adaptive),
+              "gridTD": (explain_word_gridtd, grad_word_gridtd),
+              "aoa": (explain_word_aoa, grad_word_aoa)}
+_RESNET_WALKS = {"lrp": resnet_lrp.resnet_lrp_wordbatched,
+                 "deep_taylor": resnet_lrp.resnet_deep_taylor_wordbatched,
+                 "deep_lift": resnet_lrp.resnet_deeplift_wordbatched}
+_INCEPTION_WALKS = {"lrp": inception_lrp.inception_lrp_wordbatched,
+                    "deep_taylor": inception_lrp.inception_deep_taylor_wordbatched,
+                    "deep_lift": inception_lrp.inception_deeplift_wordbatched}
 def _decoder_backward_fn(model_type: str, method: str):
     """The decoder side of ``method``: the LRP recursion for the relevance
-    methods, the reference's BPTT gradient for every gradient method."""
-    adaptive = model_type == "adaptiveattention"
-    if method in _RELEVANCE_METHODS:
-        return explain_word_adaptive if adaptive else explain_word_gridtd
-    return grad_word_adaptive if adaptive else grad_word_gridtd
+    methods, the reference's BPTT gradient (AOA: the true gradient) for
+    every gradient method."""
+    relevance, gradient = _BACKWARDS[model_type]
+    return relevance if method in _RELEVANCE_METHODS else gradient
 
 
 class Explainer:
@@ -114,10 +125,10 @@ class Explainer:
                  batch_size: int = 32, mesh=None, shard_words: bool = False, device="cuda"):
         """``storage_dtype=torch.bfloat16`` holds the CNN LRP's params,
         activations and relevances in bf16 (bench's throughput mode; method
-        ``lrp`` only: the other methods' CNN side runs in f32, as in the JAX
-        package). ``word_buckets``: the word counts an explain call may
-        take; a caption's real length picks the smallest bucket that covers
-        it (``()``: always all ``max_len`` positions). ``batch_size``: the
+        ``lrp`` on VGG only: the other methods' and encoders' CNN side runs
+        in f32, as in the JAX package). ``word_buckets``: the word counts an
+        explain call may take; a caption's real length picks the smallest
+        bucket that covers it (``()``: always all ``max_len`` positions). ``batch_size``: the
         most rows one dispatch carries (``analyze_many``'s default chunk);
         every dispatch is padded to a size of its halving ladder."""
         if method not in METHODS:
@@ -133,10 +144,11 @@ class Explainer:
         self._beam_size = beam_size
         self._max_len = max_len or captioner.cfg.sentence_length
         # the augmentation-based analyzers (wrapper.py semantics); SmoothGrad's
-        # noise is in input units: 16.0 ~= 6% of the caffe inputs' ~255 range
+        # noise is in input units: 16.0 ~= 6% of the caffe inputs' ~255 range,
+        # 0.125 the same share of Inception's [-1, 1]
         self._ig_steps = 16
         self._sg_samples = 8
-        self._sg_noise = 16.0
+        self._sg_noise = 0.125 if captioner.cfg.img_encoder == "inception_v3" else 16.0
         self._storage_dtype = storage_dtype
         self._buckets = tuple(sorted(w for w in set(word_buckets) if w < self._max_len))
         self.batch_size = batch_size
@@ -145,7 +157,9 @@ class Explainer:
         # on the card the beam search and the decoder stage replay from graphs
         self.graphs = GraphCache() if self.device.type == "cuda" else None
         self._decode_stage = self._graphed(self._decode_impl)
-        self._decoder_stage = self._graphed(self._decoder_impl)
+        # AOA's decoder gradient runs autograd, which stays out of a capture
+        eager = captioner.model_type == "aoa" and method not in _RELEVANCE_METHODS
+        self._decoder_stage = self._decoder_impl if eager else self._graphed(self._decoder_impl)
 
     def _graphed(self, fn):
         if self.graphs is None:
@@ -178,8 +192,11 @@ class Explainer:
         # (explainers.py:660-665); the full T is kept for alignment
         r_words = torch.cat([torch.zeros_like(r_words[:, :, :1]), r_words[:, :, 1:]], dim=-1)
         r_words = r_words / (r_words.abs().amax(dim=-1, keepdim=True) + 1e-12)
-        rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
-        betas = caches.beta[positions, rows, 0]                      # (B, W) sentinel gate
+        if hasattr(caches, "beta"):
+            rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+            betas = caches.beta[positions, rows, 0]                  # (B, W) sentinel gate
+        else:   # AOA has no visual sentinel
+            betas = torch.zeros(positions.shape, device=r_feat.device, dtype=r_feat.dtype)
         return r_feat, r_words, atts, betas
 
     def _encode(self, images):
@@ -188,35 +205,63 @@ class Explainer:
     def _cnn(self, images, feat_grid, r_feat):
         """The CNN side of the method: (B, W, L, D) seeds -> (B, W, H, W, 3)."""
         cfg = self.captioner.cfg
-        vgg, until = self.params["vgg"], cfg.layer_name
-        if self.method == "lrp":
-            return vgg_lrp_per_image(vgg, images, r_feat, until, self._storage_dtype)
+        enc, until = cfg.img_encoder, cfg.layer_name
+        vgg = self.params["vgg"]
+        if self.method == "lrp" and enc in ("vgg16", "vgg19"):
+            return vgg_lrp_per_image(vgg, images, r_feat, until, self._storage_dtype, enc)
         B, W, L, D = r_feat.shape
         g = math.isqrt(L)
         seeds = r_feat.reshape(B, W, g, g, D)
         maps = []
         for b in range(B):
             image, s = images[b:b + 1], seeds[b]
-            if self.method == "integrated_gradients":
-                m = cnn_gradient.vgg_integrated_gradients(vgg, image, s, until, self._ig_steps)
-            elif self.method == "smoothgrad":
-                noise = self._smoothgrad_noise_on(W, image)
-                m = cnn_gradient.vgg_smoothgrad(vgg, image, s, noise, until, self._sg_noise)
-            elif self.method == "deep_taylor":
-                m = vgg_deep_taylor(vgg, image, s, until)
-            elif self.method == "deep_lift":
-                m = vgg_deeplift(vgg, image, s, until)
-            elif self.method == "guided_gradcam":
-                m = cnn_gradient.vgg_guided_gradcam(vgg, image, s, feat_grid[b].reshape(g, g, D),
-                                                    until)
+            if self.method not in _RELEVANCE_METHODS:
+                maps.append(self._gradient(image, s, feat_grid[b].reshape(g, g, D)))
+            elif enc in ("vgg16", "vgg19"):
+                walk = vgg_deep_taylor if self.method == "deep_taylor" else vgg_deeplift
+                maps.append(walk(vgg, image, s, until, arch=enc))
+            elif enc.startswith("resnet"):
+                maps.append(_RESNET_WALKS[self.method](vgg, image, s, depth=enc))
             else:
-                fn = {"gradient": cnn_gradient.vgg_gradient,
-                      "input_times_gradient": cnn_gradient.vgg_input_times_gradient,
-                      "guided_backprop": cnn_gradient.vgg_guided_backprop,
-                      "deconvnet": cnn_gradient.vgg_deconvnet}[self.method]
-                m = fn(vgg, image, s, until)
-            maps.append(m)
+                maps.append(_INCEPTION_WALKS[self.method](vgg, image, s, until=until))
         return torch.stack(maps)
+
+    def _gradient(self, image, seeds, feat_hw):
+        """The gradient methods' CNN side on any encoder: image (1, H, W, 3),
+        seeds (W, g, g, D) -> (W, H, W, 3). VGG's SmoothGrad draws noise per
+        word position, the other encoders' one set per image (as the JAX
+        package draws them)."""
+        cfg, params = self.captioner.cfg, self.params
+        if cfg.img_encoder in ("vgg16", "vgg19"):
+            # f32 whatever cfg.compute_dtype, as the reference's VGG functions
+            def encode(x, relu_fn):
+                return vgg_apply(params["vgg"], x, cfg.layer_name, relu_fn=relu_fn,
+                                 arch=cfg.img_encoder)
+
+            noise = (self._smoothgrad_noise_on(seeds.shape[0], image)
+                     if self.method == "smoothgrad" else None)
+        else:
+            def encode(x, relu_fn):
+                return self.captioner.encode(params, x, relu_fn=relu_fn)
+
+            noise = self._generic_noise_on(image)[None] if self.method == "smoothgrad" else None
+        return cnn_gradient.gradient_maps(self.method, encode, image, seeds, feat_hw,
+                                          self._ig_steps, noise, self._sg_noise)
+
+    def generic_smoothgrad_noise(self, image_shape) -> torch.Tensor:
+        """The generic (ResNet, Inception) SmoothGrad's standard-normal noise,
+        (samples, *image_shape) on the CPU, one set per image shared by its
+        words (as the JAX package draws it, from one key): a CPU generator
+        seeded 0, so its bits are not ``jax.random``'s."""
+        gen = torch.Generator().manual_seed(0)
+        return torch.randn((self._sg_samples, *image_shape), generator=gen)
+
+    def _generic_noise_on(self, image):
+        key = ("generic", tuple(image.shape[1:]), image.dtype)
+        if key not in self._noise:
+            self._noise[key] = self.generic_smoothgrad_noise(tuple(image.shape[1:])).to(
+                self.device, image.dtype)
+        return self._noise[key]
 
     def smoothgrad_noise(self, n_words: int, image_shape) -> torch.Tensor:
         """SmoothGrad's standard-normal noise, (n_words, samples, *image_shape)

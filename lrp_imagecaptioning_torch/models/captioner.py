@@ -1,5 +1,7 @@
-"""Captioning model assembly: VGG encoder + adaptive-attention or grid-TD
-decoder, and the training losses: ``masked_ce_from_logits`` (softmax-CE on
+"""Captioning model assembly: a CNN encoder (VGG16 / VGG19 tapped at
+``cfg.layer_name``, ResNet-50 / ResNet-101 at the last block's ReLU,
+InceptionV3 at ``cfg.layer_name``, default 'mixed10') + an adaptive-attention,
+grid-TD or AOA decoder, and the training losses: ``masked_ce_from_logits`` (softmax-CE on
 logits, last timestep discarded, all-zero label rows (padding) contribute 0)
 and, for grid-TD with ``loss_mode='keras_categorical'``,
 ``keras_categorical_ce``.
@@ -13,9 +15,10 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..data.images import ENCODERS
 from ..runtime import resolve_device
 from ..weights import tree_to
-from . import adaptive, gridtd, vgg
+from . import adaptive, aoa, gridtd, inception, resnet, vgg
 
 
 def masked_ce_from_logits(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
@@ -55,12 +58,13 @@ def masked_accuracy(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tenso
 @dataclass
 class Captioner:
     """Bundles encoder + decoder functions over one params dict
-    ``{'vgg': {...}, 'decoder': {...}}``."""
+    ``{'vgg': {...}, 'decoder': {...}}`` (the key 'vgg' holds every
+    encoder's params, as in the JAX package's checkpoints)."""
 
-    model_type: str            # 'adaptiveattention' | 'gridTD'
+    model_type: str            # 'adaptiveattention' | 'gridTD' | 'aoa'
     cfg: Any
     vocab_size: int
-    decoder: Any               # module: adaptive | gridtd
+    decoder: Any               # module: adaptive | gridtd | aoa
 
     def init_params(self, seed: int = 0, device="cuda", vocab_words=None,
                     word_vector_path: str | None = None):
@@ -73,7 +77,7 @@ class Captioner:
         its other rows are drawn from the same generator."""
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
-        params = {"vgg": vgg.init_vgg_params(gen, self.cfg.layer_name),
+        params = {"vgg": self.init_encoder_params(gen),
                   "decoder": self.decoder.init_params(gen, self.vocab_size, self.cfg)}
         if self.cfg.pretrained_word_vector and vocab_words is not None:
             from .word_vectors import init_embedding
@@ -82,6 +86,15 @@ class Captioner:
                 gen, list(vocab_words), self.cfg.embedding_dim,
                 pretrained=self.cfg.pretrained_word_vector, path=word_vector_path)
         return tree_to(params, dev)
+
+    def init_encoder_params(self, gen: torch.Generator):
+        """The encoder's params on the CPU from ``gen``."""
+        enc = self.cfg.img_encoder
+        if enc in ("vgg16", "vgg19"):
+            return vgg.init_vgg_params(gen, self.cfg.layer_name, enc)
+        if enc in ("resnet50", "resnet101"):
+            return resnet.init_resnet50_params(gen, enc)
+        return inception.init_inception_v3_params(gen)
 
     def _cfg_compute_dtype(self):
         """cfg.compute_dtype ('float32' | 'bfloat16') -> None | torch.bfloat16."""
@@ -92,13 +105,23 @@ class Captioner:
             return torch.bfloat16
         raise ValueError(f"unsupported compute_dtype {cd!r}")
 
-    def encode(self, params, images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    def encode(self, params, images: torch.Tensor, compute_dtype=None,
+               relu_fn=None) -> torch.Tensor:
         """images (B, H, W, 3) preprocessed -> (B, L, D) f32 feature grid.
 
-        ``compute_dtype`` defaults to ``cfg.compute_dtype``."""
+        ``compute_dtype`` defaults to ``cfg.compute_dtype``; ``relu_fn``
+        replaces the encoder's every ReLU (the gradient methods')."""
         if compute_dtype is None:
             compute_dtype = self._cfg_compute_dtype()
-        feats = vgg.vgg_apply(params["vgg"], images, self.cfg.layer_name, compute_dtype)
+        enc = self.cfg.img_encoder
+        if enc in ("vgg16", "vgg19"):
+            feats = vgg.vgg_apply(params["vgg"], images, self.cfg.layer_name, compute_dtype,
+                                  relu_fn, enc)
+        elif enc == "inception_v3":
+            feats = inception.inception_v3_apply(params["vgg"], images, compute_dtype,
+                                                 self.cfg.layer_name, relu_fn)
+        else:
+            feats = resnet.resnet50_apply(params["vgg"], images, compute_dtype, enc, relu_fn)
         return feats.reshape(feats.shape[0], self.cfg.img_feature_length,
                              self.cfg.img_feature_dim)
 
@@ -123,8 +146,8 @@ class Captioner:
                       generator: torch.Generator | None = None,
                       masks=None) -> torch.Tensor:
         """Teacher-forced logits (B, T, V). Dropout at ``cfg.drop_rate`` when a
-        ``generator`` (or ready ``masks``: the decoder's ``DropoutMasks`` or
-        ``GridTDDropoutMasks``) is given, none otherwise.
+        ``generator`` (or ready ``masks``: the decoder's ``DropoutMasks``,
+        ``GridTDDropoutMasks`` or ``AOADropoutMasks``) is given, none otherwise.
         ``cfg.remat_encoder`` recomputes the CNN in the backward pass instead
         of keeping its activations."""
         if self.cfg.remat_encoder:
@@ -145,14 +168,16 @@ class Captioner:
         return self.loss_fn()(logits, y_onehot)
 
 
-DECODERS = {"adaptiveattention": adaptive, "gridTD": gridtd}
+DECODERS = {"adaptiveattention": adaptive, "gridTD": gridtd, "aoa": aoa}
 
 
 def build_captioner(model_type: str, cfg, vocab_size: int) -> Captioner:
-    """``model_type`` 'adaptiveattention' or 'gridTD' (the JAX package's
-    names) over the vgg16 encoder."""
-    if model_type in DECODERS and cfg.img_encoder == "vgg16":
-        return Captioner(model_type, cfg, vocab_size, DECODERS[model_type])
-    raise NotImplementedError(
-        f"the port has vgg16 + adaptiveattention | gridTD; got {model_type!r} / "
-        f"{cfg.img_encoder!r} (AOA and the other encoders are ROADMAP A11)")
+    """``model_type`` 'adaptiveattention', 'gridTD' or 'aoa' ('AOA'), the JAX
+    package's names, over ``cfg.img_encoder`` (one of ENCODERS)."""
+    if model_type == "AOA":
+        model_type = "aoa"
+    if model_type not in DECODERS:
+        raise ValueError(f"unknown model type {model_type!r} (choose adaptiveattention|gridTD|aoa)")
+    if cfg.img_encoder not in ENCODERS:
+        raise ValueError(f"unknown encoder {cfg.img_encoder!r} (choose one of {ENCODERS})")
+    return Captioner(model_type, cfg, vocab_size, DECODERS[model_type])

@@ -2,8 +2,7 @@
 the reference's train.py:79-88) into the port's params tree.
 
 The port's own copy of the JAX package's ``models/weights_io.py`` readers
-for vgg16 with adaptive attention or grid-TD. Keras layer/weight naming
-(model.py):
+for every encoder and decoder. Keras layer/weight naming (model.py):
 
 * ``image_features`` / ``global_img_feature`` / ``output``: Dense
   kernel/bias (model.py:446-466);
@@ -15,7 +14,15 @@ for vgg16 with adaptive attention or grid-TD. Keras layer/weight naming
   LSTM's kernel/recurrent_kernel/bias, the TD-LSTM weights
   ``_top_down_lstm_weight_i/_h/_bias`` and the attention weights
   ``_W_va, _W_ha, _W_a, _W_x, _W_h, _W_s`` (model.py:702-743);
-* VGG16 conv layers under their keras.applications block names.
+* AOA (the JAX package's own layout; the reference's model is dead code):
+  ``feature_layer_norm`` gamma/beta and the wrapper ``aoa_decoder_*``: the
+  LSTM's kernel/recurrent_kernel/bias, ``_{k,v,q}_proj_kernel/_bias``,
+  ``_glu_{Wpq,Wph,bp,Wgq,Wgh,bg}``, and the refinement blocks
+  ``multi_head_encoder_{i}``; it has no ``global_img_feature``;
+* VGG16 / VGG19 conv layers under their keras.applications block names,
+  ResNet's ``res*`` / ``bn*`` layers and InceptionV3's numbered
+  ``conv2d_N`` / ``batch_normalization_N`` (``models/resnet.py``,
+  ``models/inception.py``).
 
 Keras's LSTM gate order [i, f, c(g), o] is the port's, and conv kernels are
 HWIO on both sides: nothing is permuted. h5py is imported inside the
@@ -27,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..weights import params_from_jax
+from .inception import load_keras_inception_v3_h5
+from .resnet import load_keras_resnet50_h5
 from .vgg import vgg_layers
 
 
@@ -86,9 +95,10 @@ def load_reference_decoder_h5(path: str, model_type: str) -> dict:
         params: dict = {
             "embedding": _pick(_layer_weights(root, "embedding"), "embedding"),
             "image_features": _dense(_layer_weights(root, "image_features")),
-            "global_img_feature": _dense(_layer_weights(root, "global_img_feature")),
             "output": _dense(_layer_weights(root, "output")),
         }
+        if model_type != "aoa":   # AOA has no global image feature head
+            params["global_img_feature"] = _dense(_layer_weights(root, "global_img_feature"))
         if model_type == "adaptiveattention":
             w = _layer_weights(root, "external_attention_rnn_wrapper_local_attention_v3")
             params["lstm"] = {
@@ -120,14 +130,36 @@ def load_reference_decoder_h5(path: str, model_type: str) -> dict:
                 "W_x": _pick(w, "_W_x"), "W_h": _pick(w, "_W_h", exclude=("_W_ha",)),
                 "W_s": _pick(w, "_W_s"),
             }
+        elif model_type == "aoa":
+            w = _layer_weights(root, "aoa_decoder")
+            fl = _layer_weights(root, "feature_layer_norm")
+            params["feat_ln"] = {"scale": _pick(fl, "gamma"), "bias": _pick(fl, "beta")}
+            params["lstm"] = {"wi": _pick(w, "kernel", exclude=("recurrent", "_proj")),
+                              "wh": _pick(w, "recurrent_kernel"),
+                              "b": _pick(w, "bias", exclude=("_proj", "_glu"))}
+            for proj in ("k_proj", "v_proj", "q_proj"):
+                params[proj] = {"kernel": _pick(w, f"_{proj}_kernel"),
+                                "bias": _pick(w, f"_{proj}_bias")}
+            params["glu"] = _glu(w)
+            params["refine"] = []
+            while any(f"multi_head_encoder_{len(params['refine'])}" in ln for ln in root):
+                rw = _layer_weights(root, f"multi_head_encoder_{len(params['refine'])}")
+                params["refine"].append({
+                    **{k: {"kernel": _pick(rw, f"{k}_kernel"), "bias": _pick(rw, f"{k}_bias")}
+                       for k in ("q", "k", "v")},
+                    "glu": _glu(rw),
+                    "ln": {"scale": _pick(rw, "ln_gamma"), "bias": _pick(rw, "ln_beta")}})
         else:
-            raise NotImplementedError(f"the port reads adaptiveattention | gridTD checkpoints; "
-                                      f"got {model_type!r} (AOA is ROADMAP A11)")
+            raise ValueError(f"unknown model_type {model_type!r}")
     return params
 
 
-def load_keras_vgg_h5(path: str, until: str = "block5_conv3") -> dict:
-    """VGG16 conv params (numpy) from a Keras HDF5 file: keras.applications
+def _glu(weights: dict) -> dict:
+    return {k: _pick(weights, f"glu_{k}:") for k in ("Wpq", "Wph", "bp", "Wgq", "Wgh", "bg")}
+
+
+def load_keras_vgg_h5(path: str, until: str = "block5_conv3", arch: str = "vgg16") -> dict:
+    """VGG16 / VGG19 conv params (numpy) from a Keras HDF5 file: keras.applications
     weight files (``f[name][name + '_W_1:0']``) and reference checkpoints
     (``f['model_weights'][name][...]``) alike."""
     import h5py
@@ -145,7 +177,7 @@ def load_keras_vgg_h5(path: str, until: str = "block5_conv3") -> dict:
                     return g[name]
             return None
 
-        for op in vgg_layers(until):
+        for op in vgg_layers(until, arch):
             if op[0] != "conv":
                 continue
             name = op[1]
@@ -180,12 +212,15 @@ def load_keras_vgg_h5(path: str, until: str = "block5_conv3") -> dict:
 def load_reference_checkpoint_h5(path: str, model_type: str, arch: str = "vgg16",
                                  until: str = "block5_conv3", device="cuda") -> dict:
     """Full captioner params ({'vgg', 'decoder'}) from a reference HDF5, as
-    float32 tensors on ``device``."""
-    if arch != "vgg16":
-        raise NotImplementedError(f"the port reads vgg16 checkpoints; got {arch!r} "
-                                  "(the other encoders are ROADMAP A11)")
-    tree = {"vgg": load_keras_vgg_h5(path, until),
-            "decoder": load_reference_decoder_h5(path, model_type)}
+    float32 tensors on ``device``; ``arch`` is the encoder (``until`` its
+    tap, read by VGG only)."""
+    if arch in ("resnet50", "resnet101"):
+        enc = load_keras_resnet50_h5(path, arch)
+    elif arch == "inception_v3":
+        enc = load_keras_inception_v3_h5(path)
+    else:
+        enc = load_keras_vgg_h5(path, until, arch)
+    tree = {"vgg": enc, "decoder": load_reference_decoder_h5(path, model_type)}
     return params_from_jax(tree, device)
 
 

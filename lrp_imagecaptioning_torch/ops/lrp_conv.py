@@ -1,13 +1,22 @@
-"""LRP rules for the VGG conv / pool layers, NHWC activations, HWIO kernels.
+"""LRP rules for the conv / pool layers, NHWC activations, HWIO kernels.
 
+* ``conv2d`` / ``conv2d_input_vjp`` — a conv of any kernel, stride and
+  padding ("VALID", or "SAME" as TensorFlow pads it where that padding is
+  symmetric: every conv of the ported encoders), and its transpose.
 * ``lrp_conv_alpha_beta`` — iNNvestigate's AlphaBetaRule (relevance_rule.py:
-  216-322) at alpha = 1, beta = 0, the only setting LRPSequentialPresetA
-  uses: inputs and weights split by sign, the bias split by sign too, zero
+  216-322) at alpha = 1, beta = 0, the only setting the explainers use:
+  inputs and weights split by sign, the bias split by sign too, zero
   denominators replaced via SafeDivide.
-* ``lrp_maxpool_wta`` — max pooling reversed by winner-take-all, with ties
-  splitting the relevance equally (the reduce-max VJP of the reference).
-  ``torch.max_pool2d``'s backward gives a tie's relevance to one index, so it
-  is not used.
+* ``lrp_conv_wsquare`` — the WSquareRule (relevance_rule.py:156-183) that
+  DeepTaylor takes on ResNet's and Inception's convs.
+* ``deeplift_conv_linear`` / ``deeplift_relu_rescale`` — DeepLIFT's
+  LinearRule and RescaleRule (deeplift.py:44-116).
+* ``lrp_maxpool_wta`` / ``lrp_maxpool_overlapping_wta`` — max pooling
+  reversed by winner-take-all, with ties splitting the relevance equally
+  (the reduce-max VJP of the reference). ``torch.max_pool2d``'s backward
+  gives a tie's relevance to one index, so it is not used.
+* ``avgpool2d`` / ``lrp_avgpool`` — average pooling (Inception's pools
+  divide by the count of in-image taps) and its z-rule.
 
 A tensor with batch 1 broadcasts against one with batch N (the forward
 activations shared by every word seed of the word-batched explanation).
@@ -20,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .lrp_core import safe_divide
+from .lrp_core import EPS_KERAS, safe_divide, sign_stabilizer
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -35,30 +44,63 @@ def _oihw(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.permute(3, 2, 0, 1)
 
 
-def _same_pad(kernel: torch.Tensor) -> tuple[int, int]:
+def _pads(size: int, k: int, stride: int, padding: str) -> tuple[int, int]:
+    """(before, after) zero padding of one axis, as TensorFlow pads it."""
+    if padding == "VALID":
+        return 0, 0
+    if padding != "SAME":
+        raise ValueError(f"padding {padding!r} not in ('SAME', 'VALID')")
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _window_pads(shape, kh: int, kw: int, stride: int, padding: str) -> tuple[int, int]:
+    """The (rows, cols) padding on each side of an NHWC tensor of ``shape``."""
+    (t, b), (l, r) = _pads(shape[1], kh, stride, padding), _pads(shape[2], kw, stride, padding)
+    if t != b or l != r:
+        raise ValueError(f"asymmetric SAME padding ({t}, {b}, {l}, {r}) for a {kh}x{kw}/{stride} "
+                         f"window over {tuple(shape[1:3])}")
+    return t, l
+
+
+def _output_padding(x_shape, out_shape, kh: int, kw: int, stride: int, pad) -> tuple[int, int]:
+    """The rows and columns of the padded input that no output window reaches
+    (fewer than the stride): what a transposed conv must add to give back
+    the input's shape (ResNet's conv1, 7x7/2 over 230 -> 112 -> 230)."""
+    return (x_shape[1] + 2 * pad[0] - ((out_shape[1] - 1) * stride + kh),
+            x_shape[2] + 2 * pad[1] - ((out_shape[2] - 1) * stride + kw))
+
+
+def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """NHWC input, HWIO kernel -> NHWC output."""
+    pad = _window_pads(x.shape, *kernel.shape[:2], stride, padding)
+    return _nhwc(F.conv2d(_nchw(x), _oihw(kernel), stride=stride, padding=pad))
+
+
+def conv2d_input_vjp(kernel: torch.Tensor, cotangent: torch.Tensor, x_shape=None,
+                     stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """Gradient of ``conv2d(x, kernel, stride, padding)`` wrt its input x for
+    ``cotangent`` (the transposed conv), NHWC. ``x_shape`` (its batch is not
+    read) gives x's height and width; it defaults to the cotangent's, which
+    a stride-1 SAME conv keeps."""
     kh, kw = kernel.shape[:2]
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError(f"SAME padding needs an odd kernel, got {kh}x{kw}")
-    return kh // 2, kw // 2
-
-
-def conv2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """3x3 SAME stride-1 conv: NHWC input, HWIO kernel -> NHWC output."""
-    return _nhwc(F.conv2d(_nchw(x), _oihw(kernel), padding=_same_pad(kernel)))
-
-
-def conv2d_input_vjp(kernel: torch.Tensor, cotangent: torch.Tensor) -> torch.Tensor:
-    """Gradient of ``conv2d(., kernel)`` wrt its input for ``cotangent``
-    (the transposed conv), NHWC."""
-    return _nhwc(F.conv_transpose2d(_nchw(cotangent), _oihw(kernel),
-                                    padding=_same_pad(kernel)))
+    if x_shape is None:
+        if stride != 1 or padding != "SAME":
+            raise ValueError("conv2d_input_vjp: a strided or VALID conv needs x_shape")
+        x_shape = cotangent.shape
+    pad = _window_pads(x_shape, kh, kw, stride, padding)
+    return _nhwc(F.conv_transpose2d(
+        _nchw(cotangent), _oihw(kernel), stride=stride, padding=pad,
+        output_padding=_output_padding(x_shape, cotangent.shape, kh, kw, stride, pad)))
 
 
 def lrp_conv_alpha_beta(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
-                        bias: torch.Tensor | None, input_nonneg: bool = False) -> torch.Tensor:
-    """AlphaBetaRule with alpha = 1, beta = 0 for a 3x3 SAME conv.
+                        bias: torch.Tensor | None, input_nonneg: bool = False,
+                        stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """AlphaBetaRule with alpha = 1, beta = 0.
 
-    ``input_nonneg=True`` declares x >= 0 (every post-ReLU VGG activation):
+    ``input_nonneg=True`` declares x >= 0 (every post-ReLU activation):
     the x-/W pair of convs is elided, and z still adds the FULL bias b+ + b-.
     """
     kp = kernel * (kernel >= 0)
@@ -71,21 +113,63 @@ def lrp_conv_alpha_beta(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
     xn = None if input_nonneg else torch.clamp(x, max=0)
 
     # the activator term: (x+, W+, b+) and (x-, W-, b-)
-    z = conv2d(xp, kp)
+    z = conv2d(xp, kp, stride, padding)
     if bp is not None:
         z = z + bp
     if xn is not None:
-        z2 = conv2d(xn, kn)
+        z2 = conv2d(xn, kn, stride, padding)
         if bn is not None:
             z2 = z2 + bn
         z = z + z2
     elif bn is not None:
         z = z + bn
     s = safe_divide(r, z)
-    out = xp * conv2d_input_vjp(kp, s)
+    out = xp * conv2d_input_vjp(kp, s, x.shape, stride, padding)
     if xn is not None:
-        out = out + xn * conv2d_input_vjp(kn, s)
+        out = out + xn * conv2d_input_vjp(kn, s, x.shape, stride, padding)
     return out
+
+
+def lrp_conv_wsquare(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                     padding: str = "SAME") -> torch.Tensor:
+    """WSquareRule: the weights squared over an input of ones, so the
+    relevance spreads by squared-weight share, whatever x holds (only its
+    shape is read)."""
+    k2 = kernel * kernel
+    z = conv2d(torch.ones_like(x[:1]), k2, stride, padding)
+    return conv2d_input_vjp(k2, safe_divide(r, z), x.shape, stride, padding)
+
+
+def deeplift_conv_linear(r: torch.Tensor, x: torch.Tensor, x_ref: torch.Tensor,
+                         z: torch.Tensor, z_ref: torch.Tensor, kernel: torch.Tensor,
+                         stride: int = 1, padding: str = "SAME",
+                         approximate: bool = True) -> torch.Tensor:
+    """DeepLIFT LinearRule for a bias-free conv (deeplift.py:77-116): the
+    relevance over the output difference (SafeDivide), back through the
+    conv's transpose, times the input difference; where |Δx| < eps the plain
+    gradient takes over (``approximate``, the reference's default)."""
+    dx = x - x_ref
+    s = safe_divide(r, z - z_ref)
+    contrib = dx * conv2d_input_vjp(kernel, s, x.shape, stride, padding)
+    if not approximate:
+        return contrib
+    grad = conv2d_input_vjp(kernel, r, x.shape, stride, padding)
+    return torch.where(dx.abs() < EPS_KERAS, grad, contrib)
+
+
+def deeplift_relu_rescale(r: torch.Tensor, x: torch.Tensor, x_ref: torch.Tensor,
+                          approximate: bool = True) -> torch.Tensor:
+    """DeepLIFT RescaleRule for a standalone ReLU (deeplift.py:44-73): the
+    relevance scaled by Δy/Δx, the ReLU's gradient where |Δx| < eps. The
+    other branch is the reference's unstabilised ``r Δy / (Δx + eps)``."""
+    dx = x - x_ref
+    dy = torch.relu(x) - torch.relu(x_ref)
+    if not approximate:
+        return r * dy / (dx + EPS_KERAS)
+    small = dx.abs() < EPS_KERAS
+    resc = r * dy / torch.where(small, torch.ones_like(dx), dx)
+    grad = torch.where(x > 0, r, torch.zeros_like(r))
+    return torch.where(small, grad, resc)
 
 
 def _windows(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -95,9 +179,18 @@ def _windows(x: torch.Tensor, window: int) -> torch.Tensor:
     return x.reshape(B, H // window, window, W // window, window, C)
 
 
-def maxpool2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """Non-overlapping max pool (window == stride, every VGG pool), NHWC."""
-    return _windows(x, window).amax(dim=(2, 4))
+def _tiles(x: torch.Tensor, window: int, stride: int | None) -> bool:
+    """True where the pool's windows tile x exactly (window == stride)."""
+    return (stride is None or stride == window) and x.shape[1] % window == 0 \
+        and x.shape[2] % window == 0
+
+
+def maxpool2d(x: torch.Tensor, window: int = 2, stride: int | None = None) -> torch.Tensor:
+    """VALID max pool, NHWC; ``stride`` defaults to the window (every VGG
+    pool; every max pool of the ported encoders is VALID)."""
+    if _tiles(x, window, stride):
+        return _windows(x, window).amax(dim=(2, 4))
+    return _nhwc(F.max_pool2d(_nchw(x), window, stride or window))
 
 
 def lrp_maxpool_wta(r: torch.Tensor, x: torch.Tensor, window: int = 2) -> torch.Tensor:
@@ -113,3 +206,70 @@ def lrp_maxpool_wta(r: torch.Tensor, x: torch.Tensor, window: int = 2) -> torch.
     rw = r.reshape(B, Ho, 1, Wo, 1, C)
     dx = mask * (rw / count)
     return dx.reshape(dx.shape[0], Ho * window, Wo * window, C)
+
+
+def lrp_maxpool_overlapping_wta(r: torch.Tensor, x: torch.Tensor, window: int = 3,
+                                stride: int = 2) -> torch.Tensor:
+    """Winner-take-all relevance through an overlapping VALID max pool
+    (ResNet's stem, Inception's reductions): each output's relevance divides
+    equally among the window entries equal to the max, and an input sums
+    what every window covering it hands back. window x window strided taps."""
+    B, H, W, C = x.shape
+    Ho, Wo = (H - window) // stride + 1, (W - window) // stride + 1
+    y = maxpool2d(x, window, stride)
+    hs, ws = (Ho - 1) * stride + 1, (Wo - 1) * stride + 1
+
+    def tap(dy, dx):
+        return x[:, dy:dy + hs:stride, dx:dx + ws:stride]
+
+    ties = torch.zeros_like(y)
+    for dy in range(window):
+        for dx in range(window):
+            ties = ties + (tap(dy, dx) == y).to(y.dtype)
+    r_scaled = r / ties
+    out = torch.zeros((r.shape[0], H, W, C), dtype=r.dtype, device=r.device)
+    for dy in range(window):
+        for dx in range(window):
+            out[:, dy:dy + hs:stride, dx:dx + ws:stride] += \
+                torch.where(tap(dy, dx) == y, r_scaled, torch.zeros_like(r_scaled))
+    return out
+
+
+def avgpool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
+              padding: str = "VALID") -> torch.Tensor:
+    """Average pool, NHWC, each output over its in-image taps only (Keras's
+    SAME average pool: ``count_include_pad=False``)."""
+    if _tiles(x, window, stride) and padding == "VALID":
+        return _windows(x, window).mean(dim=(2, 4))
+    stride = stride or window
+    pad = _window_pads(x.shape, window, window, stride, padding)
+    # an NCHW copy: on the card, avg_pool2d's backward over a channels-last
+    # view (what _nchw gives) returns a wrong gradient
+    return _nhwc(F.avg_pool2d(_nchw(x).contiguous(), window, stride, padding=pad,
+                              count_include_pad=False))
+
+
+def avgpool2d_input_vjp(cotangent: torch.Tensor, x_shape, window: int = 2,
+                        stride: int | None = None, padding: str = "VALID") -> torch.Tensor:
+    """Gradient of ``avgpool2d(x, window, stride, padding)`` wrt x for
+    ``cotangent``: each output's share (cotangent / its in-image tap count)
+    handed back to its taps, a depthwise transposed conv of ones."""
+    stride = stride or window
+    C = cotangent.shape[-1]
+    pad = _window_pads(x_shape, window, window, stride, padding)
+    ones = torch.ones((1, 1, x_shape[1], x_shape[2]), dtype=cotangent.dtype,
+                      device=cotangent.device)
+    counts = F.avg_pool2d(ones, window, stride, padding=pad, divisor_override=1)
+    taps = torch.ones((C, 1, window, window), dtype=cotangent.dtype, device=cotangent.device)
+    return _nhwc(F.conv_transpose2d(
+        _nchw(cotangent) / counts, taps, stride=stride, padding=pad, groups=C,
+        output_padding=_output_padding(x_shape, cotangent.shape, window, window, stride, pad)))
+
+
+def lrp_avgpool(r: torch.Tensor, x: torch.Tensor, window: int = 2, stride: int | None = None,
+                padding: str = "VALID") -> torch.Tensor:
+    """AveragePoolingReverseLayer (relevance_analyzer.py:262-291): the pool
+    as a linear layer under the z-rule, x * pool^T(r / stab(z))."""
+    z = avgpool2d(x, window, stride, padding)
+    s = safe_divide(r, sign_stabilizer(z))
+    return x * avgpool2d_input_vjp(s, x.shape, window, stride, padding)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..data.prefetch import prefetch
+from ..explain.aoa_backward import explain_word_aoa
 from ..explain.cnn_lrp import vgg_lrp_preset_a_wordbatched
 from ..explain.decoder_lrp import explain_word_adaptive, explain_word_gridtd
 from ..models.captioner import masked_accuracy, masked_ce_from_logits
@@ -83,7 +84,8 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
     """(B, T, V) relevance weights.
 
     images: (B, H, W, 3) preprocessed; y_pred_logits: (B, T, V) teacher-forced
-    predictions; stop_table: (V + 1,) bool (True = stop word).
+    predictions; stop_table: (V + 1,) bool (True = stop word). The CNN LRP
+    is VGG's (vgg16 or vgg19), as in the JAX package.
 
     ``max_words = W`` explains only the first W valid words of each sample
     (their positions gathered, in time order); a valid word beyond W keeps
@@ -113,8 +115,8 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
     else:
         pos = torch.arange(T, device=dev).expand(B, T)
         pos_valid = valid
-    backward = explain_word_adaptive if cap.model_type == "adaptiveattention" \
-        else explain_word_gridtd
+    backward = {"adaptiveattention": explain_word_adaptive, "gridTD": explain_word_gridtd,
+                "aoa": explain_word_aoa}[cap.model_type]
     r_feat, _, _ = backward(params["decoder"], consts, caches,
                             words0.gather(1, pos), positions=pos)               # (B, W, L, D)
 
@@ -122,7 +124,8 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
     seeds = r_feat.reshape(B, pos.shape[1], g, g, cfg.img_feature_dim)
     scores_w = torch.stack([
         _score(_project(vgg_lrp_preset_a_wordbatched(
-            params["vgg"], images[b:b + 1], seeds[b], cfg.layer_name).mean(dim=-1)), mode)
+            params["vgg"], images[b:b + 1], seeds[b], cfg.layer_name,
+            arch=cfg.img_encoder).mean(dim=-1)), mode)
         for b in range(B)])                                             # (B, W)
     scores_w = torch.where(pos_valid, scores_w, torch.zeros_like(scores_w))
     # back onto the (B, T) timeline (positions are unique in a row)

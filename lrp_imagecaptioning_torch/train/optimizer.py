@@ -1,7 +1,7 @@
 """Adam with element-wise gradient clipping, the reference's Keras config.
 
-Adam(lr, clipvalue=0.1) for adaptive attention and Adam(lr, beta_1=0.8,
-clipvalue=0.1) for grid-TD (model.py:468-470, :662-664). Keras ``clipvalue`` clips
+Adam(lr, clipvalue=0.1) for adaptive attention (and AOA) and Adam(lr,
+beta_1=0.8, clipvalue=0.1) for grid-TD (model.py:468-470, :662-664). Keras ``clipvalue`` clips
 each gradient element to [-c, c] before the moments (optax's ``clip``, not a
 clip of the norm).
 
@@ -69,10 +69,9 @@ ADAM_BETAS = {"adaptiveattention": (0.9, 0.999), "gridTD": (0.8, 0.999)}
 
 
 def make_optimizer(model_type: str, learning_rate: float, clipvalue: float = 0.1) -> Adam:
-    if model_type not in ADAM_BETAS:
-        raise NotImplementedError(f"the port trains {sorted(ADAM_BETAS)}; got {model_type!r} "
-                                  "(AOA is ROADMAP A11)")
-    b1, b2 = ADAM_BETAS[model_type]
+    """Adam with ``model_type``'s betas; a model without its own (AOA) takes
+    Keras's defaults, 0.9 and 0.999, as the JAX package's ``ADAM_BETAS.get``."""
+    b1, b2 = ADAM_BETAS.get(model_type, (0.9, 0.999))
     return Adam(learning_rate, b1=b1, b2=b2, clipvalue=clipvalue)
 
 

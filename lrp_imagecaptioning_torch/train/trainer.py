@@ -240,14 +240,14 @@ class Trainer:
         return history
 
 
-MODELTYPE = ("adaptiveattention", "gridTD")
+MODELTYPE = ("adaptiveattention", "gridTD", "aoa")
 
 
 def main_attention(config, dataset, label: str, model_type: str, weights: str | None = None,
                    device="cuda", **run_kw):
     """Reference entry point parity (train.py:679-682)."""
     if model_type not in MODELTYPE:
-        raise ValueError(f"model_type must be one of {MODELTYPE} (AOA is ROADMAP A11)")
+        raise ValueError(f"model_type must be one of {MODELTYPE}")
     t = Trainer(model_type, config, dataset, label, device=device)
     if weights:
         t.load_weights(weights)

@@ -72,8 +72,15 @@ def test_image_preprocessor_matches_jax(tmp_path):
     for _ in range(3):
         np.testing.assert_array_equal(t.preprocess_images(paths, random_transform=True),
                                       j.preprocess_images(paths, random_transform=True))
-    with pytest.raises(NotImplementedError, match="A11"):
-        timg.ImagePreprocessor(encoder="resnet50")
+    # every encoder: caffe BGR at 224x224 for VGG and ResNet, [-1, 1] at
+    # 299x299 for InceptionV3; an unknown encoder raises
+    for encoder in ("vgg19", "resnet50", "resnet101", "inception_v3"):
+        t = timg.ImagePreprocessor(encoder=encoder)
+        j = jimg.ImagePreprocessor(encoder=encoder)
+        np.testing.assert_array_equal(t.preprocess_batch_paths(paths),
+                                      j.preprocess_batch_paths(paths))
+    with pytest.raises(ValueError, match="encoder"):
+        timg.ImagePreprocessor(encoder="resnet152")
 
 
 @pytest.mark.parametrize("kw", [dict(theta=30.0), dict(tx=2.0, ty=-1.5), dict(shear=0.2),

@@ -1,5 +1,6 @@
 """PyTorch port: the gradient-family CNN explanations
-(``explain/cnn_gradient.py``) against the JAX package's, and the pieces of
+(``explain/cnn_gradient.py::gradient_maps`` over the VGG16 encoder) against
+the JAX package's VGG functions, and the pieces of
 Grad-CAM where the two frameworks differ: numpy-reflect padding wider than
 the axis (``jnp.pad`` reflects again, ``F.pad`` raises) and bilinear
 upsampling (``jax.image.resize`` against ``F.interpolate`` without
@@ -31,6 +32,11 @@ def _rel(got, ref):
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
+def _encode(pt):
+    """The VGG16 encoder as ``gradient_maps`` takes it."""
+    return lambda x, relu_fn: tvgg.vgg_apply(pt, x, UNTIL, relu_fn=relu_fn)
+
+
 @pytest.fixture(scope="module")
 def setup():
     pj = jvgg.init_vgg_params(jax.random.PRNGKey(2), "vgg16", UNTIL)
@@ -44,17 +50,35 @@ def setup():
                                   "vgg_guided_backprop", "vgg_deconvnet"])
 def test_vjp_methods_match_jax(setup, name):
     pj, pt, image, seeds = setup
-    got = getattr(tg, name)(pt, torch.from_numpy(image), torch.from_numpy(seeds), UNTIL)
+    got = tg.gradient_maps(name.removeprefix("vgg_"), _encode(pt), torch.from_numpy(image),
+                           torch.from_numpy(seeds))
     assert got.shape == (3, 8, 8, 3) and not got.requires_grad
     for w in range(3):
         ref = getattr(jg, name)(pj, jnp.asarray(image), jnp.asarray(seeds[w:w + 1]), "vgg16", UNTIL)
         assert _rel(got[w:w + 1], ref) <= MAP_RTOL
 
 
+@pytest.mark.parametrize("per_word", [False, True])
+def test_input_gradients_equal_one_vjp_a_word(setup, per_word):
+    """The W seeds' VJPs in one call (a batched backward over one image, or
+    one backward over W images) against one forward and one VJP a seed."""
+    _, pt, image, seeds = setup
+    rng = np.random.default_rng(14)
+    images = torch.from_numpy(image * rng.uniform(0.5, 1.5, size=(3, 1, 1, 1)).astype(np.float32)
+                              if per_word else image)
+    encode = _encode(pt)
+    got = tg.input_gradients(lambda x: encode(x, None), images, torch.from_numpy(seeds))
+    for w in range(3):
+        x = images[w:w + 1] if per_word else images
+        x = x.clone().requires_grad_(True)
+        (ref,) = torch.autograd.grad(encode(x, None), x, torch.from_numpy(seeds[w:w + 1]))
+        assert _rel(got[w:w + 1].numpy(), ref.numpy()) <= 1e-6
+
+
 def test_integrated_gradients_and_smoothgrad_match_jax(setup):
     pj, pt, image, seeds = setup
     ti, ts = torch.from_numpy(image), torch.from_numpy(seeds)
-    got = tg.vgg_integrated_gradients(pt, ti, ts, UNTIL, steps=4)
+    got = tg.gradient_maps("integrated_gradients", _encode(pt), ti, ts, steps=4)
     for w in range(3):
         ref = jg.vgg_integrated_gradients(pj, jnp.asarray(image), jnp.asarray(seeds[w:w + 1]),
                                           "vgg16", UNTIL, steps=4)
@@ -63,7 +87,8 @@ def test_integrated_gradients_and_smoothgrad_match_jax(setup):
     n, keys = 3, [jax.random.PRNGKey(10 + w) for w in range(3)]
     noise = np.stack([np.stack([np.asarray(jax.random.normal(k, image.shape, jnp.float32))[0]
                                 for k in jax.random.split(key, n)]) for key in keys])
-    got = tg.vgg_smoothgrad(pt, ti, ts, torch.from_numpy(noise), UNTIL, noise_scale=16.0)
+    got = tg.gradient_maps("smoothgrad", _encode(pt), ti, ts, noise=torch.from_numpy(noise),
+                           noise_scale=16.0)
     for w in range(3):
         ref = jg.vgg_smoothgrad(pj, jnp.asarray(image), jnp.asarray(seeds[w:w + 1]), keys[w],
                                 "vgg16", UNTIL, n=n, noise_scale=16.0)
@@ -122,8 +147,8 @@ def test_grad_cam_and_guided_gradcam_match_jax(setup):
             assert cams[w].abs().max() == 0
         else:
             assert _rel(cams[w], ref) <= MAP_RTOL
-    got = tg.vgg_guided_gradcam(pt, torch.from_numpy(image), torch.from_numpy(seeds),
-                                torch.from_numpy(feat), UNTIL)
+    got = tg.gradient_maps("guided_gradcam", _encode(pt), torch.from_numpy(image),
+                           torch.from_numpy(seeds), torch.from_numpy(feat))
     # the Explainer's recipe (engine.py:421-437): the CAM upscaled by the
     # tap's stride (2 here; jg.vgg_guided_gradcam fixes 16), then resized
     guided = jg.vgg_guided_backprop(pj, jnp.asarray(image), jnp.asarray(seeds[1:2]), "vgg16", UNTIL)

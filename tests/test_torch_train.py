@@ -239,10 +239,13 @@ def test_optimizer_matches_optax_over_three_steps(grad_scale):
 
 
 def test_make_optimizer_has_only_the_ported_model():
+    """Each model's betas, as the JAX package's ``ADAM_BETAS.get``: AOA has
+    none of its own and takes Keras's 0.9 / 0.999."""
     assert topt.make_optimizer("adaptiveattention", 1e-3).b1 == 0.9
     assert topt.make_optimizer("gridTD", 1e-3).b1 == 0.8
-    with pytest.raises(NotImplementedError, match="A11"):
-        topt.make_optimizer("aoa", 1e-3)
+    for model_type in ("adaptiveattention", "gridTD", "aoa"):
+        assert ((topt.make_optimizer(model_type, 1e-3).b1, topt.make_optimizer(model_type, 1e-3).b2)
+                == jopt.ADAM_BETAS.get(model_type, (0.9, 0.999)))
 
 
 def test_set_learning_rate():
