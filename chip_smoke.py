@@ -113,11 +113,35 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             evaluate-bbox and analyze-words --roc-auc on the default device,
             on the mini-Flickr30k fixture at full width; 10f a Trainer with
             pretrained GloVe vectors over half the vocabulary;
+11. other configurations: ResNet-101 (and ResNet-50) + adaptive attention,
+            InceptionV3 + grid-TD at 299x299, AOA on VGG16, VGG19, at
+            their published widths on seed-0 weights with BatchNorm
+            statistics drawn: lrp at f32 batch 8 and bf16 56, the other
+            methods on one image, one image against CPU f32 and f64, AOA's
+            decode, train and fine-tune steps;
+12. serving: VGG16 / adaptive attention at full width, seed-0 weights, in
+            ``build/phase12`` (removed after): 12a CaptionService at batch
+            8, warmup(explain=True), one caption and one counted explain
+            request of 8 images (ms, img/s, graphs unchanged after warmup),
+            the explanations bit for bit Explainer.analyze_batch's; one
+            counted explain in bf16 storage; 12b the HTTP front-end with
+            16 concurrent single-image clients, with the queue (linger 5
+            ms: dispatches, p50/p99, requests/s, answers within
+            TOL_SERVE_F16 of each image's direct explain) and without it
+            (bit for bit), and what the npz and HTTP add to one request;
+            12c the same over gRPC's raw and typed services where grpcio
+            imports; 12d export_serving at batch 8 and ExportedService
+            (export, load and warm-up seconds, program sizes, one counted
+            explain: tokens equal 12a's, maps within 1e-6); 12e the CLI's
+            ``serve`` live (mini fixture) and ``serve --exported`` in child
+            processes, one /explain each;
 5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph,
-            training and trainer card tests, in a child process (run last).
+            training, trainer, encoder and serving card tests, in a child
+            process (run last).
 
 Every path (f32, bf16, train, finetune, gridtd_f32, gridtd_bf16, trainer,
-gridtd_train, evaluate, and phase 10's deep_taylor and bbox) is driven
+gridtd_train, evaluate, phase 10's deep_taylor and bbox, phase 11's and
+phase 12's serve_f32, serve_bf16 and exported) is driven
 with the launch counts set to 0 just before it and read just after; each
 kernel's count must equal its calls on that path as phase 2's shapes derive
 them (for deep_taylor and bbox the shapes of the run's chunks, timed after
@@ -214,7 +238,8 @@ def log(*a):
 
 def probe_host() -> dict:
     """What the card's host offers beyond the promised packages: the Python
-    modules the port imports only where a path needs them, the java the
+    modules the port imports only where a path needs them (grpcio and
+    protobuf for the gRPC front-end), the java the
     metrics' jars need, and the libjpeg/libpng headers ``make -C native``
     compiles against (a syntax check in a temporary directory; nothing is
     built in the repository)."""
@@ -223,7 +248,8 @@ def probe_host() -> dict:
     import tempfile
 
     out = {m: importlib.util.find_spec(m) is not None
-           for m in ("PIL", "yaml", "nltk", "psutil", "h5py", "matplotlib")}
+           for m in ("PIL", "yaml", "nltk", "psutil", "h5py", "matplotlib", "grpc",
+                     "google.protobuf")}
     out["java"] = shutil.which("java") is not None
     cxx = shutil.which("g++") or shutil.which("c++")
     out["c++"] = cxx is not None
@@ -661,15 +687,19 @@ PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 **{p: ("lrp_linear", "lstm_gates", "conv3x3_fused")
                    for p in ("resnet101_f32", "inception_f32", "vgg19_f32", "aoa_f32")},
                 **{p: ("lrp_linear", "lstm_gates", "lrp_a1b0_fused")
-                   for p in ("vgg19_bf16", "aoa_bf16")}}
+                   for p in ("vgg19_bf16", "aoa_bf16", "serve_bf16")},
+                "serve_f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+                "exported": ("lrp_linear", "lstm_gates", "conv3x3_fused")}
 # the paths whose dispatches the Explainer plans from its captions' lengths
 # (phases 10 and 11): "deep_taylor" one analyze_batch of B_MAIN images, "bbox"
 # the analyze_many calls of evaluate_dataset over the test split at B_TRAIN,
 # phase 11's one analyze_batch each (f32 at B_MAIN, bf16 at B_BF16) on its
-# configuration (PATH_CONFIG); their kernels are timed at the shapes of that
-# run's chunks, (images, word bucket)
+# configuration (PATH_CONFIG), phase 12's one explain request of B_MAIN
+# images through CaptionService (serve_f32; serve_bf16 in bf16 storage) and
+# through the exported programs (exported); their kernels are timed at the
+# shapes of that run's chunks, (images, word bucket)
 PLAN_PATHS = ("deep_taylor", "bbox", "resnet101_f32", "inception_f32", "vgg19_f32", "vgg19_bf16",
-              "aoa_f32", "aoa_bf16")
+              "aoa_f32", "aoa_bf16", "serve_f32", "serve_bf16", "exported")
 PATH_TITLES = {"bf16": "phase 2b: the bf16 path's kernels vs their plain versions, batch {b}",
                "train": "phase 2c: the train path's kernel, K2 with its gradient, batch {b}",
                "finetune": "phase 2c: the fine-tune path's kernels, batch {b} x {w} words",
@@ -2275,15 +2305,17 @@ def plan_summary(dev, path, plan, failures, detail):
         for images, bucket in plan:
             key = (name, images, bucket)
             if key not in cache:
-                if (images, bucket) == (B_MAIN, T) and path in ("deep_taylor", "bbox"):
-                    cache[key] = [r for r in detail[name] if r["path"] == "f32"]
+                f32_rows = [r for r in detail.get(name, ()) if r["path"] == "f32"]
+                if (images, bucket) == (B_MAIN, T) and f32_rows and path in (
+                        "deep_taylor", "bbox", "serve_f32", "exported"):
+                    cache[key] = f32_rows
                 else:
                     cache[key] = check(gen, dev, path, (None, images, bucket))
             rows += copy.deepcopy(cache[key])
         log(f"  {path}: {name} at the run's chunks {plan}")
         out[name] = summarize_rows(name, path, B_TRAIN if path == "bbox" else plan[0][0], rows,
                                    failures)
-        detail[name] += rows
+        detail.setdefault(name, []).extend(rows)
     return out
 
 
@@ -3006,9 +3038,490 @@ def phase_configs(dev, failures, detail):
     return launches, summary, rep
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the serving entry points at full width (VGG16 + adaptive
+# attention, random weights from seed 0): CaptionService, the HTTP and gRPC
+# front-ends, the torch.export artifact, the CLI's serve
+# ---------------------------------------------------------------------------
+N_CLIENTS = 16              # concurrent single-image clients of 12b and 12c
+LINGER_MS = 5.0             # the queue's window (the CLI's default)
+CLI_SERVE_S = 5             # --serve-seconds of 12e's servers
+# the exported explain programs' word buckets: every bucket, unless
+# exporting them all takes over 120 s on the card. It took 212.4 s (25.7 s
+# the decode, 33-40 s each explain program; H100 80GB HBM3 at 700 W), so
+# the smoke exports (8,) and T
+EXPORT_BUCKETS = (8,)
+# 12b/12c: a coalesced request explains its image inside a batch of up to
+# B_MAIN rows where the direct reference runs it alone: held to the entry
+# points' batch-size bound, TOL_CONSISTENT_LRP, beyond one float16 spacing
+# of the payload (the random weights' heatmaps sit in float16's subnormal
+# range, values 6e-8 apart, where one rounding flip alone was 0.25 of their
+# scale). An H100 80GB HBM3 at 700 W read 1.4e-4. An uncoalesced request is
+# held bit for bit
+TOL_SERVE_F16 = TOL_CONSISTENT_LRP
+# 12a/12d: the same ops on the same shapes. On the card the heatmaps are not
+# bit for bit from run to run (analyze_batch against itself read 1.8e-7 of
+# scale, the other arrays 0): they are held within this, the rest exactly
+TOL_EXPORTED = 1e-6
+
+
+def serve_images(n, seed):
+    """``n`` N(0, 1) images as the host's float32 arrays (what clients send)."""
+    import numpy as np
+
+    return np.random.default_rng(seed).normal(size=(n, IMAGE, IMAGE, 3)).astype(np.float32)
+
+
+def f16_dist(payload, ref):
+    """The largest distance of a float16 payload array from the float32
+    reference, less one float16 spacing at the reference's value (a
+    rounding that the f32 difference flipped), over the reference's scale."""
+    import numpy as np
+
+    a = np.asarray(payload, np.float32)
+    b = np.asarray(ref, np.float32)
+    if a.shape != b.shape:
+        return float("inf")
+    if not b.size:
+        return 0.0
+    spacing = np.spacing(np.abs(b).astype(np.float16)).astype(np.float32)
+    excess = np.maximum(np.abs(a - b) - spacing, 0.0)
+    return float(excess.max()) / max(float(np.abs(b).max()), 1e-30)
+
+
+def answer_dist(answer, ref):
+    """An explain answer {caption, words, relevance_maps, word_relevances}
+    against a direct Explanation: inf where the words differ, else the
+    largest float16 distance of the two arrays."""
+    if answer["caption"] != ref.caption or list(answer["words"]) != list(ref.words):
+        return float("inf")
+    return max(f16_dist(answer["relevance_maps"], ref.relevance_maps),
+               f16_dist(answer["word_relevances"], ref.word_relevances))
+
+
+def npz_answer(body, i=0):
+    import io
+
+    import numpy as np
+
+    with np.load(io.BytesIO(body), allow_pickle=False) as z:
+        return {"caption": str(z[f"caption_{i}"]), "words": [str(w) for w in z[f"words_{i}"]],
+                "relevance_maps": z[f"relevance_maps_{i}"],
+                "word_relevances": z[f"word_relevances_{i}"]}
+
+
+def http_explain(port, image, timeout=300):
+    """POST one image as .npy to /explain -> (answer, seconds)."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, image[None])
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/explain?method=lrp",
+                                 data=buf.getvalue(),
+                                 headers={"Content-Type": "application/x-npy"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+    return npz_answer(body), time.perf_counter() - t0
+
+
+def concurrent_clients(call, images):
+    """``call(image)`` -> answer on one thread per image, all released
+    together -> (answers, per-request seconds, wall seconds)."""
+    import threading
+
+    n = len(images)
+    answers, lat, errors = [None] * n, [0.0] * n, []
+    gate = threading.Barrier(n + 1)
+
+    def client(i):
+        gate.wait()
+        t0 = time.perf_counter()
+        try:
+            answers[i] = call(images[i])
+        except Exception as e:  # noqa: BLE001 — reported to the phase
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"clients failed: {errors[:3]}")
+    return answers, lat, wall
+
+
+def latency_summary(lat, wall):
+    import numpy as np
+
+    ms = np.asarray(lat) * 1e3
+    return dict(p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                max_ms=float(ms.max()), requests_per_s=len(lat) / wall, wall_s=wall)
+
+
+def same_explanations(got, ref, fields=EXPLANATION_FIELDS):
+    """Tokens, words and each of ``fields`` of ``got`` bit for bit ``ref``'s."""
+    import numpy as np
+
+    return all(g.caption == r.caption and g.words == r.words
+               and np.array_equal(g.tokens_1based, r.tokens_1based)
+               and all(np.array_equal(getattr(g, f), getattr(r, f)) for f in fields)
+               for g, r in zip(got, ref)) and len(got) == len(ref)
+
+
+def held_to(got, ref, label, failures):
+    """12a/12d: tokens, words and every array but the heatmaps bit for bit,
+    the heatmaps within TOL_EXPORTED of their scale -> the distances."""
+    dist = explanation_dist(got, ref)
+    exact = same_explanations(got, ref, EXPLANATION_FIELDS[1:])
+    if not exact or dist["relevance_maps"] > TOL_EXPORTED:
+        failures.append(f"{label}: bit for bit but the heatmaps {exact}, distances {dist}")
+    return dict(exact_but_maps=exact, dist=dist)
+
+
+def serve_launch_check(label, launches, words, storage_dtype, failures):
+    """One explain request of len(words) images at B_MAIN: its plan and the
+    launches it derives (one beam search, one chunk)."""
+    plan = sorted_plan(words, B_MAIN)
+    want = explain_launches("adaptiveattention", storage_dtype, plan, decodes=1)
+    if launches != want:
+        failures.append(f"{label}: launches {launches}, {want} derived")
+    return plan, want
+
+
+def phase_serve_live(dev, failures, cap, params, images, storage_dtype=None, label="12a"):
+    """A warmed CaptionService at B_MAIN: one caption and one explain request
+    of len(images), counted; the graphs unchanged by them."""
+    from lrp_imagecaptioning_torch.infer.serving import CaptionService
+
+    svc = CaptionService(cap, params, CaptionPP(), batch_size=B_MAIN, beam_size=BEAM, max_len=T,
+                         storage_dtype=storage_dtype, device=dev)
+    _, warm_ms = timed(lambda: svc.warmup(explain=True))
+    before = svc.graph_stats()
+    caps, cap_ms, cap_launches = counted_run(svc.caption, images)
+    exps, ms, launches = counted_run(svc.explain, images)
+    after = svc.graph_stats()
+    words = [len(e.words) for e in exps]
+    plan, want = serve_launch_check(f"{label} explain", launches, words, storage_dtype, failures)
+    check_explanations(exps, words, f"{label} explain", failures, size=images.shape[1])
+    if cap_launches != explain_launches("adaptiveattention", None, [], decodes=1):
+        failures.append(f"{label} caption: launches {cap_launches}")
+    if caps != [" ".join(e.words) for e in exps]:
+        failures.append(f"{label}: captions {caps[:2]} differ from the explanations' words")
+    if after != before:
+        failures.append(f"{label}: requests after warmup changed the graphs: {before} -> {after}")
+    rep = dict(storage_dtype=str(storage_dtype), warmup_ms=warm_ms, caption_ms=cap_ms,
+               caption_img_per_s=len(images) / cap_ms * 1e3, caption_launches=cap_launches,
+               explain_ms=ms, explain_img_per_s=len(images) / ms * 1e3, words=words, plan=plan,
+               launches=launches, expected=want, graphs_after_warmup=before,
+               graphs_after_requests=after, pool_gib=after["pool_bytes"] / 2**30, **memory_gib())
+    log(f"  {label} CaptionService {rep['storage_dtype']} at {B_MAIN}: warmup {warm_ms:.1f} ms; "
+        f"caption of {len(images)} {cap_ms:.1f} ms = {rep['caption_img_per_s']:.2f} img/s; "
+        f"explain {ms:.1f} ms = {rep['explain_img_per_s']:.2f} img/s (words {words}); launches "
+        f"{launches}; graphs {before} -> {after}")
+    return svc, exps, rep
+
+
+def phase_serve(dev, failures, detail):
+    """12a-12e. Returns (launches, kernel summaries, report) of the paths
+    serve_f32, serve_bf16 and exported."""
+    import shutil
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+
+    work = os.path.join(HERE, "build", "phase12")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    launches, summary, rep = {}, {}, {}
+    cap = build_captioner("adaptiveattention", FlickrConfig(), VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    images = serve_images(B_MAIN, 12)
+    clients = serve_images(N_CLIENTS, 13)
+    state = {}
+
+    def section(title, fn):
+        log(f" phase {title}")
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception:  # noqa: BLE001 — a sub-phase that raises is recorded as failed
+            traceback.print_exc()
+            failures.append(f"phase {title} raised")
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def live():
+        svc, exps, rep["live"] = phase_serve_live(dev, failures, cap, params, images)
+        launches["serve_f32"] = rep["live"]["launches"]
+        summary["serve_f32"] = plan_summary(dev, "serve_f32", rep["live"]["plan"], failures,
+                                            detail)
+        ex = explainer_for(cap, params, dev, batch_size=B_MAIN)
+        ref = ex.analyze_batch(images)
+        r = rep["live"]["vs_analyze_batch"] = held_to(exps, ref, "12a vs analyze_batch", failures)
+        r["analyze_batch_run_to_run"] = explanation_dist(ex.analyze_batch(images), ref)
+        log(f"  12a explain vs Explainer.analyze_batch on the same images: all but the heatmaps "
+            f"bit for bit {r['exact_but_maps']}; distances {r['dist']}; analyze_batch against "
+            f"itself {r['analyze_batch_run_to_run']}")
+        del ex
+        state.update(svc=svc, exps=exps)
+        gc.collect()
+        _, _, rep["live_bf16"] = phase_serve_live(dev, failures, cap, params, images,
+                                                  torch.bfloat16, "12a bf16")
+        launches["serve_bf16"] = rep["live_bf16"]["launches"]
+        summary["serve_bf16"] = plan_summary(dev, "serve_bf16", rep["live_bf16"]["plan"],
+                                             failures, detail)
+
+    def direct_refs():
+        """Each client image explained alone, directly (queue stopped)."""
+        svc = state["svc"]
+        svc.stop_queue()
+        state["direct"] = [svc.explain(clients[i:i + 1])[0] for i in range(N_CLIENTS)]
+        return state["direct"]
+
+    def http():
+        from lrp_imagecaptioning_torch.infer.http_server import CaptionHTTPServer, npz_payload
+
+        svc = state["svc"]
+        direct = direct_refs()
+        one, direct_ms = timed(svc.explain, clients[:1])
+        server = CaptionHTTPServer(svc, port=0).start()
+        try:
+            # what the npz encoding and the HTTP copy add to one request
+            _, http_s = http_explain(server.port, clients[0])
+            _, http_s = http_explain(server.port, clients[0])
+            body, npz_s = timed(npz_payload, one)
+            r = dict(direct_ms=direct_ms, http_ms=http_s * 1e3, npz_ms=npz_s,
+                     npz_bytes=len(body))
+            # 16 concurrent clients with the queue running: coalesced
+            svc.start_queue(linger_ms=LINGER_MS)
+            n0 = svc.stats["requests"]
+            answers, lat, wall = concurrent_clients(lambda im: http_explain(server.port, im)[0],
+                                                    clients)
+            r["queued"] = dict(dispatches=svc.stats["requests"] - n0,
+                               worst=max(answer_dist(a, d) for a, d in zip(answers, direct)),
+                               **latency_summary(lat, wall))
+            # and with the queue stopped: direct dispatches under the service's lock
+            svc.stop_queue()
+            n0 = svc.stats["requests"]
+            answers, lat, wall = concurrent_clients(lambda im: http_explain(server.port, im)[0],
+                                                    clients)
+            r["direct"] = dict(dispatches=svc.stats["requests"] - n0,
+                               worst=max(answer_dist(a, d) for a, d in zip(answers, direct)),
+                               **latency_summary(lat, wall))
+        finally:
+            server.stop()
+        rep["http"] = r
+        log(f"  12b one image: direct explain {direct_ms:.1f} ms, over HTTP {r['http_ms']:.1f} ms, "
+            f"of which the npz payload's encoding {npz_s:.1f} ms ({len(body)} bytes)")
+        for mode in ("queued", "direct"):
+            q = r[mode]
+            log(f"  12b {N_CLIENTS} concurrent HTTP clients, queue {mode}: {q['dispatches']} "
+                f"dispatches; p50 {q['p50_ms']:.1f} ms, p99 {q['p99_ms']:.1f} ms, "
+                f"{q['requests_per_s']:.2f} requests/s; worst answer {q['worst']:.3e} of scale")
+        if r["queued"]["worst"] > TOL_SERVE_F16:
+            failures.append(f"12b queued answers differ from the direct ones: {r['queued']['worst']}")
+        if r["direct"]["worst"] != 0.0:
+            failures.append(f"12b answers with the queue stopped differ from the direct ones: "
+                            f"{r['direct']['worst']}")
+        if r["direct"]["dispatches"] != N_CLIENTS:
+            failures.append(f"12b: {r['direct']['dispatches']} dispatches without the queue")
+
+    def grpc():
+        import importlib.util
+
+        if importlib.util.find_spec("grpc") is None:
+            log("  grpcio is absent on this host: 12c not run")
+            rep["grpc"] = "grpcio absent"
+            return
+        from lrp_imagecaptioning_torch.infer.grpc_server import (CaptionGrpcClient,
+                                                                  CaptionGrpcServer,
+                                                                  CaptionGrpcTypedClient)
+
+        svc = state["svc"]
+        direct = state.get("direct") or direct_refs()
+        server = CaptionGrpcServer(svc, port=0, max_workers=N_CLIENTS).start()
+        svc.start_queue(linger_ms=LINGER_MS)
+        target = f"127.0.0.1:{server.port}"
+        raw, typed = CaptionGrpcClient(target), CaptionGrpcTypedClient(target)
+        r = {"typed_registered": server.typed}
+        try:
+            def raw_call(im):
+                z = raw.explain(im[None], "lrp")
+                return {"caption": str(z["caption_0"]), "words": [str(w) for w in z["words_0"]],
+                        "relevance_maps": z["relevance_maps_0"],
+                        "word_relevances": z["word_relevances_0"]}
+
+            for name, call in (("raw", raw_call), ("typed", lambda im: typed.explain(im[None],
+                                                                                    "lrp")[0])):
+                n0 = svc.stats["requests"]
+                answers, lat, wall = concurrent_clients(call, clients)
+                r[name] = dict(dispatches=svc.stats["requests"] - n0,
+                               worst=max(answer_dist(a, d) for a, d in zip(answers, direct)),
+                               **latency_summary(lat, wall))
+                log(f"  12c gRPC {name}, {N_CLIENTS} concurrent clients, queue running: "
+                    f"{r[name]['dispatches']} dispatches; p50 {r[name]['p50_ms']:.1f} ms, p99 "
+                    f"{r[name]['p99_ms']:.1f} ms, {r[name]['requests_per_s']:.2f} requests/s; "
+                    f"worst answer {r[name]['worst']:.3e} of scale")
+                if r[name]["worst"] > TOL_SERVE_F16:
+                    failures.append(f"12c {name} answers differ from the direct ones: "
+                                    f"{r[name]['worst']}")
+            r["captions"] = raw.caption(images) == typed.caption(images) == \
+                [" ".join(e.words) for e in state["exps"]]
+            if not r["captions"]:
+                failures.append("12c: gRPC captions differ from 12a's")
+        finally:
+            raw.close()
+            typed.close()
+            svc.stop_queue()
+            server.stop()
+        rep["grpc"] = r
+
+    def exported():
+        from lrp_imagecaptioning_torch.infer.export import ExportedService, export_serving
+
+        out = os.path.join(work, "artifact")
+        _, export_ms = timed(lambda: export_serving(
+            cap, params, CaptionPP(), out, batch_size=B_MAIN, beam_size=BEAM, max_len=T,
+            method="lrp", word_buckets=EXPORT_BUCKETS, device=dev))
+        with open(os.path.join(out, "export.json")) as f:
+            programs = json.load(f)
+        esvc, load_ms = timed(lambda: ExportedService(out, device=dev))
+        before = esvc.graph_stats()
+        caps = esvc.dispatch(images)
+        got, ms, counted = counted_run(lambda: esvc.dispatch(images, explain=True))
+        after = esvc.graph_stats()
+        words = [len(e.words) for e in got]
+        plan, want = serve_launch_check("12d exported explain", counted, words, None, failures)
+        launches["exported"] = counted
+        summary["exported"] = plan_summary(dev, "exported", plan, failures, detail)
+        ref = state["exps"]
+        held = held_to(got, ref, "12d exported vs 12a", failures)
+        rep["exported"] = dict(export_s=export_ms / 1e3, programs=programs, load_warmup_s=load_ms
+                               / 1e3, warmup_s=esvc.stats.get("warmup_s"), explain_ms=ms,
+                               explain_img_per_s=len(images) / ms * 1e3, launches=counted,
+                               expected=want, graphs_after_warmup=before,
+                               graphs_after_requests=after, **held)
+        log(f"  12d export_serving at batch {B_MAIN}, buckets {EXPORT_BUCKETS} + T: "
+            f"{export_ms / 1e3:.1f} s ({programs['seconds']}; bytes {programs['bytes']}); "
+            f"load + warmup {load_ms / 1e3:.1f} s; explain of {len(images)} {ms:.1f} ms = "
+            f"{rep['exported']['explain_img_per_s']:.2f} img/s; launches {counted}; graphs "
+            f"{before} -> {after}; against 12a: all but the heatmaps bit for bit "
+            f"{held['exact_but_maps']}, {held['dist']}")
+        if caps != [" ".join(e.words) for e in ref]:
+            failures.append("12d: the exported captions differ from 12a's")
+        if after != before:
+            failures.append(f"12d: requests after warmup changed the graphs: {before} -> {after}")
+        state["artifact"] = out
+        del esvc
+
+    def cli():
+        rep["cli"] = phase_serve_cli(work, state, images[0], failures)
+
+    state["svc"] = None
+    for title, fn in (("12a: CaptionService, f32 and bf16, batch 8", live),
+                      (f"12b: the HTTP front-end, {N_CLIENTS} concurrent clients", http),
+                      (f"12c: the gRPC front-end, {N_CLIENTS} concurrent clients", grpc),
+                      ("12d: export_serving and ExportedService", exported),
+                      ("12e: the CLI's serve, live and --exported", cli)):
+        if fn is not live and state["svc"] is None:
+            failures.append(f"phase {title} skipped: 12a did not run")
+            continue
+        section(title, fn)
+    state.clear()
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, summary, rep
+
+
+def serve_subprocess(argv, cwd, image, label, failures):
+    """``cli serve ... --port 0`` in a child process: wait for its port, send
+    one /explain request, let it exit after --serve-seconds (killed past a
+    deadline) -> (answer or None, report)."""
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "lrp_imagecaptioning_torch.cli", "serve", *argv, "--port", "0",
+           "--serve-seconds", str(CLI_SERVE_S)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, port = [], []
+    ready = threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "serving on http://" in line and not port:
+                port.append(int(line.split("http://", 1)[1].split()[0].rsplit(":", 1)[1]))
+                ready.set()
+        ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    answer, r = None, {}
+    try:
+        ready.wait(timeout=300)
+        r["start_s"] = time.perf_counter() - t0
+        if port:
+            answer, s = http_explain(port[0], image)
+            r["request_ms"] = s * 1e3
+        proc.wait(timeout=CLI_SERVE_S + 120)
+    except Exception:  # noqa: BLE001 — reported below
+        traceback.print_exc()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    r.update(rc=proc.returncode, tail=lines[-6:])
+    log(f"  12e {label}: rc {proc.returncode}, serving after {r.get('start_s', 0):.1f} s, "
+        f"one /explain {r.get('request_ms', float('nan')):.1f} ms; {lines[-3:]}")
+    if proc.returncode != 0 or answer is None:
+        failures.append(f"12e {label}: rc {proc.returncode}, answer {answer is not None}; "
+                        f"{lines[-10:]}")
+    return answer, r
+
+
+def phase_serve_cli(work, state, image, failures):
+    """12e: ``serve --with-explain`` on the mini-Flickr30k fixture at full
+    width (seed-0 params), and ``serve --exported`` over 12d's artifact
+    (answer equal to 12a's first explanation), one /explain request each."""
+    from lrp_imagecaptioning_torch.data.minifixture import write_mini_flickr30k
+
+    rep = {}
+    write_mini_flickr30k(os.path.join(work, "mini"))
+    live_argv = ["--dataset", "flickr30k", "--dataset-root", "mini", "--batch-size",
+                 str(B_MAIN), "--set", "words_min_occur=1", "--set",
+                 "rare_words_handling=nothing", "--with-explain"]
+    answer, rep["live"] = serve_subprocess(live_argv, work, image, "serve", failures)
+    if answer is not None and len(answer["words"]) != answer["relevance_maps"].shape[0]:
+        failures.append(f"12e serve: {len(answer['words'])} words, maps "
+                        f"{answer['relevance_maps'].shape}")
+    if "artifact" not in state:
+        failures.append("12e serve --exported skipped: 12d did not run")
+        return rep
+    answer, rep["exported"] = serve_subprocess(["--exported", state["artifact"], "--with-explain"],
+                                               work, image, "serve --exported", failures)
+    if answer is not None:
+        rep["exported"]["dist"] = answer_dist(answer, state["exps"][0])
+        if rep["exported"]["dist"] > TOL_EXPORTED:
+            failures.append(f"12e serve --exported: answer {rep['exported']['dist']} from 12a's")
+    return rep
+
+
 CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
               "tests/test_torch_train_card.py", "tests/test_torch_explainer_card.py",
-              "tests/test_torch_trainer_card.py", "tests/test_torch_encoders_card.py"]
+              "tests/test_torch_trainer_card.py", "tests/test_torch_encoders_card.py",
+              "tests/test_torch_serving_card.py"]
 
 
 def phase_card_tests(failures):
@@ -3028,7 +3541,16 @@ def phase_card_tests(failures):
     return dict(rc=proc.returncode, summary=summary)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """With no arguments every phase runs. ``--only KEY[,KEY]`` (debugging:
+    e.g. ``--only serve``) builds the kernels and runs those phases alone,
+    then exits 0 or 1 without the result lines."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None, help="comma-separated phase keys")
+    only = ap.parse_args(argv).only
+    only = None if only is None else set(only.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test runs on the card only",
               file=sys.stderr)
@@ -3077,11 +3599,17 @@ def main() -> int:
                "explanations"),
               ("phase 11: the other configurations at full width: ResNet-101/50, InceptionV3 "
                "+ grid-TD, AOA, VGG19", "configs"),
+              ("phase 12: the serving entry points at full width: CaptionService, HTTP, gRPC, "
+               "export, the CLI's serve", "serve"),
               ("phase 5: card tests", "card_tests")]
     summary = built = handoff = None
     launches = {}   # path -> {kernel: launches in its counted pass}
     explainer_launches = {}   # the Explainer's runs: each held to its own plan
     t_start = time.perf_counter()
+    if only is not None:
+        _build.build_all()
+        summary = {name: {} for name in KERNEL_META}
+        phases = [(title, key) for title, key in phases if key in only]
     for title, key in phases:
         log(title)
         t0 = time.perf_counter()
@@ -3174,6 +3702,15 @@ def main() -> int:
                     for path, by_kernel in config_summaries.items():
                         for name, s_ in by_kernel.items():
                             summary[name][path] = s_
+            elif key == "serve":
+                gc.collect()
+                torch.cuda.empty_cache()
+                serve_launches, serve_summaries, report["serve"] = phase_serve(
+                    dev, failures, report.get("kernel_shapes") or {})
+                launches.update(serve_launches)
+                for path, by_kernel in serve_summaries.items():
+                    for name, s_ in by_kernel.items():
+                        summary.setdefault(name, {})[path] = s_
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)
@@ -3231,6 +3768,9 @@ def main() -> int:
         for msg in failures:
             print(f"FAILED: {msg}", file=sys.stderr)
         return 1
+    if only is not None:
+        log(f"--only {sorted(only)}: passed; no result lines for a partial run")
+        return 0
     print(json.dumps({"kernels": kernels_line}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,6 +7,9 @@
     python -m lrp_imagecaptioning_torch.cli evaluate-bbox --weights ckpt.npz --entities-json F.json
     python -m lrp_imagecaptioning_torch.cli analyze-words --weights ckpt.npz --predictions P.yaml --roc-auc
     python -m lrp_imagecaptioning_torch.cli parity        --h5 ckpt.hdf5 --image img.png --out DIR
+    python -m lrp_imagecaptioning_torch.cli serve         --weights ckpt.npz --with-explain --port 8000
+    python -m lrp_imagecaptioning_torch.cli export-serving --weights ckpt.npz --with-explain --out DIR
+    python -m lrp_imagecaptioning_torch.cli serve         --exported DIR --with-explain
 
 ``--model`` is adaptiveattention, gridTD or aoa; the encoder is the config's
 (``--set img_encoder=vgg16|vgg19|resnet50|resnet101|inception_v3`` with its
@@ -19,8 +22,11 @@ trace of the whole command. ``--weights`` reads the port's npz checkpoints,
 the JAX package's flat params npz (its ``save_params_npz``) and reference
 Keras .h5/.hdf5 files. ``parity`` reads and writes the JAX command's
 ``parity-expected.npz`` (keys ``tokens_1based``, ``relevance_maps``,
-``attentions``), so one recording checks both packages. The JAX CLI's
-``serve`` and ``export-serving`` (ROADMAP A13) are not ported yet.
+``attentions``), so one recording checks both packages. ``serve`` runs the
+HTTP (or ``--transport grpc``) front-end over a warmed ``CaptionService``
+with its micro-batching queue, or over an ``export-serving`` artifact
+(``--exported DIR``: no model, config or tokenizer code in the process);
+``--mesh`` and ``--shard-words`` (several cards, ROADMAP A13b) raise.
 """
 
 from __future__ import annotations
@@ -347,6 +353,107 @@ def cmd_parity(args):
         print(f"recorded parity expectation in {out} (re-run with --expect {out} to diff)")
 
 
+def cmd_export_serving(args):
+    """Trace the decode (and, with --with-explain, the bucketed explain
+    programs) into a torch.export serving artifact (infer/export.py)."""
+    from .data.provider import DatasetProvider
+    from .infer.export import export_serving
+    from .models.captioner import build_captioner
+
+    cfg, dataset = _build_dataset(args)
+    provider = DatasetProvider(dataset, cfg)
+    captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
+    params = _load_params(captioner, args)
+    out = export_serving(captioner, params, provider.caption_preprocessor, args.out,
+                         batch_size=args.batch_size or cfg.batch_size, beam_size=args.beam_size,
+                         method=args.method if args.with_explain else None, device=args.device)
+    print(f"exported serving artifact to {out}")
+
+
+def _validate_exported(args) -> dict:
+    """Fail at start-up, before the artifact is loaded, where the flags
+    contradict what it was exported with; returns its meta.json."""
+    import json
+
+    with open(os.path.join(args.exported, "meta.json")) as f:
+        meta = json.load(f)
+    exported_method = meta.get("method")
+    if args.with_explain and not exported_method:
+        raise SystemExit("--with-explain: artifact was exported without explain programs "
+                         "(re-export with --with-explain/--method)")
+    if args.with_explain and args.method and args.method != exported_method:
+        raise SystemExit(f"--method {args.method}: artifact was exported with method "
+                         f"{exported_method!r}")
+    for flag, val, default in (("--batch-size", args.batch_size, None),
+                               ("--beam-size", args.beam_size, 3),
+                               ("--split-buckets", args.split_buckets, False)):
+        if val != default:
+            print(f"warning: {flag} is fixed at export time; ignoring (artifact: batch "
+                  f"{meta['batch_size']}, beam {meta['beam_size']})", flush=True)
+    return meta
+
+
+def cmd_serve(args):
+    """A warmed CaptionService with its micro-batching queue behind the HTTP
+    (or gRPC) front-end; with --exported DIR an ExportedService over a
+    torch.export artifact instead."""
+    import time
+
+    from .infer.http_server import CaptionHTTPServer
+
+    if args.mesh > 1 or args.shard_words:
+        raise NotImplementedError("--mesh and --shard-words (serving over several cards) are "
+                                  "not ported yet: ROADMAP A13b")
+    if args.exported:
+        from .infer.export import ExportedService
+
+        _validate_exported(args)
+        print(f"loading exported artifact {args.exported}...", flush=True)
+        svc = ExportedService(args.exported, device=args.device)
+        print(f"warmed in {svc.stats.get('warmup_s')}s (batch {svc.meta['batch_size']}, "
+              f"beam {svc.meta['beam_size']})", flush=True)
+    else:
+        from .data.provider import DatasetProvider
+        from .infer.serving import CaptionService
+        from .models.captioner import build_captioner
+
+        cfg, dataset = _build_dataset(args)
+        provider = DatasetProvider(dataset, cfg)
+        captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
+        params = _load_params(captioner, args)
+        serve_batch = args.batch_size or cfg.batch_size
+        svc = CaptionService(captioner, params, provider.caption_preprocessor,
+                             batch_size=serve_batch, beam_size=args.beam_size,
+                             split_buckets=args.split_buckets, device=args.device)
+        print(f"warming up (batch {serve_batch}, beam {args.beam_size}, "
+              f"explain={args.with_explain})...", flush=True)
+        svc.warmup(explain=args.with_explain, method=args.method or "lrp")
+        svc.start_queue(linger_ms=args.linger_ms)
+    if args.transport == "grpc":
+        from .infer.grpc_server import CaptionGrpcServer
+
+        server = CaptionGrpcServer(svc, host=args.host, port=args.port).start()
+        print(f"serving gRPC on {args.host}:{server.port} "
+              f"(/lrpic.CaptionService/{{Caption,Explain,Health,Stats}})", flush=True)
+    else:
+        server = CaptionHTTPServer(svc, host=args.host, port=args.port).start()
+        print(f"serving on http://{args.host}:{server.port} "
+              f"(POST /caption, /explain; GET /healthz, /stats)", flush=True)
+    try:
+        if args.serve_seconds:
+            time.sleep(args.serve_seconds)
+        else:  # pragma: no cover - interactive loop
+            import threading
+
+            threading.Event().wait()
+    except KeyboardInterrupt:  # pragma: no cover - interactive loop
+        pass
+    finally:
+        server.stop()
+        if hasattr(svc, "stop_queue"):
+            svc.stop_queue()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m lrp_imagecaptioning_torch.cli")
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -362,7 +469,7 @@ def main(argv=None):
     p.add_argument("--time-limit", default=None, help="e.g. '12 hours'")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="data-parallel mesh size: not ported yet (ROADMAP A13), raises")
+                   help="data-parallel mesh size: not ported yet (ROADMAP A13b), raises")
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="only 1: the port has no K-steps-a-call variants")
     p.set_defaults(fn=cmd_train)
@@ -434,6 +541,43 @@ def main(argv=None):
     p.add_argument("--tol", type=float, default=1e-3,
                    help="max allowed map deviation as a fraction of the expectation's scale")
     p.set_defaults(fn=cmd_parity)
+
+    p = sub.add_parser("serve", help="HTTP/gRPC caption and explanation service")
+    _add_common(p)
+    # default None: with --exported the artifact pins the method
+    p.add_argument("--method", default=None, choices=list(_METHOD_CHOICES))
+    p.add_argument("--beam-size", type=int, default=3)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000, help="0 binds a free port (printed)")
+    p.add_argument("--transport", default="http", choices=("http", "grpc"))
+    p.add_argument("--mesh", type=int, default=0,
+                   help="data-parallel serving over N cards: not ported yet (ROADMAP A13b), "
+                        "raises")
+    p.add_argument("--split-buckets", dest="split_buckets", action="store_true",
+                   help="explain requests dispatch per caption-length bucket at ladder "
+                        "sub-batch sizes (latency mode)")
+    p.add_argument("--shard-words", action="store_true",
+                   help="shard one image's words over several cards: not ported yet "
+                        "(ROADMAP A13b), raises")
+    p.add_argument("--linger-ms", type=float, default=5.0,
+                   help="micro-batching window for concurrent requests")
+    p.add_argument("--with-explain", action="store_true",
+                   help="also warm the explanation endpoint (every graph it replays)")
+    p.add_argument("--serve-seconds", type=float, default=None,
+                   help="exit after N seconds (tests, smoke); default: run until interrupted")
+    p.add_argument("--exported", default=None, metavar="DIR",
+                   help="serve from an export-serving artifact instead of building the model")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("export-serving",
+                       help="trace the decode and explain programs into a torch.export artifact")
+    _add_common(p)
+    p.add_argument("--method", default="lrp", choices=list(_METHOD_CHOICES))
+    p.add_argument("--beam-size", type=int, default=3)
+    p.add_argument("--with-explain", action="store_true",
+                   help="also export the bucketed explain programs")
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_export_serving)
 
     args = ap.parse_args(argv)
     if args.profile:

@@ -31,7 +31,7 @@ decoder stage and are dropped, and the CNN side runs on the real rows only.
 
 The JAX package encodes and runs the cached forward at batch 1 per image;
 here they run at batch B (the same function, summed in another order).
-``mesh=`` / ``shard_words=`` (ROADMAP A13) raise ``NotImplementedError``.
+``mesh=`` / ``shard_words=`` (ROADMAP A13b) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..graphs import GraphCache, param_tensors
-from ..infer.beam import beam_search
+from ..infer.beam import beam_search, n_explained as _n_explained
 from ..models.vgg import vgg_apply
 from ..runtime import resolve_device
 from ..weights import tree_leaves, tree_to
@@ -75,16 +75,6 @@ class Explanation:
     attentions: np.ndarray       # (W, L) attention at each explained word
     word_relevances: np.ndarray  # (W, T) linguistic relevances, normalized
     betas: np.ndarray            # (W,) sentinel gate at each explained word
-
-
-def _n_explained(tokens_row, eos) -> int:
-    """Number of word positions before the first EOS/pad in a 1-based row."""
-    n = 0
-    for tok in tokens_row:
-        if tok == 0 or tok == eos:
-            break
-        n += 1
-    return n
 
 
 def _pad_rows(x, k: int):
@@ -135,7 +125,7 @@ class Explainer:
             raise ValueError(f"method {method!r} not in {METHODS}")
         if mesh is not None or shard_words:
             raise NotImplementedError("mesh= and shard_words= (torch.distributed over several "
-                                      "cards) are not ported yet: ROADMAP A13")
+                                      "cards) are not ported yet: ROADMAP A13b")
         self.device = resolve_device(device)
         self.captioner = captioner
         self.params = tree_to(params, self.device)
@@ -202,11 +192,12 @@ class Explainer:
     def _encode(self, images):
         return self.captioner.encode(self.params, images)
 
-    def _cnn(self, images, feat_grid, r_feat):
-        """The CNN side of the method: (B, W, L, D) seeds -> (B, W, H, W, 3)."""
+    def _cnn(self, images, feat_grid, r_feat, params=None):
+        """The CNN side of the method: (B, W, L, D) seeds -> (B, W, H, W, 3);
+        ``params`` default the Explainer's (the gradient methods read those)."""
         cfg = self.captioner.cfg
         enc, until = cfg.img_encoder, cfg.layer_name
-        vgg = self.params["vgg"]
+        vgg = (self.params if params is None else params)["vgg"]
         if self.method == "lrp" and enc in ("vgg16", "vgg19"):
             return vgg_lrp_per_image(vgg, images, r_feat, until, self._storage_dtype, enc)
         B, W, L, D = r_feat.shape
@@ -286,12 +277,19 @@ class Explainer:
         image -> (maps, r_feat, r_words, attentions, betas) of the first ``n``
         rows (default all B) on the device; the rows past ``n`` are padding,
         which the CNN side skips."""
+        return self._explain_batch_impl(self.params, images, toks, W, n, self._decoder_stage)
+
+    def _explain_batch_impl(self, params, images, toks, W: int, n: int | None = None,
+                            decoder_stage=None):
+        """``_explain_batch`` on explicit ``params``, its decoder stage by
+        default the eager one: the body ``infer/export.py`` traces per bucket
+        (no graph replay, no host sync)."""
         n = images.shape[0] if n is None else n
-        feat_grid = self._encode(images)
-        positions = torch.arange(W, device=self.device).expand(images.shape[0], W).contiguous()
-        outs = self._decoder_stage(self.params, feat_grid, toks, positions)
+        feat_grid = self.captioner.encode(params, images)
+        positions = torch.arange(W, device=images.device).expand(images.shape[0], W).contiguous()
+        outs = (decoder_stage or self._decoder_impl)(params, feat_grid, toks, positions)
         r_feat, r_words, atts, betas = (o[:n] for o in outs)
-        return self._cnn(images[:n], feat_grid[:n], r_feat), r_feat, r_words, atts, betas
+        return self._cnn(images[:n], feat_grid[:n], r_feat, params), r_feat, r_words, atts, betas
 
     def _explain_rows(self, images, toks_np, size: int, W: int) -> list:
         """The Explanations of the k rows of ``images`` (device) and

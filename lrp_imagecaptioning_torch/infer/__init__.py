@@ -1,1 +1,1 @@
-"""Caption decoding."""
+"""Caption decoding, the inference API and serving."""

@@ -39,6 +39,16 @@ def _top_k(x: torch.Tensor, k: int):
     return torch.stack(vals, -1), torch.stack(idxs, -1)
 
 
+def n_explained(tokens_row, eos) -> int:
+    """Number of word positions before the first EOS/pad in a 1-based row."""
+    n = 0
+    for tok in tokens_row:
+        if tok == 0 or tok == eos:
+            break
+        n += 1
+    return n
+
+
 def beam_search(captioner, params, feat_grid: torch.Tensor, sos_id_1based: int,
                 eos_id_1based: int, beam_size: int = 3, max_len: int = 20):
     """feat_grid (B, L, D) -> (tokens_1based (B, max_len) int64, scores (B,)).

@@ -26,6 +26,14 @@ lrp_a1b0_fused  csrc/lrp_a1b0_fused.cu    experiments/pallas_block1_v2.py:_kerne
 
 Each source's header says what bounds the kernel on the H100 and what its
 design does about it.
+
+``torch.export`` traces with fake tensors, which have no device pointers
+for a ctypes launch. So each wrapper is also a ``torch.library.custom_op``
+(``lrpic::<wrapper>``) with a fake (shape) function, and routes to it only
+while ``torch.compiler.is_exporting()``: an exported program calls the op,
+whose implementation is the wrapper's own route (the plain version on the
+CPU, the kernel on the card, counted as any launch). Eager and graphed calls
+take the direct route, with no dispatcher hop.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from typing import Optional
 
 from . import _build
 from .lrp_conv import conv2d, conv2d_input_vjp
@@ -56,6 +66,10 @@ def _no_grad_only(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the CUDA kernel has no gradient and an input requires "
                            "grad; run it under torch.no_grad()")
+
+
+def _exporting() -> bool:
+    return torch.compiler.is_exporting()
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:
@@ -97,6 +111,12 @@ def _sm_count(dev: torch.device) -> int:
 def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """epsilon-LRP (eps = 1e-7) through ``z = x @ w``: r, z (..., Dout);
     x (..., Din); w (Din, Dout). Leading dims flatten into the kernel's M rows."""
+    if _exporting():
+        return torch.ops.lrpic.lrp_linear(r, x, z, w)
+    return _lrp_linear(r, x, z, w)
+
+
+def _lrp_linear(r, x, z, w):
     if x.device.type == "cpu":
         return lrp_linear_plain(r, x, z, w)
     _no_grad_only("lrp_linear", r, x, z, w)
@@ -118,6 +138,17 @@ def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tenso
 
 
 lrp_linear.launches = 0
+
+
+@torch.library.custom_op("lrpic::lrp_linear", mutates_args=())
+def _lrp_linear_op(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    return _lrp_linear(r, x, z, w)
+
+
+@_lrp_linear_op.register_fake
+def _(r, x, z, w):
+    return torch.empty_like(x)
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +205,14 @@ def lstm_gates(zx: torch.Tensor, zh: torch.Tensor, bias: torch.Tensor, c_prev: t
     """The gate pre-activations ``z_pre = (zx + zh) + bias``, then the gate
     nonlinearities and the cell update, in one launch; returns (z_pre, h, c).
     zx = x @ W_i and zh = h_prev @ W_h: (B, 4H); bias (4H,); c_prev (B, H).
-    On the card an input that requires grad takes ``LSTMGates``."""
+    On the card an input that requires grad takes ``LSTMGates``; an export
+    traces the inference route."""
+    if _exporting():
+        return torch.ops.lrpic.lstm_gates(zx, zh, bias, c_prev)
+    return _lstm_gates(zx, zh, bias, c_prev)
+
+
+def _lstm_gates(zx, zh, bias, c_prev):
     if zx.device.type == "cpu":
         return lstm_gates_plain(zx, zh, bias, c_prev)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (zx, zh, bias, c_prev)):
@@ -207,6 +245,17 @@ def _lstm_gates_launch(zx, zh, bias, c_prev):
 lstm_gates.launches = 0
 
 
+@torch.library.custom_op("lrpic::lstm_gates", mutates_args=())
+def _lstm_gates_op(zx: torch.Tensor, zh: torch.Tensor, bias: torch.Tensor,
+                   c_prev: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _lstm_gates(zx, zh, bias, c_prev)
+
+
+@_lstm_gates_op.register_fake
+def _(zx, zh, bias, c_prev):
+    return torch.empty_like(zx), torch.empty_like(c_prev), torch.empty_like(c_prev)
+
+
 # ---------------------------------------------------------------------------
 # K3  3x3 SAME conv + elementwise epilogue, and the alpha1beta0 rule on it
 # ---------------------------------------------------------------------------
@@ -232,6 +281,12 @@ def conv3x3_fused(x: torch.Tensor, ew: torch.Tensor, kernel: torch.Tensor,
     are multiples of 4 and every tensor starts on a 16-byte boundary."""
     if mode not in MODES:
         raise ValueError(f"conv3x3_fused: mode {mode!r} not in {MODES}")
+    if _exporting():
+        return torch.ops.lrpic.conv3x3_fused(x, ew, kernel, bias, mode)
+    return _conv3x3_fused(x, ew, kernel, bias, mode)
+
+
+def _conv3x3_fused(x, ew, kernel, bias, mode):
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, ew, kernel, bias, mode)
     tensors = (x, ew, kernel) if bias is None else (x, ew, kernel, bias)
@@ -264,6 +319,19 @@ def conv3x3_fused(x: torch.Tensor, ew: torch.Tensor, kernel: torch.Tensor,
 
 
 conv3x3_fused.launches = 0
+
+
+@torch.library.custom_op("lrpic::conv3x3_fused", mutates_args=())
+def _conv3x3_fused_op(x: torch.Tensor, ew: torch.Tensor, kernel: torch.Tensor,
+                      bias: Optional[torch.Tensor], mode: str) -> torch.Tensor:
+    return _conv3x3_fused(x, ew, kernel, bias, mode)
+
+
+@_conv3x3_fused_op.register_fake
+def _(x, ew, kernel, bias, mode):
+    n = max(x.shape[0], ew.shape[0])
+    return ew.new_empty((n, *ew.shape[1:3], kernel.shape[-1]),
+                        dtype=torch.promote_types(x.dtype, ew.dtype))
 
 
 def flip_transpose_kernel(kernel: torch.Tensor) -> torch.Tensor:
@@ -319,6 +387,12 @@ def lrp_a1b0_fused(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
     r: (N, H, W, Cout); x: (1, H, W, Cin), shared by the N seeds; kernel:
     (3, 3, Cin, Cout) HWIO; bias: (Cout,) or None; all bf16. Returns
     (N, H, W, Cin) bf16."""
+    if _exporting():
+        return torch.ops.lrpic.lrp_a1b0_fused(r, x, kernel, bias)
+    return _lrp_a1b0_fused(r, x, kernel, bias)
+
+
+def _lrp_a1b0_fused(r, x, kernel, bias):
     if x.device.type == "cpu":
         return lrp_a1b0_fused_plain(r, x, kernel, bias)
     tensors = (r, x, kernel) if bias is None else (r, x, kernel, bias)
@@ -347,6 +421,17 @@ def lrp_a1b0_fused(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
 
 
 lrp_a1b0_fused.launches = 0
+
+
+@torch.library.custom_op("lrpic::lrp_a1b0_fused", mutates_args=())
+def _lrp_a1b0_fused_op(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
+                       bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return _lrp_a1b0_fused(r, x, kernel, bias)
+
+
+@_lrp_a1b0_fused_op.register_fake
+def _(r, x, kernel, bias):
+    return r.new_empty((*r.shape[:3], x.shape[-1]))
 
 
 KERNELS = (lrp_linear, lstm_gates, conv3x3_fused, lrp_a1b0_fused)

@@ -7,7 +7,7 @@ rate, the CSV log, checkpoints and the stop conditions.
 On one device (``device="cuda"`` by default; it raises without a card).
 Checkpoints are the port's npz files (``train/checkpoint.py``). Not ported,
 and rejected with a message rather than ignored: a device mesh and
-multi-host runs (ROADMAP A13), several steps a call (the port has no
+multi-host runs (ROADMAP A13b), several steps a call (the port has no
 K-steps-a-call variants, ROADMAP §C). ``cfg.pretrained_word_vector`` seeds
 the embedding from the file at ``cfg.word_vector_path`` (an attribute the
 caller sets, as in the JAX package; ``models/word_vectors.py``).
@@ -57,7 +57,7 @@ def reject_unported(mesh=None, multihost: bool = False, steps_per_call: int = 1)
     lacks, naming where each stands."""
     if mesh is not None or multihost:
         raise NotImplementedError("a device mesh and multi-host training (torch.distributed "
-                                  "over several cards) are not ported yet: ROADMAP A13")
+                                  "over several cards) are not ported yet: ROADMAP A13b")
     if int(steps_per_call) != 1:
         raise NotImplementedError(f"steps_per_call={steps_per_call}: the port has no "
                                   "K-steps-a-call variants (ROADMAP §C, departures by design); "

@@ -143,7 +143,7 @@ def test_help_lists_only_ported_subcommands(capsys):
     text = capsys.readouterr().out
     subcommands = text[text.index("{") + 1:text.index("}")].split(",")
     assert subcommands == ["train", "finetune-lrp", "evaluate", "explain", "evaluate-bbox",
-                           "analyze-words", "parity"]
+                           "analyze-words", "parity", "serve", "export-serving"]
     assert "--profile" in text and "--jax-cache" not in text
 
 
