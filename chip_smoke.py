@@ -27,7 +27,9 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             and eagerly beside. Phase 2 takes the f32 path's shapes
             (batch 8), 2b the bf16 path's (batch 56: lrp_linear, lstm_gates,
             and lrp_a1b0_fused at the 12 post-ReLU conv shapes, 20 words),
-            2c the training paths' (batch 32, 21 steps): lstm_gates through
+            phase 2 also holds K3 on W- (the alpha2beta1 inhibitor, z
+            negative and, over a zero quarter of x, exactly 0) to its plain
+            version in f64; 2c the training paths' (batch 32, 21 steps): lstm_gates through
             its autograd Function, its gradient held to the plain version's
             and its backward timed (train), and lrp_linear, lstm_gates (two
             forwards under no_grad, one through the Function) and
@@ -135,13 +137,28 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             explain: tokens equal 12a's, maps within 1e-6); 12e the CLI's
             ``serve`` live (mini fixture) and ``serve --exported`` in child
             processes, one /explain each;
+13. analyzers: the analyzer catalogue on VGG16 up to block5_conv3 at
+            224x224 (seeded weights, biases drawn; images over the
+            preprocessed pixel range), batch 8, one seed an image: each of
+            create_analyzer's 32 names timed (img/s, K3 launches held to 24
+            an alpha1beta0 call and 48 an alpha2beta1 one), its image 0
+            against CPU f32 and f64 runs (within ANALYZER_RATIO of the CPU
+            run's distance, or the name's measured floor); the
+            pattern names on patterns from two generated batches;
+            gaussian_smoother and path_integrator over PresetA at n = 4;
+            imgword_batched at 8 images x 20 words in f32 (K3, the
+            analyzers_f32 path), bf16 storage (K4, analyzers_bf16) and bf16
+            compute (neither), image 0's first words against the CPU;
+            PerturbationAnalysis (zeros, 16x16 regions, 3 steps) over PresetA
+            maps, scored by the tapped features' sum against the seed;
 5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph,
-            training, trainer, encoder and serving card tests, in a child
-            process (run last).
+            training, trainer, encoder, serving and analyzer card tests, in a
+            child process (run last).
 
 Every path (f32, bf16, train, finetune, gridtd_f32, gridtd_bf16, trainer,
-gridtd_train, evaluate, phase 10's deep_taylor and bbox, phase 11's and
-phase 12's serve_f32, serve_bf16 and exported) is driven
+gridtd_train, evaluate, phase 10's deep_taylor and bbox, phase 11's,
+phase 12's serve_f32, serve_bf16 and exported, and phase 13's
+analyzers_f32 and analyzers_bf16) is driven
 with the launch counts set to 0 just before it and read just after; each
 kernel's count must equal its calls on that path as phase 2's shapes derive
 them (for deep_taylor and bbox the shapes of the run's chunks, timed after
@@ -208,8 +225,12 @@ F64_RATIO = {"r_feat": 2.0, "maps": 4.0}
 # 7e-7 to 7e-5. On an f64 forward rounded to f32 the card's walk reads 2e-7
 # on those images, with K3 or its plain version alike (the script's
 # --split): the forward's near-ties, not the walk. The heatmaps' floor is 2x
-# the largest reading
-F64_FLOOR = {"r_feat": 1e-5, "maps": 5.2e-3}
+# the largest reading. The decoder maps' floor is 2x the largest reading on
+# phase 9's trained checkpoint, as phase 10 takes it, over three phase-9 runs
+# x three test images x deep_taylor and lrp (scripts/config_f64_spread.py
+# --phase9 3): the card read 9.1e-7 to 3.11e-5 of scale, the CPU 1.02e-6 to
+# 2.56e-4 (H100 80GB HBM3 at 700 W); 10a's one failure read 2.89e-5
+F64_FLOOR = {"r_feat": 5.2e-4, "maps": 5.2e-3}
 # phase 4b: the card-bf16 heatmaps' distance from a CPU-f32 run, as a multiple
 # of the CPU-bf16 run's own distance from it. An H100 80GB HBM3 at 700 W read
 # 0.84x (7.6e-3 against 9.1e-3 of scale); 2x is also the CPU tests' bound for
@@ -556,21 +577,27 @@ def check_lstm_gates_grad(gen, dev, batch, words):
                     lambda: torch.autograd.grad(ref_outs, ins, cot, retain_graph=True)))
 
 
-def check_conv3x3_fused(gen, dev, path, dims=None):
+def check_conv3x3_fused(gen, dev, path, dims=None, w_minus=False):
     """K3's two passes at each shape of the path's walk (layers of one shape
     timed once, their calls counted); ResNet's and Inception's convs have no
-    bias."""
+    bias. ``w_minus``: the alpha2beta1 inhibitor's pair, on W- with no bias
+    and x zero over a quarter of the image, so z = conv(x, W-) is negative
+    and, inside that quarter, exactly 0 (SafeDivide's eps); held to the
+    plain version in f64."""
     from lrp_imagecaptioning_torch.ops import kernels
 
     _, batch, n = dims or PATHS[path]   # per image: its n explained words as the batch
     cfg = path_config(path)[1]
-    with_bias = cfg.img_encoder.startswith("vgg")
+    with_bias = cfg.img_encoder.startswith("vgg") and not w_minus
     rows = []
     for name, size, cin, cout, count in unique_layers(k3_layers(cfg)):
         hw = size * size
         x = torch.relu(torch.randn(1, size, size, cin, generator=gen, device=dev))
         r = torch.randn(n, size, size, cout, generator=gen, device=dev)
         kp = torch.rand(3, 3, cin, cout, generator=gen, device=dev) * math.sqrt(6.0 / (9 * (cin + cout)))
+        if w_minus:
+            x[:, :size // 2, :size // 2] = 0.0
+            kp, name = -kp, f"{name}/W-"
         b = torch.rand(cout, generator=gen, device=dev) * 0.01 if with_bias else None
         kt = kernels.flip_transpose_kernel(kp)
         s = kernels.conv3x3_fused(x, r, kp, b, "divide")
@@ -588,12 +615,20 @@ def check_conv3x3_fused(gen, dev, path, dims=None):
                          4 * (n * hw * cout + hw * cin + 9 * cin * cout + n * hw * cin),
                          2 * n * hw * 9 * cin * cout, n * hw * cin),
         }
+        # on W-, the quotients where z is 0 are ~1e7 times the others: cuDNN's
+        # f32 algorithms (Winograd, FFT) spread that range's rounding onto the
+        # neighbours, so the plain version is held in f64 there
+        ref64 = {"divide": lambda: kernels.conv3x3_fused_plain(x.double(), r.double(),
+                                                               kp.double(), None, "divide"),
+                 "multiply": lambda: kernels.conv3x3_fused_plain(s.double(), x.double(),
+                                                                 kt.double(), None, "multiply")}
         for mode, (kern, plain, conv_in, taps, nbytes, conv_flops, epi_flops) in passes.items():
             conv_nchw, taps_oihw = conv_in.permute(0, 3, 1, 2), taps.permute(3, 2, 0, 1)
             ms = time_ms(kern)
             flops = conv_flops + epi_flops
+            err = rel_err(kern().double(), ref64[mode]()) if w_minus else rel_err(kern(), plain())
             rows.append(dict(shape=f"{name}/{mode}", N=n, H=size, W=size, Cin=cin, Cout=cout,
-                             calls=batch * count, err=rel_err(kern(), plain()),
+                             calls=batch * count, err=err,
                              ms=ms, plain_ms=time_ms(plain),
                              library_ms=time_ms(lambda: F.conv2d(conv_nchw, taps_oihw, padding=1)),
                              flops=flops,
@@ -725,7 +760,11 @@ def phase_kernels(dev, failures):
             rows = check(gen, dev, path)
             summary[name][path] = summarize_rows(name, path, batch, rows, failures)
             detail[name] += rows
-    return summary, detail
+    log(f"phase 2: K3 on W- (the alpha2beta1 inhibitor: negative and zero z), the f32 path's "
+        f"shapes, batch {B_MAIN}")
+    rows = check_conv3x3_fused(gen, dev, "f32", w_minus=True)
+    w_minus = summarize_rows("conv3x3_fused", "w_minus", B_MAIN, rows, failures)
+    return summary, dict(detail, conv3x3_fused_w_minus=dict(rows=rows, summary=w_minus))
 
 
 def summarize_rows(name, path, batch, rows, failures):
@@ -3056,7 +3095,10 @@ EXPORT_BUCKETS = (8,)
 # points' batch-size bound, TOL_CONSISTENT_LRP, beyond one float16 spacing
 # of the payload (the random weights' heatmaps sit in float16's subnormal
 # range, values 6e-8 apart, where one rounding flip alone was 0.25 of their
-# scale). An H100 80GB HBM3 at 700 W read 1.4e-4. An uncoalesced request is
+# scale). An H100 80GB HBM3 at 700 W read 1.4e-4; on phase 9's trained
+# checkpoint (its heatmaps still in float16's subnormals, scale 4.3e-5 to
+# 4.6e-5) 2.7e-5 to 4.8e-5 over three runs, 8.3e-4 to 8.7e-4 without the
+# spacing (scripts/config_f64_spread.py --phase9). An uncoalesced request is
 # held bit for bit
 TOL_SERVE_F16 = TOL_CONSISTENT_LRP
 # 12a/12d: the same ops on the same shapes. On the card the heatmaps are not
@@ -3518,10 +3560,352 @@ def phase_serve_cli(work, state, image, failures):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the analyzer catalogue at full width (create_analyzer's 32 names
+# on VGG16 up to block5_conv3, the wrappers, imgword_batched, perturbation)
+# ---------------------------------------------------------------------------
+N_WORDS_13 = 20             # imgword_batched: words an image
+CPU_WORDS_13 = 2            # ... of which the one image against the CPU explains 2
+GATE_STEPS = 4              # IG's steps and SmoothGrad's samples in the one-image gate
+PATTERN_BATCHES = 2         # generated batches of B_MAIN behind the patterns
+REGION = 16                 # the perturbation's square region
+VGG_BGR_MEAN = (103.939, 116.779, 123.68)
+# deep_taylor.bounded's low and high: the preprocessed pixels' range
+PIXEL_RANGE = (-max(VGG_BGR_MEAN), 255.0 - min(VGG_BGR_MEAN))
+ANALYZER_PATHS = ("analyzers_f32", "analyzers_bf16")
+# the names that reach K3: the post-ReLU convs' alpha1beta0 (12 convs, two
+# launches each, 24 a call of B seeds) and alpha2beta1 (W+ and W-: 48)
+K3_A1B0 = ("lrp.alpha_1_beta_0", "lrp.alpha_1_beta_0_IB", "lrp.z_plus", "lrp.z_plus_fast",
+           "lrp.sequential_preset_a", "lrp.sequential_preset_a_flat", "deep_taylor",
+           "deep_taylor.bounded")
+K3_A2B1 = ("lrp.alpha_2_beta_1", "lrp.alpha_2_beta_1_IB", "lrp.alpha_beta",
+           "lrp.sequential_preset_b", "lrp.sequential_preset_b_flat")
+# registry aliases: the same function on the same inputs, one CPU reference
+ALIASES = {"gradient.baseline": "gradient", "lrp.z_plus": "lrp.alpha_1_beta_0",
+           "lrp.z_plus_fast": "lrp.alpha_1_beta_0", "lrp.sequential_preset_a": "lrp.alpha_1_beta_0",
+           "lrp.alpha_beta": "lrp.alpha_2_beta_1", "lrp.sequential_preset_b": "lrp.alpha_2_beta_1",
+           "lrp.epsilon": "lrp.z", "lrp.epsilon_IB": "lrp.z_IB", "deep_lift.wrapper": "deep_lift"}
+# the one-image gate: the card's map may lie at most ANALYZER_RATIO times the
+# CPU-f32 run's distance from a CPU-f64 run (both over the f64 map's scale;
+# for the gradient methods by the 2-norm, as phase 8d: a near-tied ReLU or
+# max pool that one f32 forward flips moves single values by % of the
+# scale), or within the function's floor. Each floor is 2x the largest reading of
+# either device over 3 images and 2 weight seeds (scripts/config_f64_spread.py
+# --analyzers, H100 80GB HBM3 at 700 W; CHANGES.md lists the readings)
+ANALYZER_RATIO = 4.0
+GRAD_NAMES = ("gradient", "input_t_gradient", "deconvnet", "guided_backprop",
+              "integrated_gradients", "smoothgrad")
+ANALYZER_FLOOR = {             # largest reading: card, CPU f32
+    "input": 0.0, "random": 0.0,                        # the input, the draws fed
+    "gradient": 3.4e-2, "input_t_gradient": 3.4e-2,     # 1.03e-2, 1.70e-2 (2-norm)
+    "deconvnet": 4.9e-3, "guided_backprop": 9.1e-4,     # 1.79e-3, 2.43e-3; 4.52e-4, 4.53e-4
+    "integrated_gradients": 9.5e-3, "smoothgrad": 1.7e-2,   # 4.53e-3, 4.74e-3; 5.26e-3, 8.13e-3
+    # the epsilon rule at 1e-7 divides by z + 1e-7 where z is near 0: an f32
+    # run lies more than the map's scale from f64 on either device, so for
+    # these two the gate holds the map finite and input-shaped only
+    "lrp.z": 2.6, "lrp.z_IB": 7.2,                      # 1.30, 0.820; 3.19, 3.59
+    "lrp.w_square": 4.4e-4, "lrp.flat": 4.3e-4,         # 4.10e-5, 2.16e-4; 4.14e-5, 2.11e-4
+    "lrp.alpha_1_beta_0": 2e-4, "lrp.alpha_1_beta_0_IB": 2e-4,   # 5.90e-5, 9.85e-5; 6.38e-5, 9.89e-5
+    "lrp.alpha_2_beta_1": 1.4e-4, "lrp.alpha_2_beta_1_IB": 1.4e-4,  # 5.07e-5, 6.54e-5; 5.02e-5, 6.59e-5
+    "lrp.sequential_preset_a_flat": 1.7e-4,             # 5.90e-5, 8.10e-5
+    "lrp.sequential_preset_b_flat": 1.4e-4,             # 4.87e-5, 6.61e-5
+    "deep_taylor": 2.6e-3, "deep_taylor.bounded": 2.4e-3,   # 1.27e-3, 4.75e-4; 1.15e-3, 4.84e-4
+    # DeepLIFT divides by the output difference, which cancels: ~50 % in f32
+    "deep_lift": 1.1,                                   # 0.192, 0.515
+    "pattern.net": 3.1e-3, "pattern.attribution": 7.1e-3,   # 1.51e-3, 7.14e-4; 1.68e-3, 3.52e-3
+}
+
+
+def analyzer_model(dev, seed=0):
+    """VGG16 up to block5_conv3: the Keras init from ``seed``, biases drawn
+    (N(0, 0.05^2): the init's are 0, which would make the _IB names the
+    others)."""
+    from lrp_imagecaptioning_torch.models.vgg import init_vgg_params
+    from lrp_imagecaptioning_torch.weights import tree_to
+
+    gen = torch.Generator().manual_seed(seed)
+    params = init_vgg_params(gen)
+    for p in params.values():
+        p["bias"] = torch.randn(p["bias"].shape, generator=gen) * 0.05
+    return tree_to(params, dev)
+
+
+def analyzer_inputs(dev, n, seed, words=None):
+    """``n`` images uniform over the preprocessed pixel range and their
+    seeds at the tap, (n, 14, 14, 512), or (n, words, 14, 14, 512)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mean = torch.tensor(VGG_BGR_MEAN, device=dev)
+    images = torch.rand(n, IMAGE, IMAGE, 3, generator=gen, device=dev) * 255.0 - mean
+    g = IMAGE // 16                                   # the tap's grid
+    shape = (n, g, g, 512) if words is None else (n, words, g, g, 512)
+    return images, torch.randn(shape, generator=gen, device=dev)
+
+
+def analyzer_kwargs(name, patterns, dev, noise=None):
+    """``name``'s options: alpha2beta1 for lrp.alpha_beta, the pixel range
+    for deep_taylor.bounded, the patterns, a generator on ``dev`` (or the
+    draws ``noise``, and GATE_STEPS) for random, smoothgrad and IG."""
+    if name == "lrp.alpha_beta":
+        return dict(alpha=2.0, beta=1.0)
+    if name == "deep_taylor.bounded":
+        return dict(low=PIXEL_RANGE[0], high=PIXEL_RANGE[1])
+    if name.startswith("pattern."):
+        return dict(patterns=patterns)
+    if name == "integrated_gradients" and noise is not None:
+        return dict(steps=GATE_STEPS)
+    if name in ("random", "smoothgrad"):
+        kw = dict(generator=torch.Generator(device=dev).manual_seed(21)) if noise is None \
+            else dict(noise=noise.to(dev))
+        if name == "smoothgrad" and noise is not None:
+            kw["n"] = GATE_STEPS
+        return kw
+    return {}
+
+
+def gate_noise(name):
+    """The standard normal draws of the one-image gate (CPU generator),
+    shared by the card and the CPU runs; None for a name without draws."""
+    if name not in ("random", "smoothgrad", "integrated_gradients"):
+        return None
+    gen = torch.Generator().manual_seed(22)
+    shape = (1, IMAGE, IMAGE, 3) if name == "random" else (1, GATE_STEPS, IMAGE, IMAGE, 3)
+    return torch.randn(shape, generator=gen)
+
+
+def analyzer_gate(name, params, image, seed, patterns, dev, card_map=None, cache=None):
+    """One image (1, H, W, 3) and its seed: the card's map (``card_map``, a
+    row of the batch run, else a run here), the CPU's in f32 and in f64 (of
+    the name an alias stands for, kept in ``cache``) -> (card's, CPU-f32's
+    distance from f64 over its scale, CPU seconds)."""
+    from lrp_imagecaptioning_torch.explain.analyzers import create_analyzer
+    from lrp_imagecaptioning_torch.weights import tree_to
+
+    noise = gate_noise(name)
+    canon = ALIASES.get(name, name)
+    cache = {} if cache is None else cache
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if card_map is None:
+            card_map = create_analyzer(name, params, **analyzer_kwargs(name, patterns, dev,
+                                                                       noise))(image, seed)
+        if canon not in cache:
+            cache[canon] = {}
+            for dtype in (torch.float32, torch.float64):
+                p = tree_to(tree_to(params, "cpu"), dtype=dtype)
+                pats = None if patterns is None else tree_to(tree_to(patterns, "cpu"),
+                                                             dtype=dtype)
+                kw = analyzer_kwargs(canon, pats, "cpu",
+                                     None if noise is None else noise.to(dtype))
+                cache[canon][dtype] = create_analyzer(canon, p, **kw)(
+                    image.cpu().to(dtype), seed.cpu().to(dtype))
+    maps = cache[canon]
+    ref = maps[torch.float64]
+    dist = map_dist_l2 if canon in GRAD_NAMES else map_dist
+    card, cpu = dist(card_map.detach().cpu().double(), ref), dist(maps[torch.float32].double(), ref)
+    return card, cpu, time.perf_counter() - t0
+
+
+def map_dist(got, ref):
+    """The largest distance over the reference's largest |value|."""
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def map_dist_l2(got, ref):
+    """The distance's 2-norm over the reference's (phase 8d's measure)."""
+    return float((got - ref).norm()) / max(float(ref.norm()), 1e-30)
+
+
+def analyzer_summary(dev, failures, detail):
+    """K3 and K4 at imgword_batched's shapes (per image its N_WORDS_13 words
+    as a launch's batch, B_MAIN images): K3's are phase 2's f32 rows where
+    phase 2 ran."""
+    import copy
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for path, name, check, dims in (
+            ("analyzers_f32", "conv3x3_fused", check_conv3x3_fused, (None, B_MAIN, N_WORDS_13)),
+            ("analyzers_bf16", "lrp_a1b0_fused", check_lrp_a1b0_fused,
+             (torch.bfloat16, B_MAIN, N_WORDS_13))):
+        rows = [r for r in detail.get(name, ()) if r["path"] == "f32"]
+        rows = copy.deepcopy(rows) if rows and (B_MAIN, N_WORDS_13) == PATHS["f32"][1:] \
+            and name == "conv3x3_fused" else check(gen, dev, path, dims)
+        log(f"  {path}: {name} at imgword_batched's shapes, {B_MAIN} images x {N_WORDS_13} words")
+        out[path] = {name: summarize_rows(name, path, B_MAIN, rows, failures)}
+        detail.setdefault(name, []).extend(rows)
+    return out
+
+
+def phase_analyzers(dev, failures, detail):
+    """13: the 32 names at batch B_MAIN, the wrappers, imgword_batched in
+    three modes, perturbation analysis, and K3 / K4 timed at imgword's
+    shapes. Returns (launches, kernel summaries, report) of the paths
+    analyzers_f32 and analyzers_bf16."""
+    from lrp_imagecaptioning_torch.explain import cnn_lrp
+    from lrp_imagecaptioning_torch.explain.analyzers import (analyzer_names, create_analyzer,
+                                                            gaussian_smoother, path_integrator)
+    from lrp_imagecaptioning_torch.explain.patterns import compute_vgg_patterns
+    from lrp_imagecaptioning_torch.explain.perturbation import (Perturbation,
+                                                               PerturbationAnalysis)
+    from lrp_imagecaptioning_torch.models.vgg import vgg_apply
+
+    rep, launches = {"names": {}}, {}
+    params = analyzer_model(dev)
+    images, seeds = analyzer_inputs(dev, B_MAIN, 31)
+    t0 = time.perf_counter()
+    pattern_images = [analyzer_inputs(dev, B_MAIN, 40 + i)[0] for i in range(PATTERN_BATCHES)]
+    patterns, pat_ms = timed(compute_vgg_patterns, params, pattern_images, "relu")
+    rep["patterns_ms"] = pat_ms
+    log(f"  patterns ('relu') over {PATTERN_BATCHES} batches of {B_MAIN}: {pat_ms:.1f} ms")
+    cache = {}
+    for name in analyzer_names():
+        analyze = create_analyzer(name, params, **analyzer_kwargs(name, patterns, dev))
+        with torch.no_grad():
+            analyze(images, seeds)                                   # warm
+            out, ms, counted = counted_run(analyze, images, seeds)
+        want = dict.fromkeys(counted, 0)
+        want["conv3x3_fused"] = 24 if name in K3_A1B0 else 48 if name in K3_A2B1 else 0
+        r = dict(ms=ms, img_per_s=B_MAIN / ms * 1e3, launches=counted, expected=want)
+        if counted != want:
+            failures.append(f"13 {name}: launches {counted}, {want} derived")
+        if tuple(out.shape) != tuple(images.shape) or not bool(torch.isfinite(out).all()):
+            failures.append(f"13 {name}: map {tuple(out.shape)}, finite "
+                            f"{bool(torch.isfinite(out).all())}")
+        # the one-image gate on image 0 (IG and SmoothGrad at GATE_STEPS, run apart)
+        row = None if gate_noise(name) is not None else out[:1]
+        canon = ALIASES.get(name, name)
+        card, cpu, cpu_s = analyzer_gate(name, params, images[:1], seeds[:1], patterns, dev, row,
+                                         cache)
+        r.update(card_vs_f64=card, cpu_vs_f64=cpu, cpu_s=cpu_s, floor=ANALYZER_FLOOR[canon])
+        if card > max(ANALYZER_RATIO * cpu, ANALYZER_FLOOR[canon]):
+            failures.append(f"13 {name}: the card's map lies {card:.3e} from CPU f64, CPU f32 "
+                            f"{cpu:.3e}, floor {ANALYZER_FLOOR[canon]:.1e}")
+        rep["names"][name] = r
+        log(f"  13 {name:30s} batch {B_MAIN}: {ms:8.2f} ms = {r['img_per_s']:8.2f} img/s; K3 "
+            f"{counted['conv3x3_fused']:2d} launches; one image vs CPU f64: card {card:.3e}, "
+            f"CPU f32 {cpu:.3e} ({cpu_s:.1f} s)")
+        del out
+    del cache
+    rep["names_s"] = time.perf_counter() - t0
+
+    # the wrappers over PresetA at n = 4 (K3 24 launches a pass)
+    preset_a = create_analyzer("lrp.sequential_preset_a", params)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    with torch.no_grad():
+        for label, fn, passes in (
+                ("gaussian_smoother", lambda: gaussian_smoother(preset_a, images, seeds, gen,
+                                                                noise_scale=16.0, n=4), 4),
+                ("path_integrator", lambda: path_integrator(preset_a, images, seeds, steps=4), 4)):
+            fn()
+            out, ms, counted = counted_run(fn)
+            rep[label] = dict(ms=ms, img_per_s=B_MAIN / ms * 1e3, launches=counted)
+            log(f"  13 {label} over lrp.sequential_preset_a, n = 4, batch {B_MAIN}: {ms:.1f} ms "
+                f"= {rep[label]['img_per_s']:.2f} img/s; launches {counted}")
+            if counted["conv3x3_fused"] != 24 * passes or not bool(torch.isfinite(out).all()):
+                failures.append(f"13 {label}: launches {counted}, finite "
+                                f"{bool(torch.isfinite(out).all())}")
+        # their arithmetic: zero noise gives the analyzer's map, and the
+        # path integral of the gradient is integrated_gradients
+        base = preset_a(images, seeds)
+        still = gaussian_smoother(preset_a, images, seeds, gen, noise_scale=0.0, n=2)
+        gradient = create_analyzer("gradient", params)
+        ig = create_analyzer("integrated_gradients", params, steps=GATE_STEPS)(images, seeds)
+        via = path_integrator(gradient, images, seeds, steps=GATE_STEPS)
+    rep["wrapper_identities"] = dict(smoother=rel_err(still, base)[1], path=rel_err(via, ig)[1])
+    log(f"  13 wrappers: zero-noise smoother vs the map {rep['wrapper_identities']['smoother']:.2e}"
+        f", path_integrator(gradient) vs integrated_gradients "
+        f"{rep['wrapper_identities']['path']:.2e} of scale")
+    if max(rep["wrapper_identities"].values()) > 1e-5:
+        failures.append(f"13 wrappers: {rep['wrapper_identities']}")
+    del base, still, ig, via
+
+    # imgword_batched: f32 on K3, bf16 storage on K4, bf16 compute on neither
+    images_w, seeds_w = analyzer_inputs(dev, B_MAIN, 32, words=N_WORDS_13)
+    maps = {}
+    for mode, kw, want in (("f32", {}, {"conv3x3_fused": 2 * CONVS * B_MAIN}),
+                           ("bf16_storage", {"storage_dtype": torch.bfloat16},
+                            {"lrp_a1b0_fused": CONVS * B_MAIN}),
+                           ("bf16_compute", {"compute_dtype": torch.bfloat16}, {})):
+        fn = lambda: cnn_lrp.vgg_lrp_preset_a_imgword_batched(params, images_w, seeds_w, **kw)  # noqa: E731,B023
+        with torch.no_grad():
+            fn()
+            out, ms, counted = counted_run(fn)
+        want = {k: want.get(k, 0) for k in counted}
+        rep[f"imgword_{mode}"] = dict(ms=ms, img_per_s=B_MAIN / ms * 1e3,
+                                      maps_per_s=B_MAIN * N_WORDS_13 / ms * 1e3,
+                                      launches=counted, expected=want)
+        log(f"  13 imgword_batched {mode}, {B_MAIN} images x {N_WORDS_13} words: {ms:.1f} ms = "
+            f"{rep[f'imgword_{mode}']['img_per_s']:.2f} img/s; launches {counted}")
+        if counted != want:
+            failures.append(f"13 imgword_batched {mode}: launches {counted}, {want} derived")
+        if mode == "f32":
+            launches["analyzers_f32"] = counted
+        elif mode == "bf16_storage":
+            launches["analyzers_bf16"] = counted
+        if tuple(out.shape) != (B_MAIN, N_WORDS_13, IMAGE, IMAGE, 3) \
+                or not bool(torch.isfinite(out).all()):
+            failures.append(f"13 imgword_batched {mode}: {tuple(out.shape)}")
+        maps[mode] = out[0, :CPU_WORDS_13].cpu()
+        del out
+    # the first image's first words against the CPU: f32 as the K3 names,
+    # bf16 within BF16_CPU_RATIO of the CPU-bf16 run's distance from CPU f32
+    from lrp_imagecaptioning_torch.weights import tree_to
+
+    x_c, s_c = images_w[:1].cpu(), seeds_w[:1, :CPU_WORDS_13].cpu()
+    p_c = tree_to(params, "cpu")
+    with torch.no_grad():
+        cpu = {mode: cnn_lrp.vgg_lrp_preset_a_imgword_batched(p_c, x_c, s_c, **kw)[0]
+               for mode, kw in (("f32", {}), ("bf16_storage", {"storage_dtype": torch.bfloat16}),
+                                ("bf16_compute", {"compute_dtype": torch.bfloat16}))}
+        f64 = cnn_lrp.vgg_lrp_preset_a_imgword_batched(
+            tree_to(p_c, dtype=torch.float64), x_c.double(), s_c.double())[0]
+    scale = float(f64.abs().max())
+    card_d, cpu_d = (float((m.double() - f64).abs().max()) / scale for m in (maps["f32"],
+                                                                              cpu["f32"]))
+    floor = ANALYZER_FLOOR["lrp.alpha_1_beta_0"]
+    rep["imgword_cpu"] = {"f32": dict(card_vs_f64=card_d, cpu_vs_f64=cpu_d)}
+    if card_d > max(ANALYZER_RATIO * cpu_d, floor):
+        failures.append(f"13 imgword_batched f32: card {card_d:.3e} from f64, CPU {cpu_d:.3e}")
+    for mode in ("bf16_storage", "bf16_compute"):
+        card_b = rel_err(maps[mode], cpu["f32"])[1]
+        cpu_b = rel_err(cpu[mode], cpu["f32"])[1]
+        rep["imgword_cpu"][mode] = dict(card_vs_cpu_f32=card_b, cpu_vs_cpu_f32=cpu_b)
+        if card_b > BF16_CPU_RATIO * cpu_b:
+            failures.append(f"13 imgword_batched {mode}: card {card_b:.3e} from CPU f32, CPU "
+                            f"bf16 {cpu_b:.3e}")
+    log(f"  13 imgword_batched, image 0's first {CPU_WORDS_13} words vs the CPU: "
+        f"{rep['imgword_cpu']}")
+
+    # perturbation analysis over PresetA maps: MoRF, zeros, 16x16 regions, 3 steps;
+    # the score is the tapped features' sum against the seed, an image's mean
+    seeds_np = seeds.cpu().numpy()
+
+    def analyze_fn(x):
+        with torch.no_grad():
+            return preset_a(torch.from_numpy(x).to(dev), seeds).cpu().numpy()
+
+    def score_fn(x, y):
+        with torch.no_grad():
+            feats = vgg_apply(params, torch.from_numpy(x).to(dev))
+            return float((feats * torch.from_numpy(y).to(dev)).sum()) / len(x)
+
+    batch = (images.cpu().numpy(), seeds_np)
+    pa = PerturbationAnalysis(analyze_fn, score_fn, [batch],
+                              Perturbation("zeros", region_shape=(REGION, REGION)), steps=3)
+    scores, ms = timed(pa.compute_perturbation_analysis)
+    direct = score_fn(*batch)
+    rep["perturbation"] = dict(scores=scores, ms=ms, unperturbed=direct)
+    log(f"  13 PerturbationAnalysis (zeros, {REGION}x{REGION}, 3 steps) over PresetA maps of "
+        f"{B_MAIN} images: {ms:.1f} ms; scores {scores}")
+    if len(scores) != 4 or not all(math.isfinite(v) for v in scores) or scores[0] != direct:
+        failures.append(f"13 perturbation: scores {scores}, unperturbed {direct}")
+    return launches, analyzer_summary(dev, failures, detail), rep
+
+
 CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
               "tests/test_torch_train_card.py", "tests/test_torch_explainer_card.py",
               "tests/test_torch_trainer_card.py", "tests/test_torch_encoders_card.py",
-              "tests/test_torch_serving_card.py"]
+              "tests/test_torch_serving_card.py", "tests/test_torch_analyzers_card.py"]
 
 
 def phase_card_tests(failures):
@@ -3601,6 +3985,9 @@ def main(argv=None) -> int:
                "+ grid-TD, AOA, VGG19", "configs"),
               ("phase 12: the serving entry points at full width: CaptionService, HTTP, gRPC, "
                "export, the CLI's serve", "serve"),
+              (f"phase 13: the analyzer catalogue at full width: the 32 names at batch {B_MAIN}, "
+               f"the wrappers, imgword_batched at {B_MAIN} x {N_WORDS_13}, perturbation",
+               "analyzers"),
               ("phase 5: card tests", "card_tests")]
     summary = built = handoff = None
     launches = {}   # path -> {kernel: launches in its counted pass}
@@ -3711,6 +4098,17 @@ def main(argv=None) -> int:
                 for path, by_kernel in serve_summaries.items():
                     for name, s_ in by_kernel.items():
                         summary.setdefault(name, {})[path] = s_
+            elif key == "analyzers" and summary is None:
+                failures.append(f"{title} skipped: phase 2 did not run")
+            elif key == "analyzers":
+                gc.collect()
+                torch.cuda.empty_cache()
+                an_launches, an_summaries, report["analyzers"] = phase_analyzers(
+                    dev, failures, report.setdefault("kernel_shapes", {}))
+                launches.update(an_launches)
+                for path, by_kernel in an_summaries.items():
+                    for name, s_ in by_kernel.items():
+                        summary.setdefault(name, {})[path] = s_
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)
@@ -3727,13 +4125,14 @@ def main(argv=None) -> int:
     report["seconds"] = time.perf_counter() - t_start
 
     kernels_line = []
-    if summary is not None and set(launches) == set(PATHS) | set(PLAN_PATHS):
+    all_paths = set(PATHS) | set(PLAN_PATHS) | set(ANALYZER_PATHS)
+    if summary is not None and set(launches) == all_paths:
         for name, (source, replaces, _) in KERNEL_META.items():
             by_path = summary[name]
             # each path must launch its kernels exactly as often as phase 2's
             # shapes (phase 10's chunks for PLAN_PATHS) say (per batch: K1 and
             # K2 once per step, whatever the batch), and the other path's not at all
-            for path in (*PATHS, *PLAN_PATHS):
+            for path in (*PATHS, *PLAN_PATHS, *ANALYZER_PATHS):
                 want = by_path[path]["calls_per_batch"] if path in by_path else 0
                 if launches[path][name] != want:
                     failures.append(f"{name}: {launches[path][name]} launches on the {path} "

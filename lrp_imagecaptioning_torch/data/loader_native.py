@@ -68,3 +68,8 @@ def load_batch(paths: list[str], size: int = 224, mode: str = "caffe",
     if rc != 0:
         raise RuntimeError(f"native loader failed on {rc-1}-th image: {paths[rc-1]}")
     return out
+
+
+def load_batch_vgg(paths: list[str], num_threads: int = 8) -> np.ndarray:
+    """Decode + resize + VGG-preprocess a batch -> (B, 224, 224, 3) float32 BGR."""
+    return load_batch(paths, 224, "caffe", num_threads)

@@ -340,6 +340,12 @@ def flip_transpose_kernel(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.flip(0, 1).permute(0, 1, 3, 2).contiguous()
 
 
+def _k3_term(r, x, k, bias):
+    """x * conv(r / safe(conv(x, k) + b), flipT(k)): K3's divide then multiply pass."""
+    s = conv3x3_fused(x, r, k, bias, mode="divide")
+    return conv3x3_fused(s, x, flip_transpose_kernel(k), None, mode="multiply")
+
+
 def lrp_conv_a1b0(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
                   bias: torch.Tensor | None) -> torch.Tensor:
     """alpha1beta0 conv LRP for x >= 0 as two fused passes (the composition of
@@ -349,9 +355,28 @@ def lrp_conv_a1b0(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
         out = x * conv(s, flipT(W+))
 
     r: (N, H, W, Cout); x: (1 or N, H, W, Cin), shared by all N seeds."""
-    kp = (kernel * (kernel >= 0)).contiguous()
-    s = conv3x3_fused(x, r, kp, bias, mode="divide")
-    return conv3x3_fused(s, x, flip_transpose_kernel(kp), None, mode="multiply")
+    return _k3_term(r, x, (kernel * (kernel >= 0)).contiguous(), bias)
+
+
+def lrp_conv_alpha_beta_split(r: torch.Tensor, x: torch.Tensor, kp: torch.Tensor,
+                              kn: torch.Tensor | None, bias: torch.Tensor | None,
+                              alpha: float, beta: float) -> torch.Tensor:
+    """The AlphaBetaRule for x >= 0 on K3, from the kernel already split by
+    sign (kp = W+, kn = W-, each contiguous; kn is read only where beta != 0):
+
+        activator = x * conv(r / safe(conv(x, W+) + b), flipT(W+))
+        inhibitor = x * conv(r / safe(conv(x, W-) + b), flipT(W-))
+        result    = alpha * activator - beta * inhibitor
+
+    z takes the full bias b in both terms (the split rule's b+ + b- where x-
+    is zero). With W-, z <= b, and without a bias z is 0 wherever every tap
+    of the window is: safe() then divides by eps = 1e-7 and the multiply
+    pass hands that quotient only to taps whose product is 0. Shapes as
+    ``lrp_conv_a1b0``."""
+    activator = _k3_term(r, x, kp, bias)
+    if beta:
+        return alpha * activator - beta * _k3_term(r, x, kn, bias)
+    return alpha * activator if alpha != 1.0 else activator
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,15 @@
 
 * ``conv2d`` / ``conv2d_input_vjp`` — a conv of any kernel, stride and
   padding ("VALID", or "SAME" as TensorFlow pads it where that padding is
-  symmetric: every conv of the ported encoders), and its transpose.
+  symmetric: every conv of the ported encoders), and its transpose;
+  ``compute_dtype`` rounds both operands to it (bf16) and sums in f32.
 * ``lrp_conv_alpha_beta`` — iNNvestigate's AlphaBetaRule (relevance_rule.py:
-  216-322) at alpha = 1, beta = 0, the only setting the explainers use:
-  inputs and weights split by sign, the bias split by sign too, zero
-  denominators replaced via SafeDivide.
+  216-322): inputs and weights split by sign, the bias split by sign too,
+  zero denominators replaced via SafeDivide, ``alpha * activator - beta *
+  inhibitor``.
+* ``lrp_conv_epsilon`` (EpsilonRule), ``lrp_conv_flat`` (FlatRule),
+  ``lrp_conv_zplus`` (ZPlusRule, alpha1beta0 on every input) and
+  ``lrp_conv_bounded`` (the zB rule of an input layer of bounded range).
 * ``lrp_conv_wsquare`` — the WSquareRule (relevance_rule.py:156-183) that
   DeepTaylor takes on ResNet's and Inception's convs.
 * ``deeplift_conv_linear`` / ``deeplift_relu_rescale`` — DeepLIFT's
@@ -71,37 +75,74 @@ def _output_padding(x_shape, out_shape, kh: int, kw: int, stride: int, pad) -> t
             x_shape[2] + 2 * pad[1] - ((out_shape[2] - 1) * stride + kw))
 
 
+def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``t`` rounded to ``compute_dtype`` and held in f32: a product of two
+    bf16 values is exact in f32, so an f32 conv of rounded operands is a
+    bf16 conv that accumulates in f32 (XLA's ``preferred_element_type``)."""
+    return t.to(compute_dtype).float()
+
+
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
-           padding: str = "SAME") -> torch.Tensor:
-    """NHWC input, HWIO kernel -> NHWC output."""
+           padding: str = "SAME", compute_dtype=None) -> torch.Tensor:
+    """NHWC input, HWIO kernel -> NHWC output. ``compute_dtype``
+    (``torch.bfloat16``) rounds both operands to it and returns the f32 sums,
+    unrounded."""
+    if compute_dtype is not None:
+        x, kernel = _rounded(x, compute_dtype), _rounded(kernel, compute_dtype)
     pad = _window_pads(x.shape, *kernel.shape[:2], stride, padding)
     return _nhwc(F.conv2d(_nchw(x), _oihw(kernel), stride=stride, padding=pad))
 
 
 def conv2d_input_vjp(kernel: torch.Tensor, cotangent: torch.Tensor, x_shape=None,
-                     stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+                     stride: int = 1, padding: str = "SAME", compute_dtype=None) -> torch.Tensor:
     """Gradient of ``conv2d(x, kernel, stride, padding)`` wrt its input x for
     ``cotangent`` (the transposed conv), NHWC. ``x_shape`` (its batch is not
     read) gives x's height and width; it defaults to the cotangent's, which
-    a stride-1 SAME conv keeps."""
+    a stride-1 SAME conv keeps. ``compute_dtype`` rounds both operands to
+    it, sums in f32 and rounds the result to it once, returned in f32: the
+    JAX package's VJP of a conv in that dtype."""
     kh, kw = kernel.shape[:2]
     if x_shape is None:
         if stride != 1 or padding != "SAME":
             raise ValueError("conv2d_input_vjp: a strided or VALID conv needs x_shape")
         x_shape = cotangent.shape
+    if compute_dtype is not None:
+        kernel, cotangent = _rounded(kernel, compute_dtype), _rounded(cotangent, compute_dtype)
     pad = _window_pads(x_shape, kh, kw, stride, padding)
-    return _nhwc(F.conv_transpose2d(
+    dx = _nhwc(F.conv_transpose2d(
         _nchw(cotangent), _oihw(kernel), stride=stride, padding=pad,
         output_padding=_output_padding(x_shape, cotangent.shape, kh, kw, stride, pad)))
+    return dx if compute_dtype is None else _rounded(dx, compute_dtype)
+
+
+def lrp_conv_epsilon(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
+                     bias: torch.Tensor | None = None, eps: float = EPS_KERAS,
+                     stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """EpsilonRule (relevance_rule.py:113-144): x * conv^T(r / stab(z), W)
+    with z = conv(x, W) (+ bias) and the sign-aligned stabilizer of ``eps``.
+    ``bias=None`` is the rule with bias=False."""
+    z = conv2d(x, kernel, stride, padding)
+    if bias is not None:
+        z = z + bias
+    s = r / sign_stabilizer(z, eps)
+    return x * conv2d_input_vjp(kernel, s, x.shape, stride, padding)
 
 
 def lrp_conv_alpha_beta(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
                         bias: torch.Tensor | None, input_nonneg: bool = False,
-                        stride: int = 1, padding: str = "SAME") -> torch.Tensor:
-    """AlphaBetaRule with alpha = 1, beta = 0.
+                        stride: int = 1, padding: str = "SAME", *, alpha: float = 1.0,
+                        beta: float = 0.0, factor: float = EPS_KERAS,
+                        compute_dtype=None) -> torch.Tensor:
+    """AlphaBetaRule (alpha - beta = 1): the activator pairs (x+, W+, b+) with
+    (x-, W-, b-), the inhibitor (x+, W-, b-) with (x-, W+, b+); the result is
+    ``alpha * activator - beta * inhibitor``, the inhibitor skipped where
+    beta = 0 (relevance_rule.py:313-322). SafeDivide replaces a zero
+    denominator by ``factor``.
 
     ``input_nonneg=True`` declares x >= 0 (every post-ReLU activation):
-    the x-/W pair of convs is elided, and z still adds the FULL bias b+ + b-.
+    the x- convs are elided, and z still adds the FULL bias b+ + b- in both
+    terms. ``compute_dtype=torch.bfloat16`` runs the convs on bf16 operands
+    with f32 sums (``conv2d``); the divides and re-weights stay f32.
     """
     kp = kernel * (kernel >= 0)
     kn = kernel * (kernel < 0)
@@ -112,32 +153,74 @@ def lrp_conv_alpha_beta(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
     xp = x if input_nonneg else torch.clamp(x, min=0)
     xn = None if input_nonneg else torch.clamp(x, max=0)
 
-    # the activator term: (x+, W+, b+) and (x-, W-, b-)
-    z = conv2d(xp, kp, stride, padding)
-    if bp is not None:
-        z = z + bp
-    if xn is not None:
-        z2 = conv2d(xn, kn, stride, padding)
-        if bn is not None:
-            z2 = z2 + bn
-        z = z + z2
-    elif bn is not None:
-        z = z + bn
-    s = safe_divide(r, z)
-    out = xp * conv2d_input_vjp(kp, s, x.shape, stride, padding)
-    if xn is not None:
-        out = out + xn * conv2d_input_vjp(kn, s, x.shape, stride, padding)
-    return out
+    def term(k1, b1, k2, b2):
+        """(x+, k1, b1) and (x-, k2, b2) share one denominator."""
+        z = conv2d(xp, k1, stride, padding, compute_dtype)
+        if b1 is not None:
+            z = z + b1
+        if xn is not None:
+            z2 = conv2d(xn, k2, stride, padding, compute_dtype)
+            if b2 is not None:
+                z2 = z2 + b2
+            z = z + z2
+        elif b2 is not None:
+            z = z + b2
+        s = safe_divide(r, z, factor)
+        out = xp * conv2d_input_vjp(k1, s, x.shape, stride, padding, compute_dtype)
+        if xn is not None:
+            out = out + xn * conv2d_input_vjp(k2, s, x.shape, stride, padding, compute_dtype)
+        return out
+
+    activator = term(kp, bp, kn, bn)
+    if beta:
+        return alpha * activator - beta * term(kn, bn, kp, bp)
+    return alpha * activator if alpha != 1.0 else activator
+
+
+def lrp_conv_zplus(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
+                   bias: torch.Tensor | None = None, stride: int = 1,
+                   padding: str = "SAME") -> torch.Tensor:
+    """ZPlusRule == AlphaBetaRule(alpha=1, beta=0) (relevance_rule.py:445-462)."""
+    return lrp_conv_alpha_beta(r, x, kernel, bias, False, stride, padding)
+
+
+def lrp_conv_flat(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                  padding: str = "SAME", factor: float = EPS_KERAS) -> torch.Tensor:
+    """FlatRule (relevance_rule.py:186-211): every weight one, over an input
+    of ones, so the relevance spreads evenly over the receptive field."""
+    k1 = torch.ones_like(kernel)
+    z = conv2d(torch.ones_like(x[:1]), k1, stride, padding)
+    return conv2d_input_vjp(k1, safe_divide(r, z, factor), x.shape, stride, padding)
+
+
+def lrp_conv_bounded(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, low: float,
+                     high: float, stride: int = 1, padding: str = "SAME",
+                     factor: float = EPS_KERAS) -> torch.Tensor:
+    """BoundedRule, the zB rule of an input layer (relevance_rule.py:372-441):
+    z = conv(x, W) - conv(lo, W+) - conv(hi, W-), then
+    x * c - lo * c+ - hi * c- with c = conv^T(r / z, .) for W, W+ and W-;
+    ``low`` / ``high`` bound the input's values."""
+    kp = kernel * (kernel >= 0)
+    kn = kernel * (kernel < 0)
+    lo = torch.full_like(x, low)
+    hi = torch.full_like(x, high)
+    z = conv2d(x, kernel, stride, padding) - conv2d(lo, kp, stride, padding) \
+        - conv2d(hi, kn, stride, padding)
+    s = safe_divide(r, z, factor)
+    c = conv2d_input_vjp(kernel, s, x.shape, stride, padding)
+    cp = conv2d_input_vjp(kp, s, x.shape, stride, padding)
+    cn = conv2d_input_vjp(kn, s, x.shape, stride, padding)
+    return x * c - lo * cp - hi * cn
 
 
 def lrp_conv_wsquare(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
-                     padding: str = "SAME") -> torch.Tensor:
+                     padding: str = "SAME", factor: float = EPS_KERAS) -> torch.Tensor:
     """WSquareRule: the weights squared over an input of ones, so the
     relevance spreads by squared-weight share, whatever x holds (only its
     shape is read)."""
     k2 = kernel * kernel
     z = conv2d(torch.ones_like(x[:1]), k2, stride, padding)
-    return conv2d_input_vjp(k2, safe_divide(r, z), x.shape, stride, padding)
+    return conv2d_input_vjp(k2, safe_divide(r, z, factor), x.shape, stride, padding)
 
 
 def deeplift_conv_linear(r: torch.Tensor, x: torch.Tensor, x_ref: torch.Tensor,

@@ -13,14 +13,15 @@ import torch
 EPS_KERAS = 1e-7  # K.epsilon() default used by the reference rule
 
 
-def sign_stabilizer(z: torch.Tensor) -> torch.Tensor:
+def sign_stabilizer(z: torch.Tensor, eps: float = EPS_KERAS) -> torch.Tensor:
     """z + sign(z)*eps with sign(0) = +1."""
-    return z + torch.where(z >= 0, EPS_KERAS, -EPS_KERAS)
+    return z + torch.where(z >= 0, eps, -eps)
 
 
-def safe_divide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a / b with exact zeros in b replaced by eps (iNNvestigate SafeDivide)."""
-    return a / (b + (b == 0).to(b.dtype) * EPS_KERAS)
+def safe_divide(a: torch.Tensor, b: torch.Tensor, factor: float = EPS_KERAS) -> torch.Tensor:
+    """a / b with exact zeros in b replaced by ``factor`` (iNNvestigate
+    SafeDivide, layers.py:446-458)."""
+    return a / (b + (b == 0).to(b.dtype) * factor)
 
 
 def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

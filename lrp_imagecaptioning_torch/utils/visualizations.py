@@ -14,6 +14,11 @@ from __future__ import annotations
 import numpy as np
 
 
+def preprocess_rgb_to_bgr(x: np.ndarray) -> np.ndarray:
+    """Reverse the channel axis (examples/utils_imagenet.py): RGB -> BGR."""
+    return x[..., ::-1]
+
+
 def postprocess(X: np.ndarray, color_coding: str | None = None,
                 channels_first: bool = False) -> np.ndarray:
     """utils_imagenet.postprocess (examples/utils_imagenet.py:14-24):

@@ -1,5 +1,6 @@
 """PyTorch port: its copies of the caption tokenizer and the image
-preprocessing (``data/tokenizer.py``, ``data/images.py``) against the JAX
+preprocessing (``data/tokenizer.py``, ``data/images.py``, the native loader's
+``load_batch_vgg``, ``preprocess_rgb_to_bgr``) against the JAX
 package's classes on the same captions and images: the same ids, the same
 ``word_of``, the same padded batches, the same preprocessed pixels and the
 same random augmentation from the same seed.
@@ -89,3 +90,43 @@ def test_apply_affine_transform_matches_jax(kw):
     x = np.random.default_rng(4).uniform(0, 255, size=(9, 11, 3)).astype(np.float32)
     np.testing.assert_array_equal(timg.apply_affine_transform(x, **kw),
                                   jimg.apply_affine_transform(x, **kw))
+
+
+def test_preprocess_rgb_to_bgr_matches_jax():
+    from lrp_imagecaptioning_tpu.utils import visualizations as jvis
+    from lrp_imagecaptioning_torch.utils import visualizations as tvis
+
+    x = np.random.default_rng(4).uniform(0, 255, size=(2, 5, 7, 3)).astype(np.float32)
+    np.testing.assert_array_equal(tvis.preprocess_rgb_to_bgr(x), jvis.preprocess_rgb_to_bgr(x))
+    np.testing.assert_array_equal(tvis.preprocess_rgb_to_bgr(x)[..., 0], x[..., 2])
+
+
+def test_load_batch_vgg_matches_jax(tmp_path):
+    """The native loader's VGG batch: the port's binding and the JAX
+    package's give the same (B, 224, 224, 3) BGR pixels. The library is
+    built on demand, as tests/test_native_loader.py builds it."""
+    import os
+    import subprocess
+
+    from PIL import Image
+
+    from lrp_imagecaptioning_tpu.data import loader_native as jnat
+    from lrp_imagecaptioning_torch.data import loader_native as tnat
+
+    if not (tnat.available() and jnat.available()):
+        native = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "native")
+        r = subprocess.run(["make", "-C", native], capture_output=True, text=True)
+        for mod in (tnat, jnat):
+            mod._TRIED, mod._LIB = False, None
+        if r.returncode != 0 or not (tnat.available() and jnat.available()):
+            pytest.skip(f"native loader unbuildable: {r.stderr[-200:]}")
+    rng = np.random.default_rng(5)
+    paths = []
+    for i, size in enumerate(((300, 451), (120, 90))):
+        p = str(tmp_path / f"img{i}.png")
+        Image.fromarray((rng.random((*size, 3)) * 255).astype(np.uint8)).save(p)
+        paths.append(p)
+    got = tnat.load_batch_vgg(paths, num_threads=2)
+    assert got.shape == (2, 224, 224, 3) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, jnat.load_batch_vgg(paths, num_threads=2))
