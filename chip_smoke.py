@@ -151,14 +151,41 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             compute (neither), image 0's first words against the CPU;
             PerturbationAnalysis (zeros, 16x16 regions, 3 steps) over PresetA
             maps, scored by the tapped features' sum against the seed;
+14. scale-out: VGG16 / adaptive attention at full width on a mesh of two
+            data slots, both on cuda:0 (the one card; the port's counterpart
+            of XLA's virtual devices), in ``build/phase14`` (removed after):
+            14a one sharded train step at 32 (16 a slot), one at 32 with the
+            vocabulary split over two model slots (shard_vocab), and 14b one
+            sharded LRP-inference fine-tune step at 32, each against the
+            one-device step on the same batch and dropout masks (loss,
+            accuracy, the summed gradient before the clip, the params one
+            Adam step gives); the labels are the one-device argmax on part
+            of the rows, the first slot's captions the shorter, so the
+            accuracy is not 0 and differs from the mean of the slots';
+            14c the word-sharded Explainer.analyze of one image at bucket 20
+            in f32 (K3) and bf16 storage (K4) against the unsharded analyze;
+            14d the mesh analyze_many in bf16 at 56 (28 a slot) over
+            natural-length captions and CaptionService(mesh, batch_size=8)'s
+            explain against their one-device runs; 14e
+            ExportedCaptioner(devices=[cuda:0, cuda:0]) on phase 12's
+            artifact, two chunks dealt to the two slots against each chunk on
+            the first slot; 14f a 1-rank NCCL group and a 2-process gloo
+            group (both ranks on cuda:0) each run one multihost Trainer step
+            in child processes (``--multihost-worker``), the gloo ranks bit
+            for bit each other and within the step tolerances of NCCL's.
+            Every path's launches are held to each slot's derived counts,
+            the mesh's ms or img/s beside one device's;
 5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph,
             training, trainer, encoder, serving and analyzer card tests, in a
             child process (run last).
 
 Every path (f32, bf16, train, finetune, gridtd_f32, gridtd_bf16, trainer,
 gridtd_train, evaluate, phase 10's deep_taylor and bbox, phase 11's,
-phase 12's serve_f32, serve_bf16 and exported, and phase 13's
-analyzers_f32 and analyzers_bf16) is driven
+phase 12's serve_f32, serve_bf16 and exported, phase 13's
+analyzers_f32 and analyzers_bf16, and phase 14's mesh_train, vocab_train,
+mesh_finetune, shard_words_f32, shard_words_bf16, mesh_bf16, mesh_serve,
+mesh_exported and multihost_train, the last summed over the gloo ranks) is
+driven
 with the launch counts set to 0 just before it and read just after; each
 kernel's count must equal its calls on that path as phase 2's shapes derive
 them (for deep_taylor and bbox the shapes of the run's chunks, timed after
@@ -176,6 +203,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1500,7 +1528,7 @@ def explain_split(ex, images, toks_np, W):
     positions = torch.arange(W, device=images.device).expand(len(images), W).contiguous()
     with torch.no_grad():
         feat, encode = timed(ex._encode, images)
-        dec, decoder = timed(ex._decoder_stage, ex.params, feat, toks, positions)
+        dec, decoder = timed(ex._slots[0].decoder, ex.params, feat, toks, positions)
         maps, cnn = timed(ex._cnn, images, feat, dec[0])
     host, to_host = timed(lambda: [o.float().cpu().numpy() for o in (maps, *dec)])
     _, assemble = timed(lambda: [ex._assemble(toks_np, host, b) for b in range(len(images))])
@@ -1742,7 +1770,7 @@ def grad_vs_cpu(ex, cap, params, image, tokens, e, failures, label="phase 8d"):
                                 method=ex.method)
             img = image.cpu().to(dtype)[None]
             feat = cpu._encode(img)
-            r_feat = cpu._decoder_stage(cpu.params, feat, toks, seed)[0]       # (1, 1, L, D)
+            r_feat = cpu._slots[0].decoder(cpu.params, feat, toks, seed)[0]       # (1, 1, L, D)
             runs[name] = dict(r_feat=r_feat[0, 0], cpu=cpu, img=img, feat=feat)
         r64 = runs["f64"]["r_feat"]
         for run in runs.values():
@@ -3298,7 +3326,7 @@ def phase_serve(dev, failures, detail):
         except Exception:  # noqa: BLE001 — a sub-phase that raises is recorded as failed
             traceback.print_exc()
             failures.append(f"phase {title} raised")
-        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        log(f"  ({time.perf_counter() - t0:.1f} s; {host_gib()})")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3479,8 +3507,13 @@ def phase_serve(dev, failures, detail):
             failures.append(f"phase {title} skipped: 12a did not run")
             continue
         section(title, fn)
+    # 14e reuses the artifact (exporting again costs ~106 s a pair of
+    # buckets); main removes the directory after the phases
+    rep["artifact"] = state.get("artifact")
     state.clear()
-    shutil.rmtree(work, ignore_errors=True)
+    for name in os.listdir(work):
+        if os.path.join(work, name) != rep["artifact"]:
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
     return launches, summary, rep
 
 
@@ -3902,6 +3935,572 @@ def phase_analyzers(dev, failures, detail):
     return launches, analyzer_summary(dev, failures, detail), rep
 
 
+# ---------------------------------------------------------------------------
+# phase 14: scale-out (parallel/) at full width on a 2-slot mesh whose slots
+# both sit on the one card, and real process groups on it
+# ---------------------------------------------------------------------------
+SLOTS = 2                   # the mesh's data slots, both on cuda:0
+B_MESH_SERVE = B_MAIN       # 14d's CaptionService batch: 4 a slot
+N_EXPORTED = 2 * B_MAIN     # 14e: two chunks of the exported batch, one a slot
+# the paths of phase 14 (each driven with the counts at 0 just before it):
+# name -> (a path whose kernel shapes one slot's share takes, (storage,
+# rows a slot, words), launches a slot are counted on how many slots)
+MESH_PATHS = {
+    "mesh_train": ("train", (None, B_TRAIN // SLOTS, T_TRAIN), SLOTS),
+    "mesh_finetune": ("finetune", (None, B_TRAIN // SLOTS, T_TRAIN), SLOTS),
+    "shard_words_f32": ("serve_f32", (None, 1, T // SLOTS), SLOTS),
+    "shard_words_bf16": ("serve_bf16", (torch.bfloat16, 1, T // SLOTS), SLOTS),
+    "mesh_bf16": ("serve_bf16", (torch.bfloat16, B_BF16 // SLOTS, T), SLOTS),
+    "mesh_serve": ("serve_f32", (None, B_MESH_SERVE // SLOTS, T), SLOTS),
+    "mesh_exported": ("serve_f32", (None, B_MAIN, T), N_EXPORTED // B_MAIN),
+    "multihost_train": ("train", (None, B_TRAIN // SLOTS, T_TRAIN), SLOTS),
+    "vocab_train": ("train", (None, B_TRAIN, T_TRAIN), 1),
+}
+# the paths explaining given captions: K2 in the cached forward only
+GIVEN_TOKENS = ("shard_words_f32", "shard_words_bf16", "mesh_bf16")
+PATH_KERNELS.update({
+    "mesh_train": ("lstm_gates",), "multihost_train": ("lstm_gates",),
+    "vocab_train": ("lstm_gates",),
+    "mesh_finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+    "shard_words_f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+    "shard_words_bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
+    "mesh_bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
+    "mesh_serve": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+    "mesh_exported": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+})
+# 14a/14b: the sharded gradient (before the clip) against the one-device
+# step's on the same batch and dropout masks, by each leaf's 2-norm of the
+# distance over its own (the largest |distance| over the leaf's scale is
+# logged beside); the loss relative. Each slot's forward and backward run
+# at batch 16, the one device's at 32: cuDNN and cuBLAS sum in another
+# order at another batch, and a ReLU or max-pool near-tie that flips moves
+# a lower VGG leaf's gradient by up to 1.5e-3 of its norm from f64 (phase
+# 9b's note, scripts/train_grad_accuracy.py), so two such f32 runs may lie
+# twice that apart. An H100 80GB HBM3 at 700 W read 2.115e-3 (train) and
+# 2.153e-3 (fine-tune) by the 2-norm, 1.14e-3 and 8.1e-4 by the largest
+# |distance| of a leaf over its scale: 2x the largest reading
+TOL_MESH_GRAD = 4.5e-3
+TOL_MESH_LOSS = 1e-5
+# after one Adam step (g / (|g| + eps) ~ sign(g) for |g| >> eps): the share
+# of params whose update differs by over lr / 2 from the one-device step's,
+# an element whose gradient is near 0 taking the other sign under the other
+# order of the sums. The H100 read 9.6e-7 (train), 3.3e-7 (fine-tune and
+# 14f): 24 and 8 of 25M params
+MESH_FLIP_SHARE = 1e-5
+# 14c/14d: the decoder LRP's outputs (feat_relevance, word_relevances) of a
+# mesh run against the one-device run. A slot runs the cached forward and
+# K1 at its share of the rows, where cuBLAS sums in another order, and the
+# divides by z +- 1e-7 amplify that: f32 rounding alone puts feat_relevance
+# 1.3e-4 to 5.3e-3 of its scale from f64 at full width (phase 8's note), so
+# two f32 runs may lie twice that apart. An H100 80GB HBM3 at 700 W read
+# 5.86e-3 (analyze_many at 28 a slot against 56) and 2.2e-3 (CaptionService
+# at 4 a slot against 8): 2x the largest reading
+TOL_MESH_LRP = 1.2e-2
+
+
+def host_gib() -> str:
+    """This process's resident host memory now (where /proc says) and at its
+    peak, and its children's peak, GiB."""
+    import resource
+
+    now = "?"
+    try:
+        with open("/proc/self/status") as f:
+            rss = [line.split()[1] for line in f if line.startswith("VmRSS")]
+        now = f"{int(rss[0]) / 2**20:.2f}" if rss else now
+    except OSError:
+        pass
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    children = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20
+    return f"host RSS {now} GiB, peak {peak:.2f}, children's peak {children:.2f}"
+
+
+class GradRecorder:
+    """An optimizer that keeps the gradient it is handed and moves nothing."""
+
+    def __init__(self):
+        self.grads = None
+
+    def update(self, grads, state, params=None):
+        from lrp_imagecaptioning_torch.weights import tree_map
+
+        self.grads = grads
+        return tree_map(torch.zeros_like, grads), state
+
+
+def grad_dist(got, ref):
+    """(the largest 2-norm of a gradient leaf's distance from the reference's
+    over the reference leaf's, the largest |distance| of a leaf over its
+    scale); a leaf's norm and scale floored at 1e-3 of the largest leaf's
+    (a leaf that is 0 in exact arithmetic holds only rounding)."""
+    from lrp_imagecaptioning_torch.weights import tree_leaves
+
+    pairs = list(zip(tree_leaves(got), tree_leaves(ref)))
+    norm_floor = 1e-3 * max(float(r.norm()) for _, r in pairs)
+    floor = 1e-3 * max(float(r.abs().max()) for _, r in pairs)
+    return (max(float((g - r).norm()) / max(float(r.norm()), norm_floor, 1e-30)
+                for g, r in pairs),
+            max(float((g - r).abs().max()) / max(float(r.abs().max()), floor, 1e-30)
+                for g, r in pairs))
+
+
+def adam_apart(opt, params, grads_a, grads_b):
+    """One Adam step from ``params`` on each gradient: the share of params
+    whose update differs by over lr / 2, and the largest difference."""
+    from lrp_imagecaptioning_torch.weights import tree_leaves
+
+    state = opt.init(params)
+    a, b = (tree_leaves(opt.update(g, state, params)[0]) for g in (grads_a, grads_b))
+    n = sum(x.numel() for x in a)
+    apart = sum(int(((x - y).abs() > opt.learning_rate / 2).sum()) for x, y in zip(a, b))
+    return apart / n, max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def mesh_summary(dev, path, failures, detail):
+    """``path``'s kernels at one slot's shapes (MESH_PATHS), counted on each
+    slot: K1 and K2 timed at those shapes, K3 and K4 (per image its words
+    as a launch's batch) from phase 2's rows of the same words where they
+    exist."""
+    import copy
+
+    base, dims, slots = MESH_PATHS[path]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    reuse = {("conv3x3_fused", T): "f32", ("conv3x3_fused", T_TRAIN): "finetune",
+             ("lrp_a1b0_fused", T): "bf16"}
+    out = {}
+    for name in PATH_KERNELS[path]:
+        src = reuse.get((name, dims[2]))
+        rows = [r for r in detail.get(name, ()) if r["path"] == src]
+        if rows:
+            per_image = PATHS[src][1]
+            rows = [dict(copy.deepcopy(r), calls=r["calls"] // per_image * dims[1]) for r in rows]
+        else:
+            rows = KERNEL_META[name][2](gen, dev, base, dims)
+        if name == "lstm_gates" and path in GIVEN_TOKENS:   # no beam search
+            rows = [r for r in rows if r["shape"] == "cached_forward"]
+        for r in rows:
+            r["calls"] *= slots
+        log(f"  {path}: {name} at one slot's shapes {dims[1:]}, x{slots}")
+        out[name] = summarize_rows(name, path, dims[1] * slots, rows, failures)
+        detail.setdefault(name, []).extend(rows)
+    return out
+
+
+def mesh_held(got, ref, label, failures, storage_dtype=None, exact_tol=None):
+    """Explanations of a sharded path against the one-device run's: the
+    words equal, the decoder LRP's outputs within TOL_MESH_LRP, the heatmaps
+    within TOL_CONSISTENT (f32) or the bf16 rule's tolerance, the rest
+    within TOL_CONSISTENT (phase 8's entry points' bound across batch
+    sizes); ``exact_tol`` holds every array to it instead."""
+    tol = dict.fromkeys(EXPLANATION_FIELDS, TOL_CONSISTENT if exact_tol is None else exact_tol)
+    if exact_tol is None:
+        tol.update(feat_relevance=TOL_MESH_LRP, word_relevances=TOL_MESH_LRP,
+                   relevance_maps=TOL_CONSISTENT if storage_dtype is None else TOL_BF16_KERNEL)
+    dist = explanation_dist(got, ref)
+    bad = {f: d for f, d in dist.items() if d > tol[f]}
+    if bad or len(got) != len(ref):
+        failures.append(f"{label}: against the one-device run {bad} (words differ: inf)")
+    return dist
+
+
+def accuracy_batch(cap, params, batch, seed, dev):
+    """``batch`` relabelled so that 14a/14b's accuracy check compares a value
+    that is not 0 over batch halves (14a's and 14b's data slots) whose
+    accuracies differ: the first half's captions cut to T_TRAIN // 2
+    steps; at each valid step of a row of the first half or an even row of
+    the second, the one-device forward's
+    argmax (dropout from ``seed``) where it leads the runner-up by more than
+    1e-2 of the largest |logit| (far above the f32 rounding of another
+    batch split), at every other step its argmin. Returns (batch, the
+    accuracy these labels give, the mean of the halves' accuracies)."""
+    images, captions_in, y = batch
+    with torch.no_grad():
+        logits = cap.forward_train(params, images, captions_in,
+                                   torch.Generator(device=dev).manual_seed(seed))[:, :-1]
+    per = B_TRAIN // SLOTS
+    y = y.clone()
+    y[:per, T_TRAIN // 2:] = 0
+    top = logits.topk(2, -1)
+    rows = torch.arange(B_TRAIN, device=dev)
+    hit = ((rows < per) | (rows % 2 == 0))[:, None] & (
+        top.values[..., 0] - top.values[..., 1] > 1e-2 * logits.abs().max())
+    valid = y[:, :-1].sum(-1) > 0
+    label = torch.where(hit, top.indices[..., 0], logits.argmin(-1))
+    y[:, :-1] = F.one_hot(label, VOCAB).float() * valid[..., None]
+    correct = hit & valid
+    ratios = [float(correct[i:i + per].sum() / valid[i:i + per].sum())
+              for i in range(0, B_TRAIN, per)]
+    return (images, captions_in, y), float(correct.sum() / valid.sum()), sum(ratios) / SLOTS
+
+
+def mesh_step(label, make_single, make_sharded, params, batch, seed, opt, want, failures, dev,
+              accuracy, sharded_params=None):
+    """14a/14b: one step on one device and one sharded over the mesh, each
+    with a gradient recorder, the same batch and one generator seed (the
+    same dropout masks): loss, accuracy, the gradients and the params one
+    Adam step would give; the sharded step counted and both timed.
+    ``accuracy``: (the accuracy the batch's labels give, the mean of the
+    batch halves' accuracies), from ``accuracy_batch``. ``sharded_params``: the
+    params as the sharded step takes them (split on the vocabulary), its
+    gradients joined again to compare."""
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.parallel import gather_params
+
+    one, shard = GradRecorder(), GradRecorder()
+    single, sharded = make_single(one), make_sharded(shard)
+    gen = lambda: torch.Generator(device=dev).manual_seed(seed)   # noqa: E731
+    mesh_params = params if sharded_params is None else sharded_params
+    single(params, None, *batch, gen())       # both warm (cuDNN's choice at each batch)
+    sharded(mesh_params, None, *batch, gen())
+    (_, _, m1), ms1 = timed(single, params, None, *batch, gen())
+    kernels.reset_launches()
+    (_, _, m2), ms2 = timed(sharded, mesh_params, None, *batch, gen())
+    launches = counts()
+    grads = shard.grads if sharded_params is None else gather_params(shard.grads, dev)
+    dist, dist_max = grad_dist(grads, one.grads)
+    share, largest = adam_apart(opt, params, grads, one.grads)
+    loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
+    acc_want, acc_slot_mean = accuracy
+    rep = dict(ms_one_device=ms1, ms_mesh=ms2, loss=[float(m1["loss"]), float(m2["loss"])],
+               loss_rel=loss_rel, accuracy=[float(m1["accuracy"]), float(m2["accuracy"])],
+               accuracy_of_labels=acc_want, accuracy_slot_mean=acc_slot_mean,
+               grad_dist=dist, grad_dist_max=dist_max, adam_apart_share=share,
+               adam_largest=largest, launches=launches, expected=want)
+    log(f"  {label}: one device {ms1:.1f} ms, the mesh on the card {ms2:.1f} ms; loss "
+        f"{rep['loss']} (rel {loss_rel:.3e}), accuracy {rep['accuracy']} (the labels give "
+        f"{acc_want}, the mean of the batch halves' {acc_slot_mean}); gradient {dist:.3e} "
+        f"of its norm (largest |distance| {dist_max:.3e} of scale); one Adam step: "
+        f"{share:.3e} of params apart by > lr/2 (largest {largest:.3e}); launches {launches}")
+    if launches != want:
+        failures.append(f"{label}: launches {launches}, {want} derived")
+    if loss_rel > TOL_MESH_LOSS or rep["accuracy"][0] != rep["accuracy"][1]:
+        failures.append(f"{label}: loss {rep['loss']} / accuracy {rep['accuracy']}")
+    if (not acc_want > 0 or abs(rep["accuracy"][0] - acc_want) > 1e-6
+            or abs(acc_slot_mean - acc_want) < 1e-3):
+        failures.append(f"{label}: accuracy {rep['accuracy']}, the labels give {acc_want}, the "
+                        f"mean of the batch halves' {acc_slot_mean}")
+    if dist > TOL_MESH_GRAD or share > MESH_FLIP_SHARE:
+        failures.append(f"{label}: gradient {dist:.3e} of scale, Adam step apart {share:.3e}")
+    return rep
+
+
+def multihost_worker(argv) -> int:
+    """One process of 14f: ``RANK WORLD PORT BACKEND OUT``. Joins the group,
+    builds a Trainer on a one-slot multihost mesh on cuda:0, takes its rows
+    of one seeded global batch, runs one counted Trainer step and writes the
+    loss, the launches, the step's ms and the params to OUT (npz)."""
+    import numpy as np
+
+    sys.path.insert(0, HERE)
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.parallel import (initialize_distributed, make_multihost_mesh,
+                                                    process_batch_slice)
+    from lrp_imagecaptioning_torch.runtime import resolve_device
+    from lrp_imagecaptioning_torch.train.trainer import Trainer
+    from lrp_imagecaptioning_torch.weights import tree_leaves
+
+    rank, world, port, backend, out = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    dev = resolve_device("cuda:0")
+    torch.cuda.set_device(dev)
+    initialize_distributed(f"localhost:{port}", world, rank, backend=backend)
+    try:
+        cfg = FlickrConfig()
+        t = Trainer("adaptiveattention", cfg, smoke_dataset(cfg), label=f"mh{world}_{rank}",
+                    seed=0, eval_metrics=False, mesh=make_multihost_mesh(devices=[dev]),
+                    multihost=True)
+        rows = process_batch_slice(B_TRAIN)
+        batch = [t._place(a[rows]) for a in train_batch(
+            torch.Generator(device=dev).manual_seed(14), dev, B_TRAIN, T_TRAIN)]
+        kernels.reset_launches()
+        (params, _, m), ms = timed(t._train_step, t.params, t.opt_state, *batch, t.generator)
+        launches = counts()
+        np.savez(out, loss=float(m["loss"]), accuracy=float(m["accuracy"]), ms=ms,
+                 launches=json.dumps(launches),
+                 params=torch.cat([p.reshape(-1) for p in tree_leaves(params)]).cpu().numpy())
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multihost(dev, failures, work):
+    """14f: a 1-rank NCCL group and a 2-process gloo group (both ranks on
+    cuda:0: NCCL refuses two ranks on one card) each run one multihost
+    Trainer step on one seeded global batch of 32, in child processes
+    started together; each rank's launches held to one train step's, the
+    two gloo ranks' params bit for bit each other's, and both groups within
+    the step tolerances of each other."""
+    import socket
+
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+
+    def port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return str(s.getsockname()[1])
+
+    nccl_port, gloo_port = port(), port()
+    runs = [("nccl", 1, 0, nccl_port), ("gloo", 2, 0, gloo_port), ("gloo", 2, 1, gloo_port)]
+    procs = []
+    for backend, world, rank, p in runs:
+        out = os.path.join(work, f"{backend}{world}_{rank}.npz")
+        procs.append((out, subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--multihost-worker",
+             str(rank), str(world), p, backend, out], cwd=work, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    results = []
+    try:
+        for (backend, world, rank, _), (out, proc) in zip(runs, procs):
+            text = proc.communicate(timeout=600)[0]
+            if proc.returncode != 0:
+                log(text[-4000:])
+                raise RuntimeError(f"14f {backend} rank {rank} of {world}: rc {proc.returncode}")
+            with np.load(out) as z:
+                results.append(dict(loss=float(z["loss"]), accuracy=float(z["accuracy"]),
+                                    ms=float(z["ms"]), launches=json.loads(str(z["launches"])),
+                                    params=z["params"]))
+    finally:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+    cfg = FlickrConfig()
+    want = expected_launches("train", cfg)
+    nccl, g0, g1 = results
+    lr = cfg.learning_rate
+    apart = float(np.mean(np.abs(g0["params"] - nccl["params"]) > lr / 2))
+    largest = float(np.abs(g0["params"] - nccl["params"]).max())
+    loss_rel = abs(g0["loss"] - nccl["loss"]) / abs(nccl["loss"])
+    rep = dict(nccl_1_rank={k: v for k, v in nccl.items() if k != "params"},
+               gloo_2_ranks=[{k: v for k, v in g.items() if k != "params"} for g in (g0, g1)],
+               ranks_equal=bool(np.array_equal(g0["params"], g1["params"])),
+               loss_rel=loss_rel, params_apart_share=apart, params_largest=largest,
+               expected_a_rank=want)
+    log(f"  14f 1-rank NCCL: loss {nccl['loss']:.6f}, {nccl['ms']:.1f} ms, launches "
+        f"{nccl['launches']}; 2-process gloo: losses {g0['loss']:.6f} / {g1['loss']:.6f}, "
+        f"{g0['ms']:.1f} / {g1['ms']:.1f} ms (the three processes share the card), launches "
+        f"{g0['launches']} / {g1['launches']}; the ranks' params bit for bit "
+        f"{rep['ranks_equal']}; gloo vs NCCL: loss rel {loss_rel:.3e}, {apart:.3e} of params "
+        f"apart by > lr/2 (largest {largest:.3e})")
+    for r, name in ((nccl, "NCCL rank 0"), (g0, "gloo rank 0"), (g1, "gloo rank 1")):
+        if r["launches"] != want:
+            failures.append(f"14f {name}: launches {r['launches']}, {want} derived")
+    if not rep["ranks_equal"]:
+        failures.append("14f: the two gloo ranks end on different params")
+    if loss_rel > TOL_MESH_LOSS or apart > MESH_FLIP_SHARE or largest > 2.5 * lr:
+        failures.append(f"14f: gloo against NCCL: loss rel {loss_rel:.3e}, params apart "
+                        f"{apart:.3e}, largest {largest:.3e}")
+    return {k: g0["launches"][k] + g1["launches"][k] for k in want}, rep
+
+
+def phase_scale_out(dev, failures, detail, artifact):
+    """14a-14f: the sharded paths at full width on a mesh of SLOTS slots on
+    the card against their one-device runs. Returns (launches, kernel
+    summaries, report) of MESH_PATHS."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.parallel import make_mesh
+    from lrp_imagecaptioning_torch.train.lrp_finetune import (make_lrp_finetune_step,
+                                                              make_sharded_lrp_finetune_step)
+    from lrp_imagecaptioning_torch.train.optimizer import make_optimizer
+    from lrp_imagecaptioning_torch.train.step import make_sharded_train_step, make_train_step
+
+    work = os.path.join(HERE, "build", "phase14")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mesh = make_mesh(devices=[dev] * SLOTS)
+    cfg = FlickrConfig()
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    launches, summary, rep = {}, {}, {"slots": [str(d) for d in mesh.slots]}
+    per_slot = lambda want: {k: SLOTS * v for k, v in want.items()}   # noqa: E731
+
+    def train():
+        opt = make_optimizer("adaptiveattention", cfg.learning_rate)
+        batch, *accuracy = accuracy_batch(cap, params, train_batch(
+            torch.Generator(device=dev).manual_seed(14), dev, B_TRAIN, T_TRAIN), 15, dev)
+        r = rep["train"] = mesh_step(
+            "14a train step", lambda o: make_train_step(cap, o),
+            lambda o: make_sharded_train_step(cap, o, mesh)[0], params, batch, 15, opt,
+            per_slot(expected_launches("train", cfg)), failures, dev, accuracy)
+        launches["mesh_train"] = r["launches"]
+
+    def vocab():
+        from lrp_imagecaptioning_torch.parallel import place_params
+
+        vocab_mesh = make_mesh(devices=[dev] * SLOTS, model_parallel=SLOTS)
+        opt = make_optimizer("adaptiveattention", cfg.learning_rate)
+        batch, *accuracy = accuracy_batch(cap, params, train_batch(
+            torch.Generator(device=dev).manual_seed(18), dev, B_TRAIN, T_TRAIN), 19, dev)
+        r = rep["vocab_train"] = mesh_step(
+            f"14a train step, the vocabulary split over {SLOTS} model slots",
+            lambda o: make_train_step(cap, o),
+            lambda o: make_sharded_train_step(cap, o, vocab_mesh, shard_vocab=True)[0], params,
+            batch, 19, opt, expected_launches("train", cfg), failures, dev, accuracy,
+            sharded_params=place_params(vocab_mesh, params, shard_vocab=True))
+        launches["vocab_train"] = r["launches"]
+
+    def finetune():
+        opt = make_optimizer("adaptiveattention", 1e-6)
+        stop = np.zeros(VOCAB + 1, bool)
+        batch, *accuracy = accuracy_batch(cap, params, train_batch(
+            torch.Generator(device=dev).manual_seed(16), dev, B_TRAIN, T_TRAIN), 17, dev)
+        r = rep["finetune"] = mesh_step(
+            "14b fine-tune step", lambda o: make_lrp_finetune_step(cap, o, stop, SOS, EOS),
+            lambda o: make_sharded_lrp_finetune_step(cap, o, mesh, stop, SOS, EOS), params,
+            batch, 17, opt, per_slot(expected_launches(
+                "finetune", FlickrConfig(batch_size=B_TRAIN // SLOTS))), failures, dev, accuracy)
+        launches["mesh_finetune"] = r["launches"]
+
+    def shard_words():
+        image = serve_images(1, 14)[0]
+        toks = np.random.default_rng(14).integers(3, VOCAB, T).astype(np.int32)   # no EOS
+        for storage, path in ((None, "shard_words_f32"), (torch.bfloat16, "shard_words_bf16")):
+            one = explainer_for(cap, params, dev, storage_dtype=storage)
+            ex = explainer_for(cap, params, dev, storage_dtype=storage, mesh=mesh,
+                               shard_words=True, batch_size=B_MAIN)
+            one.analyze(image, toks)
+            ex.analyze(image, toks)     # both capture their graphs
+            ref, ms1 = timed(one.analyze, image, toks)
+            got, ms2, counted = counted_run(ex.analyze, image, toks)
+            want = per_slot(explain_launches("adaptiveattention", storage, [(1, T // SLOTS)]))
+            dist = mesh_held([got], [ref], f"14c {path}", failures, storage)
+            rep[path] = dict(ms_one_device=ms1, ms_mesh=ms2, dist=dist, launches=counted,
+                             expected=want)
+            log(f"  14c word-sharded analyze, {storage or 'f32'}, one image at bucket {T}: one "
+                f"device {ms1:.1f} ms, {SLOTS} slots on the card {ms2:.1f} ms; against one "
+                f"device {dist}; launches {counted}")
+            if counted != want:
+                failures.append(f"14c {path}: launches {counted}, {want} derived")
+            launches[path] = counted
+            del one, ex
+            gc.collect()
+
+    def many_and_service():
+        from lrp_imagecaptioning_torch.infer.serving import CaptionService
+
+        images, toks, lengths = natural_workload()
+        images, toks, lengths = images[:B_BF16], toks[:B_BF16], lengths[:B_BF16]
+        bf = torch.bfloat16
+        one = explainer_for(cap, params, dev, storage_dtype=bf, batch_size=B_BF16)
+        ex = explainer_for(cap, params, dev, storage_dtype=bf, batch_size=B_BF16, mesh=mesh)
+        one.analyze_many(images, toks)
+        ex.analyze_many(images, toks)
+        ref, ms1 = timed(one.analyze_many, images, toks)
+        got, ms2, counted = counted_run(ex.analyze_many, images, toks)
+        ((_, bucket),) = sorted_plan(lengths, B_BF16)
+        want = explain_launches("adaptiveattention", bf, [(B_BF16 // SLOTS, bucket)] * SLOTS)
+        dist = mesh_held(got, ref, "14d analyze_many bf16", failures, bf)
+        rep["mesh_bf16"] = dict(img_per_s_one_device=B_BF16 / ms1 * 1e3,
+                                img_per_s_mesh=B_BF16 / ms2 * 1e3, bucket=bucket, dist=dist,
+                                launches=counted, expected=want)
+        log(f"  14d analyze_many, bf16, {B_BF16} natural-length captions (bucket {bucket}): one "
+            f"device {rep['mesh_bf16']['img_per_s_one_device']:.2f} img/s, {SLOTS} slots of "
+            f"{B_BF16 // SLOTS} on the card {rep['mesh_bf16']['img_per_s_mesh']:.2f} img/s; "
+            f"against one device {dist}; launches {counted}")
+        if counted != want:
+            failures.append(f"14d mesh_bf16: launches {counted}, {want} derived")
+        launches["mesh_bf16"] = counted
+        MESH_PATHS["mesh_bf16"] = ("serve_bf16", (bf, B_BF16 // SLOTS, bucket), SLOTS)
+        del one, ex
+        gc.collect()
+
+        images = serve_images(B_MESH_SERVE, 12)
+        kw = dict(batch_size=B_MESH_SERVE, beam_size=BEAM, max_len=T, device=dev)
+        svc1 = CaptionService(cap, params, CaptionPP(), **kw)
+        svc2 = CaptionService(cap, params, CaptionPP(), mesh=mesh, **kw)
+        svc1.explain(images)
+        svc2.explain(images)
+        ref, ms1 = timed(svc1.explain, images)
+        got, ms2, counted = counted_run(svc2.explain, images)
+        plan = sorted_plan([len(e.words) for e in got], B_MESH_SERVE)
+        ((_, bucket),) = plan
+        want = explain_launches("adaptiveattention", None,
+                                [(B_MESH_SERVE // SLOTS, bucket)] * SLOTS, decodes=SLOTS)
+        caps_equal = svc2.caption(images) == svc1.caption(images)
+        dist = mesh_held(got, ref, "14d CaptionService", failures)
+        rep["mesh_serve"] = dict(ms_one_device=ms1, ms_mesh=ms2, bucket=bucket,
+                                 captions_equal=caps_equal, dist=dist, launches=counted,
+                                 expected=want)
+        log(f"  14d CaptionService(mesh) explain of {B_MESH_SERVE}: one device {ms1:.1f} ms, "
+            f"{SLOTS} slots on the card {ms2:.1f} ms; captions equal {caps_equal}; against one "
+            f"device {dist}; launches {counted}")
+        if counted != want:
+            failures.append(f"14d mesh_serve: launches {counted}, {want} derived")
+        if not caps_equal:
+            failures.append("14d: the mesh service's captions differ from one device's")
+        launches["mesh_serve"] = counted
+        MESH_PATHS["mesh_serve"] = ("serve_f32", (None, B_MESH_SERVE // SLOTS, bucket), SLOTS)
+        del svc1, svc2
+        gc.collect()
+
+    def exported():
+        from types import SimpleNamespace
+
+        from lrp_imagecaptioning_torch.infer.export import ExportedCaptioner
+
+        if artifact is None:
+            raise RuntimeError("phase 12's artifact is not there (phase 12 did not export)")
+        ec, load_ms = timed(lambda: ExportedCaptioner(artifact, devices=[dev] * SLOTS,
+                                                      device=dev))
+        images = serve_images(N_EXPORTED, 15)
+        halves = (images[:B_MAIN], images[B_MAIN:])
+        for h in halves:
+            ec.explain(h)   # slot 0 captures every bucket the requests take
+        ec.explain(images)  # and slot 1
+        ref, ms1 = timed(lambda: [e for h in halves for e in ec.explain(h)])
+        got, ms2, counted = counted_run(ec.explain, images)
+        as_ns = lambda es: [SimpleNamespace(**e) for e in es]   # noqa: E731
+        dist = mesh_held(as_ns(got), as_ns(ref), "14e exported", failures,
+                         exact_tol=TOL_EXPORTED)
+        plan = [sorted_plan([len(e["words"]) for e in got[i:i + B_MAIN]], B_MAIN)[0]
+                for i in range(0, N_EXPORTED, B_MAIN)]
+        want = explain_launches("adaptiveattention", None, plan, decodes=len(plan))
+        rep["mesh_exported"] = dict(load_s=load_ms / 1e3, ms_slot0_twice=ms1, ms_two_slots=ms2,
+                                    plan=plan, dist=dist, launches=counted, expected=want)
+        log(f"  14e ExportedCaptioner(devices=[{dev}] x {SLOTS}) over {N_EXPORTED} images: "
+            f"load {load_ms / 1e3:.1f} s; each chunk on slot 0 {ms1:.1f} ms, dealt to both slots "
+            f"{ms2:.1f} ms; against slot 0 {dist}; launches {counted}")
+        if counted != want:
+            failures.append(f"14e mesh_exported: launches {counted}, {want} derived")
+        launches["mesh_exported"] = counted
+        buckets = {w for _, w in plan}
+        MESH_PATHS["mesh_exported"] = ("serve_f32", (None, B_MAIN, max(buckets)), len(plan))
+
+    def multihost():
+        launches["multihost_train"], rep["multihost"] = phase_multihost(dev, failures, work)
+
+    try:
+        for title, fn in ((f"14a: one sharded train step at {B_TRAIN}, {SLOTS} slots", train),
+                          (f"14a: one train step at {B_TRAIN}, the vocabulary split over "
+                           f"{SLOTS} model slots", vocab),
+                          (f"14b: one sharded fine-tune step at {B_TRAIN}", finetune),
+                          ("14c: the word-sharded analyze, f32 and bf16", shard_words),
+                          (f"14d: analyze_many bf16 at {B_BF16} and CaptionService at "
+                           f"{B_MESH_SERVE} on the mesh", many_and_service),
+                          ("14e: ExportedCaptioner over two slots", exported),
+                          ("14f: process groups on the card, NCCL and gloo", multihost)):
+            log(f" phase {title} ({host_gib()})")
+            t0 = time.perf_counter()
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a sub-phase that raises is recorded as failed
+                traceback.print_exc()
+                failures.append(f"phase {title} raised")
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"  ({time.perf_counter() - t0:.1f} s; {host_gib()})")
+        for path in MESH_PATHS:
+            if path in launches:
+                summary[path] = mesh_summary(dev, path, failures, detail)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, summary, rep
+
+
 CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
               "tests/test_torch_train_card.py", "tests/test_torch_explainer_card.py",
               "tests/test_torch_trainer_card.py", "tests/test_torch_encoders_card.py",
@@ -3933,12 +4532,17 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None, help="comma-separated phase keys")
-    only = ap.parse_args(argv).only
-    only = None if only is None else set(only.split(","))
+    ap.add_argument("--multihost-worker", nargs=5, default=None,
+                    metavar=("RANK", "WORLD", "PORT", "BACKEND", "OUT"),
+                    help="one process of phase 14f (started by the phase)")
+    args = ap.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test runs on the card only",
               file=sys.stderr)
         return 1
+    if args.multihost_worker is not None:
+        return multihost_worker(args.multihost_worker)
     sys.path.insert(0, HERE)
     from lrp_imagecaptioning_torch.ops import _build, kernels
     from lrp_imagecaptioning_torch.runtime import resolve_device
@@ -3988,6 +4592,9 @@ def main(argv=None) -> int:
               (f"phase 13: the analyzer catalogue at full width: the 32 names at batch {B_MAIN}, "
                f"the wrappers, imgword_batched at {B_MAIN} x {N_WORDS_13}, perturbation",
                "analyzers"),
+              (f"phase 14: scale-out at full width on a {SLOTS}-slot mesh on the card: the "
+               "sharded train and fine-tune steps, the word-sharded and mesh Explainer, the mesh "
+               "CaptionService, exported serving over two slots, process groups", "scale_out"),
               ("phase 5: card tests", "card_tests")]
     summary = built = handoff = None
     launches = {}   # path -> {kernel: launches in its counted pass}
@@ -4109,6 +4716,16 @@ def main(argv=None) -> int:
                 for path, by_kernel in an_summaries.items():
                     for name, s_ in by_kernel.items():
                         summary.setdefault(name, {})[path] = s_
+            elif key == "scale_out":
+                gc.collect()
+                torch.cuda.empty_cache()
+                mesh_launches, mesh_summaries, report["scale_out"] = phase_scale_out(
+                    dev, failures, report.setdefault("kernel_shapes", {}),
+                    (report.get("serve") or {}).get("artifact"))
+                launches.update(mesh_launches)
+                for path, by_kernel in mesh_summaries.items():
+                    for name, s_ in by_kernel.items():
+                        summary.setdefault(name, {})[path] = s_
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)
@@ -4121,18 +4738,19 @@ def main(argv=None) -> int:
         except Exception:  # noqa: BLE001 — a phase that raises is recorded as failed
             traceback.print_exc()
             failures.append(f"{title} raised")
-        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        log(f"  ({time.perf_counter() - t0:.1f} s; {host_gib()})")
     report["seconds"] = time.perf_counter() - t_start
+    shutil.rmtree(os.path.join(HERE, "build", "phase12"), ignore_errors=True)   # 12d's artifact
 
     kernels_line = []
-    all_paths = set(PATHS) | set(PLAN_PATHS) | set(ANALYZER_PATHS)
+    all_paths = set(PATHS) | set(PLAN_PATHS) | set(ANALYZER_PATHS) | set(MESH_PATHS)
     if summary is not None and set(launches) == all_paths:
         for name, (source, replaces, _) in KERNEL_META.items():
             by_path = summary[name]
             # each path must launch its kernels exactly as often as phase 2's
             # shapes (phase 10's chunks for PLAN_PATHS) say (per batch: K1 and
             # K2 once per step, whatever the batch), and the other path's not at all
-            for path in (*PATHS, *PLAN_PATHS, *ANALYZER_PATHS):
+            for path in (*PATHS, *PLAN_PATHS, *ANALYZER_PATHS, *MESH_PATHS):
                 want = by_path[path]["calls_per_batch"] if path in by_path else 0
                 if launches[path][name] != want:
                     failures.append(f"{name}: {launches[path][name]} launches on the {path} "

@@ -25,8 +25,10 @@ Keras .h5/.hdf5 files. ``parity`` reads and writes the JAX command's
 ``attentions``), so one recording checks both packages. ``serve`` runs the
 HTTP (or ``--transport grpc``) front-end over a warmed ``CaptionService``
 with its micro-batching queue, or over an ``export-serving`` artifact
-(``--exported DIR``: no model, config or tokenizer code in the process);
-``--mesh`` and ``--shard-words`` (several cards, ROADMAP A13b) raise.
+(``--exported DIR``: no model, config or tokenizer code in the process).
+``train --num-devices N`` trains data-parallel over N devices and ``serve
+--mesh N`` serves over them (``--shard-words``: one image's words split
+over the mesh); with ``--device cpu`` the mesh is N slots on the CPU.
 """
 
 from __future__ import annotations
@@ -130,12 +132,21 @@ def _load_params(captioner, args):
     return load_weights_file(args.weights, captioner, args.device)[0]
 
 
+def _mesh(n: int, device: str):
+    """An N-slot data-parallel mesh: the first N cards, or N slots on the CPU
+    when the caller asked for it."""
+    from .parallel import make_mesh
+
+    return make_mesh(n, devices=[device] * n if device == "cpu" else None)
+
+
 def cmd_train(args):
     from .train.trainer import Trainer, reject_unported
 
-    reject_unported(mesh=args.num_devices, steps_per_call=args.steps_per_call)
+    reject_unported(steps_per_call=args.steps_per_call)
     cfg, dataset = _build_dataset(args)
-    t = Trainer(args.model_type, cfg, dataset, label=args.label, device=args.device)
+    mesh = _mesh(args.num_devices, args.device) if args.num_devices else None
+    t = Trainer(args.model_type, cfg, dataset, label=args.label, mesh=mesh, device=args.device)
     if args.weights:
         t.load_weights(args.weights)
     if args.resume:
@@ -386,6 +397,7 @@ def _validate_exported(args) -> dict:
                          f"{exported_method!r}")
     for flag, val, default in (("--batch-size", args.batch_size, None),
                                ("--beam-size", args.beam_size, 3),
+                               ("--shard-words", args.shard_words, False),
                                ("--split-buckets", args.split_buckets, False)):
         if val != default:
             print(f"warning: {flag} is fixed at export time; ignoring (artifact: batch "
@@ -399,19 +411,31 @@ def cmd_serve(args):
     torch.export artifact instead."""
     import time
 
+    import torch
+
     from .infer.http_server import CaptionHTTPServer
 
-    if args.mesh > 1 or args.shard_words:
-        raise NotImplementedError("--mesh and --shard-words (serving over several cards) are "
-                                  "not ported yet: ROADMAP A13b")
+    if args.shard_words and args.mesh <= 1 and not args.exported:
+        raise ValueError("--shard-words needs --mesh N > 1: shard_words=True requires a mesh")
     if args.exported:
         from .infer.export import ExportedService
 
         _validate_exported(args)
+        # --mesh N: N params replicas, request chunks round-robined over them;
+        # the flag is checked before the artifact loads, so that a fault of
+        # the artifact is not blamed on it
+        devices = None
+        if args.mesh > 1:
+            avail = (args.mesh if args.device == "cpu" else
+                     torch.cuda.device_count() if torch.cuda.is_available() else 0)
+            if args.mesh > avail:
+                raise SystemExit(f"--mesh {args.mesh}: devices={args.mesh} but only {avail} "
+                                 "available")
+            devices = [args.device] * args.mesh if args.device == "cpu" else args.mesh
         print(f"loading exported artifact {args.exported}...", flush=True)
-        svc = ExportedService(args.exported, device=args.device)
+        svc = ExportedService(args.exported, devices=devices, device=args.device)
         print(f"warmed in {svc.stats.get('warmup_s')}s (batch {svc.meta['batch_size']}, "
-              f"beam {svc.meta['beam_size']})", flush=True)
+              f"beam {svc.meta['beam_size']}, devices {svc.stats['devices']})", flush=True)
     else:
         from .data.provider import DatasetProvider
         from .infer.serving import CaptionService
@@ -422,9 +446,11 @@ def cmd_serve(args):
         captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
         params = _load_params(captioner, args)
         serve_batch = args.batch_size or cfg.batch_size
+        mesh = _mesh(args.mesh, args.device) if args.mesh > 1 else None
         svc = CaptionService(captioner, params, provider.caption_preprocessor,
-                             batch_size=serve_batch, beam_size=args.beam_size,
-                             split_buckets=args.split_buckets, device=args.device)
+                             batch_size=serve_batch, beam_size=args.beam_size, mesh=mesh,
+                             shard_words=args.shard_words, split_buckets=args.split_buckets,
+                             device=args.device)
         print(f"warming up (batch {serve_batch}, beam {args.beam_size}, "
               f"explain={args.with_explain})...", flush=True)
         svc.warmup(explain=args.with_explain, method=args.method or "lrp")
@@ -469,7 +495,8 @@ def main(argv=None):
     p.add_argument("--time-limit", default=None, help="e.g. '12 hours'")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="data-parallel mesh size: not ported yet (ROADMAP A13b), raises")
+                   help="data-parallel mesh size (the first N cards; N CPU slots with "
+                        "--device cpu)")
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="only 1: the port has no K-steps-a-call variants")
     p.set_defaults(fn=cmd_train)
@@ -551,14 +578,13 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8000, help="0 binds a free port (printed)")
     p.add_argument("--transport", default="http", choices=("http", "grpc"))
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel serving over N cards: not ported yet (ROADMAP A13b), "
-                        "raises")
+                   help="shard request batches over an N-device data-parallel mesh")
     p.add_argument("--split-buckets", dest="split_buckets", action="store_true",
                    help="explain requests dispatch per caption-length bucket at ladder "
                         "sub-batch sizes (latency mode)")
     p.add_argument("--shard-words", action="store_true",
-                   help="shard one image's words over several cards: not ported yet "
-                        "(ROADMAP A13b), raises")
+                   help="with --mesh: shard single-image explain requests over the mesh's "
+                        "devices (latency mode)")
     p.add_argument("--linger-ms", type=float, default=5.0,
                    help="micro-batching window for concurrent requests")
     p.add_argument("--with-explain", action="store_true",

@@ -63,6 +63,7 @@
 #include <stdint.h>
 
 #include "div_rn.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -326,9 +327,10 @@ template <int WM, int NF>
 int launch(const float* x, const float* ew, const float* taps, const float* bias, float* out,
            int N, int Nc, int Ne, int H, int W, int Cin, int Cout, int divide, cudaStream_t s) {
   using C = Cfg<WM, NF>;
-  // above 48 KB of dynamic shared memory a launch is refused unless allowed
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_fused_kernel<WM, NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  // above 48 KB of dynamic shared memory a launch is refused unless allowed,
+  // on each device apart
+  static std::atomic<unsigned long long> allowed{0};
+  const cudaError_t attr = allow_dynamic_smem(conv3x3_fused_kernel<WM, NF>, C::SMEM, allowed);
   if (attr != cudaSuccess) return (int)attr;
   const int64_t tiles = (int64_t)((H + C::TH - 1) / C::TH) * ((W + TW - 1) / TW);
   const int co_tiles = (Cout + C::BN - 1) / C::BN;

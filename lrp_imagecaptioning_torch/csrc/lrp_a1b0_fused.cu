@@ -74,6 +74,7 @@
 #include <stdint.h>
 
 #include "div_rn.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -325,9 +326,10 @@ template <int WN>
 int launch(const void* r, const void* z, const void* x, const void* kp, void* out, int N, int H,
            int W, int Cin, int Cout, cudaStream_t stream) {
   using C = Cfg<WN>;
-  // above 48 KB of dynamic shared memory a launch is refused unless allowed
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      lrp_a1b0_fused_kernel<WN>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  // above 48 KB of dynamic shared memory a launch is refused unless allowed,
+  // on each device apart
+  static std::atomic<unsigned long long> allowed{0};
+  const cudaError_t attr = allow_dynamic_smem(lrp_a1b0_fused_kernel<WN>, C::SMEM, allowed);
   if (attr != cudaSuccess) return (int)attr;
   const int ci_tiles = (Cin + C::BN - 1) / C::BN;
   const int64_t words_x_tiles = (int64_t)N * ci_tiles;

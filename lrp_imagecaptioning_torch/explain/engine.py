@@ -31,7 +31,19 @@ decoder stage and are dropped, and the CNN side runs on the real rows only.
 
 The JAX package encodes and runs the cached forward at batch 1 per image;
 here they run at batch B (the same function, summed in another order).
-``mesh=`` / ``shard_words=`` (ROADMAP A13b) raise ``NotImplementedError``.
+
+``mesh=`` (``parallel.make_mesh``): the batched calls split each dispatch's
+rows over the mesh's data slots, each slot with its params replica and its
+own graphs on its device (the JAX package's ``shard_map`` over images);
+dispatch sizes are multiples of the data size. A slot holding only padded
+rows is skipped. Every slot's work is issued, from the caller's thread,
+before any output is copied to the host, so that no slot's launches wait
+for another's copy. ``analyze`` and
+``predict_caption`` (one image) run on the first slot, unless
+``shard_words=True``: then each slot encodes the image and runs the cached
+forward again, and explains its own slice of the word positions (the bucket
+rounded up to a multiple of the data size; surplus positions clamp to the
+last step and are dropped); the slices are stitched on the word axis.
 """
 
 from __future__ import annotations
@@ -94,6 +106,25 @@ _RESNET_WALKS = {"lrp": resnet_lrp.resnet_lrp_wordbatched,
 _INCEPTION_WALKS = {"lrp": inception_lrp.inception_lrp_wordbatched,
                     "deep_taylor": inception_lrp.inception_deep_taylor_wordbatched,
                     "deep_lift": inception_lrp.inception_deeplift_wordbatched}
+def _to_host(outs, axis: int = 0) -> list:
+    """Each slot's explain outputs on the host, each array joined over the
+    slots on ``axis`` (one slot's as it is: no copy)."""
+    parts = zip(*([o.float().cpu().numpy() for o in out] for out in outs))
+    return [p[0] if len(p) == 1 else np.concatenate(p, axis=axis) for p in parts]
+
+
+@dataclass
+class _Slot:
+    """One data slot of an Explainer: its device, its params replica and its
+    beam-search and decoder stages (replayed from its own graphs on a card)."""
+
+    device: torch.device
+    params: dict
+    graphs: GraphCache | None
+    decode: object
+    decoder: object
+
+
 def _decoder_backward_fn(model_type: str, method: str):
     """The decoder side of ``method``: the LRP recursion for the relevance
     methods, the reference's BPTT gradient (AOA: the true gradient) for
@@ -123,12 +154,18 @@ class Explainer:
         every dispatch is padded to a size of its halving ladder."""
         if method not in METHODS:
             raise ValueError(f"method {method!r} not in {METHODS}")
-        if mesh is not None or shard_words:
-            raise NotImplementedError("mesh= and shard_words= (torch.distributed over several "
-                                      "cards) are not ported yet: ROADMAP A13b")
-        self.device = resolve_device(device)
+        if shard_words and mesh is None:
+            raise ValueError("shard_words=True requires a mesh")
+        n_data = 1 if mesh is None else len(mesh.slots)
+        if batch_size % n_data:
+            raise ValueError(f"batch_size {batch_size} not divisible by the mesh data-axis "
+                             f"size {n_data}")
+        devices = [resolve_device(device)] if mesh is None else [resolve_device(d)
+                                                                 for d in mesh.slots]
+        self.device = devices[0]
         self.captioner = captioner
-        self.params = tree_to(params, self.device)
+        self._mesh = mesh
+        self._shard_words = bool(shard_words)
         self._pp = caption_pp
         self.method = method
         self._beam_size = beam_size
@@ -144,17 +181,37 @@ class Explainer:
         self.batch_size = batch_size
         self._backward = _decoder_backward_fn(captioner.model_type, method)
         self._noise: dict = {}
-        # on the card the beam search and the decoder stage replay from graphs
-        self.graphs = GraphCache() if self.device.type == "cuda" else None
-        self._decode_stage = self._graphed(self._decode_impl)
-        # AOA's decoder gradient runs autograd, which stays out of a capture
-        eager = captioner.model_type == "aoa" and method not in _RELEVANCE_METHODS
-        self._decoder_stage = self._decoder_impl if eager else self._graphed(self._decoder_impl)
+        replicas = {}
+        self._slots = [self._make_slot(d, replicas.setdefault(d, tree_to(params, d)))
+                       for d in devices]
 
-    def _graphed(self, fn):
-        if self.graphs is None:
-            return fn
-        return self.graphs.stage(fn, lambda params: param_tensors(params["decoder"]))
+    def _make_slot(self, device, params) -> _Slot:
+        # on the card the beam search and the decoder stage replay from graphs
+        graphs = GraphCache() if device.type == "cuda" else None
+
+        def graphed(fn):
+            if graphs is None:
+                return fn
+            return graphs.stage(fn, lambda p: param_tensors(p["decoder"]))
+
+        # AOA's decoder gradient runs autograd, which stays out of a capture
+        eager = self.captioner.model_type == "aoa" and self.method not in _RELEVANCE_METHODS
+        return _Slot(device, params, graphs, graphed(self._decode_impl),
+                     self._decoder_impl if eager else graphed(self._decoder_impl))
+
+    # the first slot's (the only one without a mesh)
+    @property
+    def params(self):
+        return self._slots[0].params
+
+    @property
+    def graphs(self):
+        return self._slots[0].graphs
+
+    @property
+    def graph_caches(self) -> list:
+        """Every slot's ``GraphCache`` (none on the CPU)."""
+        return [s.graphs for s in self._slots if s.graphs is not None]
 
     def _bucket_for(self, n_words: int) -> int:
         for w in self._buckets:
@@ -189,8 +246,8 @@ class Explainer:
             betas = torch.zeros(positions.shape, device=r_feat.device, dtype=r_feat.dtype)
         return r_feat, r_words, atts, betas
 
-    def _encode(self, images):
-        return self.captioner.encode(self.params, images)
+    def _encode(self, images, params=None):
+        return self.captioner.encode(self.params if params is None else params, images)
 
     def _cnn(self, images, feat_grid, r_feat, params=None):
         """The CNN side of the method: (B, W, L, D) seeds -> (B, W, H, W, 3);
@@ -207,7 +264,7 @@ class Explainer:
         for b in range(B):
             image, s = images[b:b + 1], seeds[b]
             if self.method not in _RELEVANCE_METHODS:
-                maps.append(self._gradient(image, s, feat_grid[b].reshape(g, g, D)))
+                maps.append(self._gradient(image, s, feat_grid[b].reshape(g, g, D), params))
             elif enc in ("vgg16", "vgg19"):
                 walk = vgg_deep_taylor if self.method == "deep_taylor" else vgg_deeplift
                 maps.append(walk(vgg, image, s, until, arch=enc))
@@ -217,12 +274,12 @@ class Explainer:
                 maps.append(_INCEPTION_WALKS[self.method](vgg, image, s, until=until))
         return torch.stack(maps)
 
-    def _gradient(self, image, seeds, feat_hw):
+    def _gradient(self, image, seeds, feat_hw, params=None):
         """The gradient methods' CNN side on any encoder: image (1, H, W, 3),
         seeds (W, g, g, D) -> (W, H, W, 3). VGG's SmoothGrad draws noise per
         word position, the other encoders' one set per image (as the JAX
         package draws them)."""
-        cfg, params = self.captioner.cfg, self.params
+        cfg, params = self.captioner.cfg, self.params if params is None else params
         if cfg.img_encoder in ("vgg16", "vgg19"):
             # f32 whatever cfg.compute_dtype, as the reference's VGG functions
             def encode(x, relu_fn):
@@ -248,10 +305,10 @@ class Explainer:
         return torch.randn((self._sg_samples, *image_shape), generator=gen)
 
     def _generic_noise_on(self, image):
-        key = ("generic", tuple(image.shape[1:]), image.dtype)
+        key = ("generic", tuple(image.shape[1:]), image.dtype, image.device)
         if key not in self._noise:
             self._noise[key] = self.generic_smoothgrad_noise(tuple(image.shape[1:])).to(
-                self.device, image.dtype)
+                image.device, image.dtype)
         return self._noise[key]
 
     def smoothgrad_noise(self, n_words: int, image_shape) -> torch.Tensor:
@@ -266,40 +323,72 @@ class Explainer:
         return torch.stack(out)
 
     def _smoothgrad_noise_on(self, n_words, image):
-        key = (n_words, tuple(image.shape[1:]), image.dtype)
+        key = (n_words, tuple(image.shape[1:]), image.dtype, image.device)
         if key not in self._noise:
             self._noise[key] = self.smoothgrad_noise(n_words, image.shape[1:]).to(
-                self.device, image.dtype)
+                image.device, image.dtype)
         return self._noise[key]
 
-    def _explain_batch(self, images, toks, W: int, n: int | None = None):
-        """images (B, H, W, 3) and tokens (B, T) on the device, W positions an
-        image -> (maps, r_feat, r_words, attentions, betas) of the first ``n``
-        rows (default all B) on the device; the rows past ``n`` are padding,
-        which the CNN side skips."""
-        return self._explain_batch_impl(self.params, images, toks, W, n, self._decoder_stage)
-
     def _explain_batch_impl(self, params, images, toks, W: int, n: int | None = None,
-                            decoder_stage=None):
-        """``_explain_batch`` on explicit ``params``, its decoder stage by
+                            decoder_stage=None, positions=None):
+        """images (B, H, W, 3) and tokens (B, T) on ``params``' device, W
+        positions an image -> (maps, r_feat, r_words, attentions, betas) of
+        the first ``n`` rows (default all B); the rows past ``n`` are
+        padding, which the CNN side skips. ``positions`` (B, W) replaces the
+        first W positions (the word-sharded slices). The decoder stage is by
         default the eager one: the body ``infer/export.py`` traces per bucket
         (no graph replay, no host sync)."""
         n = images.shape[0] if n is None else n
         feat_grid = self.captioner.encode(params, images)
-        positions = torch.arange(W, device=images.device).expand(images.shape[0], W).contiguous()
+        if positions is None:
+            positions = torch.arange(W, device=images.device).expand(images.shape[0],
+                                                                     W).contiguous()
         outs = (decoder_stage or self._decoder_impl)(params, feat_grid, toks, positions)
         r_feat, r_words, atts, betas = (o[:n] for o in outs)
         return self._cnn(images[:n], feat_grid[:n], r_feat, params), r_feat, r_words, atts, betas
 
+    def _slots_for(self, size: int) -> list:
+        """The slots a dispatch of ``size`` rows splits over: every slot when
+        the size divides over them, else (one image) the first."""
+        return self._slots if size % len(self._slots) == 0 else self._slots[:1]
+
     def _explain_rows(self, images, toks_np, size: int, W: int) -> list:
         """The Explanations of the k rows of ``images`` (device) and
         ``toks_np`` (host) on bucket W, from one explain call padded to
-        ``size`` rows; each output is copied to the host once."""
+        ``size`` rows and split over the slots; each slot's outputs are
+        copied to the host once, after every slot's work is issued."""
         k = images.shape[0]
-        toks = torch.as_tensor(_pad_rows(toks_np, size), dtype=torch.long, device=self.device)
-        outs = self._explain_batch(_pad_rows(images, size), toks, W, k)
-        host = [o.float().cpu().numpy() for o in outs]
+        images, toks_pad = _pad_rows(images, size), _pad_rows(toks_np, size)
+        slots = self._slots_for(size)
+        per = size // len(slots)
+        outs = []
+        for i, slot in enumerate(slots):
+            real = min(k - i * per, per)
+            if real <= 0:   # padding only
+                break
+            rows = slice(i * per, (i + 1) * per)
+            toks = torch.as_tensor(toks_pad[rows], dtype=torch.long, device=slot.device)
+            outs.append(self._explain_batch_impl(slot.params, images[rows].to(slot.device), toks,
+                                                 W, real, slot.decoder))
+        host = _to_host(outs)
         return [self._assemble(toks_np, host, b) for b in range(k)]
+
+    def _explain_words_sharded(self, image, toks_np, W: int):
+        """One image's explanation with its word positions split over the
+        slots (``shard_words``): bucket ``W`` rounded up to a multiple of the
+        data size, each slot's slice of positions (clamped to the last step)
+        explained on its device, the outputs stitched on the word axis."""
+        slots = self._slots
+        per = -(-W // len(slots))
+        T = self._max_len
+        outs = []
+        for i, slot in enumerate(slots):
+            positions = torch.arange(i * per, (i + 1) * per, device=slot.device).clamp(
+                max=T - 1)[None]
+            toks = torch.as_tensor(toks_np, dtype=torch.long, device=slot.device)
+            outs.append(self._explain_batch_impl(slot.params, image.to(slot.device), toks, W, 1,
+                                                 slot.decoder, positions))
+        return self._assemble(toks_np, _to_host(outs, axis=1), 0)
 
     # -- host side -------------------------------------------------------------
 
@@ -310,9 +399,18 @@ class Explainer:
 
     def _decode(self, images, B: int | None = None) -> np.ndarray:
         """Beam search over device images -> (n, T) int32 tokens, in the
-        dispatches of ``_chunks`` at batch B (default ``batch_size``)."""
-        toks = [self._decode_stage(self.params, self._encode(_pad_rows(images[i:j], size)))[:j - i]
-                for i, j, size in self._chunks(images.shape[0], B or self.batch_size)]
+        dispatches of ``_chunks`` at batch B (default ``batch_size``), each
+        split over the slots (one image: the first)."""
+        toks = []
+        for i, j, size in self._chunks(images.shape[0], B or self.batch_size):
+            chunk = _pad_rows(images[i:j], size)
+            slots = self._slots_for(size)
+            per = size // len(slots)
+            parts = [slot.decode(slot.params,
+                                 self._encode(chunk[s * per:(s + 1) * per].to(slot.device),
+                                              slot.params)).to(self.device)
+                     for s, slot in enumerate(slots) if s * per < j - i]
+            toks.append(torch.cat(parts)[:j - i])
         return torch.cat(toks).cpu().numpy().astype(np.int32)
 
     def _assemble(self, toks_np, outs, b) -> Explanation:
@@ -347,10 +445,12 @@ class Explainer:
         return toks.astype(np.int32)
 
     def _sub_batch_ladder(self, B: int) -> tuple:
-        """Descending halving ladder of dispatch sizes <= B: B, ceil(B/2), ..., 1."""
+        """Descending halving ladder of dispatch sizes <= B: B, ceil(B/2), ...,
+        1, each rounded up to a multiple of the mesh's data size."""
+        n_data = len(self._slots)
         sizes, s = [], B
         while s >= 1:
-            sizes.append(s)
+            sizes.append(-(-s // n_data) * n_data)
             if s == 1:
                 break
             s = -(-s // 2)
@@ -359,7 +459,11 @@ class Explainer:
     def _chunks(self, n: int, B: int):
         """(start, stop, size) of the dispatches that carry n rows at batch B:
         chunks of B rows, a short last one padded up to the smallest size of
-        B's halving ladder that holds it."""
+        B's halving ladder that holds it; one image alone on a mesh takes one
+        row, on the first slot."""
+        if n == 1 and B == 1:
+            yield 0, 1, 1
+            return
         ladder = self._sub_batch_ladder(B)
         for i in range(0, n, B):
             j = min(i + B, n)
@@ -388,24 +492,42 @@ class Explainer:
         to it, or padded by repeating the last), and with ``sub_batches=True``
         at every size of its halving ladder, which ``analyze`` (one row), a
         short batch or chunk and ``analyze_many(split_buckets=True)``
-        dispatch; then run one whole explain call so that the eager stages'
-        first calls are paid too."""
+        dispatch; on a mesh each slot at its share of those rows, and with
+        ``shard_words`` the first slot's one-image decode and each slot's
+        word slice of every bucket. Then run one whole explain call so that
+        the eager stages' first calls are paid too."""
         B = self.batch_size
         images = _pad_rows(self._as_images(images)[:B], B)
-        feat_grid = self._encode(images)
-        toks = None
+        buckets = (*self._buckets, self._max_len)
+        first = {}
         for size in (self._sub_batch_ladder(B) if sub_batches else (B,)):
-            decoded = self._decode_stage(self.params, feat_grid[:size])
-            toks = decoded if toks is None else toks    # the first size is B
-            for W in (*self._buckets, self._max_len):
-                positions = torch.arange(W, device=self.device).expand(size, W).contiguous()
-                self._decoder_stage(self.params, feat_grid[:size], toks[:size], positions)
-        self._explain_batch(images, toks, self._bucket_for(0))
+            slots = self._slots_for(size)
+            per = size // len(slots)
+            for i, slot in enumerate(slots):
+                feat = self._encode(images[i * per:(i + 1) * per].to(slot.device), slot.params)
+                toks = slot.decode(slot.params, feat)
+                first.setdefault(i, (feat, toks))
+                for W in buckets:
+                    positions = torch.arange(W, device=slot.device).expand(per, W).contiguous()
+                    slot.decoder(slot.params, feat, toks, positions)
+        if self._shard_words:
+            slot0 = self._slots[0]
+            toks = slot0.decode(slot0.params, self._encode(images[:1], slot0.params))
+            for slot in self._slots:
+                feat = self._encode(images[:1].to(slot.device), slot.params)
+                for W in buckets:
+                    positions = torch.arange(-(-W // len(self._slots)), device=slot.device)[None]
+                    slot.decoder(slot.params, feat, toks.to(slot.device), positions)
+        for i, (feat, toks) in first.items():
+            slot = self._slots[i]
+            per = feat.shape[0]
+            self._explain_batch_impl(slot.params, images[i * per:(i + 1) * per].to(slot.device),
+                                     toks, self._bucket_for(0), None, slot.decoder)
         return self
 
     @torch.no_grad()
     def predict_caption(self, image) -> tuple[np.ndarray, str]:
-        tokens = self._decode(self._as_images(image)[None])[0]
+        tokens = self._decode(self._as_images(image)[None], 1)[0]
         words = []
         for tok in tokens:
             if tok == 0:
@@ -425,7 +547,10 @@ class Explainer:
             caption = None
         toks = self._coerce_tokens(tokens_1based)
         n = _n_explained(np.asarray(tokens_1based), self._pp.EOS_TOKEN_LABEL_ENCODED)
-        e = self._explain_rows(images, toks[None], 1, self._bucket_for(n))[0]
+        if self._shard_words:
+            e = self._explain_words_sharded(images, toks[None], self._bucket_for(n))
+        else:
+            e = self._explain_rows(images, toks[None], 1, self._bucket_for(n))[0]
         e.tokens_1based = np.asarray(tokens_1based)
         if caption is not None:
             e.caption = caption
@@ -458,12 +583,16 @@ class Explainer:
 
         ``split_buckets``: the latency mode for small requests: each
         same-bucket group goes out in sub-batches from the halving ladder of
-        ``batch_size`` (``warmup(sub_batches=True)`` captures them all)."""
+        ``batch_size`` (``warmup(sub_batches=True)`` captures them all). On a
+        mesh ``batch_size`` must divide by its data size."""
         images = self._as_images(images)
         n = images.shape[0]
         if n == 0:
             return []
         B = batch_size or self.batch_size
+        if B % len(self._slots):
+            raise ValueError(f"batch_size {B} not divisible by the mesh data-axis size "
+                             f"{len(self._slots)}")
         toks_np = (self._decode(images, B) if tokens_1based is None
                    else self._coerce_tokens(tokens_1based))
         eos = self._pp.EOS_TOKEN_LABEL_ENCODED

@@ -62,7 +62,8 @@ def capture(fn: Callable, device=None, pool=None):
     or a pool of its own); returns the graph and what the captured call
     returned (tensors the graph rewrites at each replay).
 
-    One eager call on a side stream comes first: lazy set-up (cuBLAS handles,
+    One eager call on a side stream of ``device`` comes first, and the
+    capture runs on that stream: lazy set-up (cuBLAS handles,
     the kernels' libraries) must not happen inside the capture. Python's
     cyclic garbage collector is off during the capture: a collection there
     can destroy an unreachable graph (a dropped Explainer's; the Explainer
@@ -77,7 +78,10 @@ def capture(fn: Callable, device=None, pool=None):
     gc_was_on = gc.isenabled()
     gc.disable()
     try:
-        with (torch.cuda.graph(graph) if pool is None else torch.cuda.graph(graph, pool=pool)):
+        # captured on the side stream of ``device``: torch.cuda.graph's own
+        # capture stream lies on the card current at its first use, and work
+        # on another card would run eagerly beside an empty graph
+        with torch.cuda.graph(graph, pool=pool, stream=side):
             out = fn()
     finally:
         if gc_was_on:

@@ -23,12 +23,18 @@ placeholders' device; the CPU for the tests). On the card
 ``ExportedCaptioner`` replays each program from a CUDA graph, captured by
 ``ExportedService``'s warm-up, so no request captures.
 
+``ExportedCaptioner(devices=N | list)`` serves data-parallel from the same
+one-device artifact: one params replica a device, the programs moved to
+each device once (``torch.export.passes.move_to_device_pass``; nothing is
+traced again), each slot with its own graphs, since calls on one graph must
+not overlap. Request chunks are dealt to the slots in turn, and every
+chunk's work is issued before the first is copied to the host.
+
 The traced bodies are the eager stages (no graph replay inside a trace) and
 contain no host sync: the bucket choice, ``.cpu()`` and the assembly of the
 explanations stay in ``ExportedCaptioner``. Only the relevance methods
 (``lrp``, ``deep_taylor``, ``deep_lift``) export: the gradient methods run
-autograd, which a traced program does not carry. ``devices > 1`` raises:
-ROADMAP A13b.
+autograd, which a traced program does not carry.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import os
 import threading
 import time
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,7 +52,7 @@ import torch
 from ..graphs import GraphCache, param_tensors
 from ..ops import kernels  # noqa: F401  (registers the lrpic:: custom ops)
 from ..runtime import resolve_device
-from ..weights import load_params_npz, save_params_npz
+from ..weights import load_params_npz, save_params_npz, tree_to
 from .beam import beam_search, n_explained
 
 _DECODE = "decode.pt2"
@@ -160,25 +167,56 @@ def _program_device(program) -> torch.device:
     raise ValueError("exported program has no tensor input")
 
 
+def _on_device(program, device: torch.device):
+    """``program`` running on ``device``: itself where it was exported there,
+    else a copy moved by ``move_to_device_pass``."""
+    if _program_device(program) == device:
+        return program
+    from torch.export.passes import move_to_device_pass
+
+    return move_to_device_pass(program, device)
+
+
+def _serving_devices(devices, device: torch.device) -> list[torch.device]:
+    """``ExportedCaptioner``'s slots: None -> ``device``; an int N -> the first
+    N cards; a list (``["cpu"] * N`` for N CPU slots) as it is."""
+    if devices is None:
+        return [device]
+    if isinstance(devices, int):
+        avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if devices > avail:
+            raise ValueError(f"devices={devices} but only {avail} available")
+        return [torch.device("cuda", i) for i in range(devices)]
+    return [resolve_device(d) for d in devices]
+
+
+class _ServingSlot(NamedTuple):
+    device: torch.device
+    params: dict
+    graphs: GraphCache | None
+    decode: object
+    explain: dict          # bucket -> program runner
+
+
 class ExportedCaptioner:
     """Serve from an ``export_serving`` artifact, no model code needed.
 
     ``caption(images)`` / ``explain(images)`` mirror ``CaptionService``:
     requests are chunked and padded (the last row repeated) to the exported
-    batch. ``device`` (default "cuda") must be the artifact's. On the card
-    each program replays from a CUDA graph (captured at its first call), so
-    calls must not overlap: ``ExportedService`` serializes them."""
+    batch. ``device`` (default "cuda") must be the artifact's device type.
+    ``devices`` (N, or a list of devices that may repeat one) serves over
+    several slots (the module's docstring). On the card each program
+    replays from a CUDA graph (captured at its first call), so calls must
+    not overlap: ``ExportedService`` serializes them."""
 
     def __init__(self, out_dir: str, devices=None, device="cuda"):
-        if devices is not None and (devices if isinstance(devices, int) else len(devices)) > 1:
-            raise NotImplementedError("devices > 1 (data-parallel serving over several cards) "
-                                      "is not ported yet: ROADMAP A13b")
         self.device = resolve_device(device)
         with open(os.path.join(out_dir, _META)) as f:
             self.meta = json.load(f)
         self._word_of = {int(i): w for i, w in self.meta["word_of"].items()}
         self._B = self.meta["batch_size"]
-        self.params = load_params_npz(os.path.join(out_dir, _PARAMS), self.device)
+        slot_devices = _serving_devices(devices, self.device)
+        params = load_params_npz(os.path.join(out_dir, _PARAMS), slot_devices[0])
         programs = {None: torch.export.load(os.path.join(out_dir, _DECODE))}
         for w in self.meta["buckets"]:
             programs[w] = torch.export.load(os.path.join(out_dir, _explain_file(w)))
@@ -186,18 +224,35 @@ class ExportedCaptioner:
             got = _program_device(program)
             if got.type != self.device.type:
                 raise ValueError(f"{out_dir}: exported on {got}, cannot run on {self.device}")
-        modules = {w: p.module() for w, p in programs.items()}
-        self.graphs = GraphCache() if self.device.type == "cuda" else None
+        by_device = {}   # device -> (params, modules)
+        self._slots = []
+        for d in slot_devices:
+            if d not in by_device:
+                by_device[d] = (tree_to(params, d),
+                                {w: _on_device(p, d).module() for w, p in programs.items()})
+            replica, modules = by_device[d]
+            graphs = GraphCache() if d.type == "cuda" else None
 
-        def stage(module):
-            fn = lambda params, *inputs: module(params, *inputs)   # noqa: E731
-            return fn if self.graphs is None else self.graphs.stage(fn, param_tensors)
+            def stage(module, graphs=graphs):
+                fn = lambda params, *inputs: module(params, *inputs)   # noqa: E731
+                return fn if graphs is None else graphs.stage(fn, param_tensors)
 
-        self._decode = stage(modules.pop(None))
-        self._explain = {w: stage(m) for w, m in modules.items()}
+            self._slots.append(_ServingSlot(d, replica, graphs, stage(modules[None]),
+                                            {w: stage(m) for w, m in modules.items()
+                                             if w is not None}))
+        self.params = self._slots[0].params
+        self.graphs = self._slots[0].graphs
 
-    def _pad(self, chunk) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(chunk, np.float32)).to(self.device)
+    @property
+    def devices(self) -> list[torch.device]:
+        return [s.device for s in self._slots]
+
+    @property
+    def graph_caches(self) -> list:
+        return [s.graphs for s in self._slots if s.graphs is not None]
+
+    def _pad(self, chunk, device) -> torch.Tensor:
+        x = torch.as_tensor(np.asarray(chunk, np.float32)).to(device)
         n = x.shape[0]
         return x if n == self._B else torch.cat([x] + [x[-1:]] * (self._B - n))
 
@@ -210,38 +265,47 @@ class ExportedCaptioner:
         return " ".join(self._word_of[int(tok)] for tok in row[:self._n_explained(row)])
 
     def _chunks(self, images):
+        """The request's chunks of the exported batch, each with the slot it
+        is dealt to (in turn)."""
         images = np.asarray(images, np.float32)
-        return [images[i:i + self._B] for i in range(0, images.shape[0], self._B)]
+        return [(images[i:i + self._B], self._slots[k % len(self._slots)])
+                for k, i in enumerate(range(0, images.shape[0], self._B))]
 
     @torch.no_grad()
     def caption(self, images) -> list[str]:
-        out = []
-        for chunk in self._chunks(images):
-            tokens = self._decode(self.params, self._pad(chunk))[0]
-            out += [self._tokens_to_string(r) for r in tokens[:len(chunk)].cpu().numpy()]
-        return out
+        launched = [(len(chunk), slot.decode(slot.params, self._pad(chunk, slot.device))[0])
+                    for chunk, slot in self._chunks(images)]
+        return [self._tokens_to_string(r) for n, tokens in launched
+                for r in tokens[:n].cpu().numpy()]
 
     @torch.no_grad()
     def explain(self, images) -> list[dict]:
         """-> one dict an image: caption, words, tokens_1based, relevance_maps,
         feat_relevance, attentions, word_relevances, betas (the Explanation
         fields). A chunk runs on the bucket of its longest caption, as
-        ``analyze_batch`` does."""
-        if not self._explain:
+        ``analyze_batch`` does. Every chunk's decode is issued first, then
+        each chunk's explain as its tokens arrive, then the outputs are
+        copied to the host."""
+        if not self._slots[0].explain:
             raise RuntimeError("artifact was exported without explain programs"
                                " (pass method= to export_serving)")
-        out = []
-        for chunk in self._chunks(images):
-            x = self._pad(chunk)
-            toks = self._decode(self.params, x)[0].cpu().numpy()[:len(chunk)]
+        decoded = []
+        for chunk, slot in self._chunks(images):
+            x = self._pad(chunk, slot.device)
+            decoded.append((chunk, slot, x, slot.decode(slot.params, x)[0]))
+        launched = []
+        for chunk, slot, x, tokens in decoded:
+            toks = tokens.cpu().numpy()[:len(chunk)]
             n_max = max((self._n_explained(row) for row in toks), default=0)
-            bucket = min((w for w in self._explain if w >= max(n_max, 1)),
+            bucket = min((w for w in slot.explain if w >= max(n_max, 1)),
                          default=self.meta["max_len"])
-            toks_pad = torch.as_tensor(toks, device=self.device)
+            toks_pad = torch.as_tensor(toks, device=slot.device)
             toks_pad = torch.cat([toks_pad] + [toks_pad[-1:]] * (self._B - len(chunk)))
-            outs = self._explain[bucket](self.params, x, toks_pad)
+            launched.append((toks, slot.explain[bucket](slot.params, x, toks_pad)))
+        out = []
+        for toks, outs in launched:
             maps, r_feat, r_words, atts, betas = (o.float().cpu().numpy() for o in outs)
-            for b in range(len(chunk)):
+            for b in range(len(toks)):
                 n = self._n_explained(toks[b])
                 words = [self._word_of[int(tok)] for tok in toks[b][:n]]
                 out.append({
@@ -268,24 +332,28 @@ class ExportedService:
         self.meta = self._ec.meta
         self._device_lock = threading.Lock()
         self.stats = {"requests": 0, "images": 0, "latency_ema_s": 0.0,
-                      "exported_artifact": os.path.abspath(out_dir), "devices": 1}
+                      "exported_artifact": os.path.abspath(out_dir),
+                      "devices": len(self._ec.devices)}
         if warmup:
             self.warmup()
 
     @torch.no_grad()
     def warmup(self):
-        """Call every program once, not only the bucket a dummy request
-        lands in: on the card each captures its graph then."""
+        """Call every program once on every slot, not only the bucket a dummy
+        request lands in: on the card each captures its graph then."""
         size, B = self.meta["image_size"], self.meta["batch_size"]
-        x = torch.zeros((B, size[0], size[1], 3), device=self._ec.device)
-        toks = torch.zeros((B, self.meta["max_len"]), dtype=torch.long, device=self._ec.device)
         t0 = time.perf_counter()
         with self._device_lock:
-            self._ec._decode(self._ec.params, x)
-            for run in self._ec._explain.values():
-                run(self._ec.params, x, toks)
-            if self._ec.device.type == "cuda":
-                torch.cuda.synchronize(self._ec.device)
+            for slot in self._ec._slots:
+                x = torch.zeros((B, size[0], size[1], 3), device=slot.device)
+                toks = torch.zeros((B, self.meta["max_len"]), dtype=torch.long,
+                                   device=slot.device)
+                slot.decode(slot.params, x)
+                for run in slot.explain.values():
+                    run(slot.params, x, toks)
+            for d in set(self._ec.devices):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
         self.stats["warmup_s"] = round(time.perf_counter() - t0, 3)
         return self
 
@@ -296,8 +364,9 @@ class ExportedService:
 
     def graph_stats(self) -> dict:
         """Captures and pool bytes of the programs' graphs (zeros on the CPU)."""
-        g = self._ec.graphs
-        return {"captures": g.captures if g else 0, "pool_bytes": g.pool_bytes() if g else 0}
+        caches = self._ec.graph_caches
+        return {"captures": sum(g.captures for g in caches),
+                "pool_bytes": sum(g.pool_bytes() for g in caches)}
 
     def dispatch(self, images, explain: bool = False, method: str | None = None):
         """``method=None`` serves the artifact's own method; an explicit

@@ -15,8 +15,12 @@ result is on the host before the lock is released. ``warmup`` captures every
 graph a request can replay: after it no request captures or grows a pool
 (``graph_stats``).
 
-``mesh=`` and ``shard_words=`` (several cards) raise ``NotImplementedError``:
-ROADMAP A13b.
+``mesh=`` (``parallel.make_mesh``): each request batch splits over the
+mesh's data slots, each with its params replica and its own graphs (the
+batch must divide by the data size), and explain requests go through an
+Explainer on the same mesh. ``shard_words=True`` (needs the mesh) explains
+a one-image request with its word positions split over the slots
+(``Explainer(shard_words=True)``): the latency mode.
 """
 
 from __future__ import annotations
@@ -62,13 +66,19 @@ class CaptionService:
         bucket at halving-ladder sub-batch sizes instead of one padded batch
         at the longest caption's bucket (``Explainer.analyze_many``'s
         latency mode). ``storage_dtype=torch.bfloat16``: the Explainer's CNN
-        LRP in bf16 storage (K4)."""
-        if mesh is not None or shard_words:
-            raise NotImplementedError("mesh= and shard_words= (serving over several cards) are "
-                                      "not ported yet: ROADMAP A13b")
-        self.device = resolve_device(device)
+        LRP in bf16 storage (K4). ``mesh``, ``shard_words``: the module's
+        docstring."""
+        if shard_words and mesh is None:
+            raise ValueError("shard_words=True requires a mesh")
+        if mesh is not None and batch_size % len(mesh.slots):
+            raise ValueError(f"batch_size {batch_size} not divisible by the mesh data-axis "
+                             f"size {len(mesh.slots)}")
+        devices = [resolve_device(device)] if mesh is None else [resolve_device(d)
+                                                                 for d in mesh.slots]
+        self.device = devices[0]
         self.captioner = captioner
-        self.params = tree_to(params, self.device)
+        self._mesh = mesh
+        self._shard_words = bool(shard_words)
         self._split_buckets = bool(split_buckets)
         self._pp = caption_pp
         self._B = batch_size
@@ -77,10 +87,15 @@ class CaptionService:
         self._dtype = compute_dtype
         self._storage_dtype = storage_dtype
         self.stats = {"requests": 0, "images": 0}
-        # on the card the beam (or greedy) search replays from a graph
-        self.graphs = GraphCache() if self.device.type == "cuda" else None
-        self._decode_stage = (self._decode_impl if self.graphs is None else self.graphs.stage(
-            self._decode_impl, lambda p: param_tensors(p["decoder"])))
+        # one (device, params, graphs, decode stage) a data slot: on the card
+        # the beam (or greedy) search replays from the slot's graphs
+        replicas, self._slots = {}, []
+        for d in devices:
+            graphs = GraphCache() if d.type == "cuda" else None
+            stage = (self._decode_impl if graphs is None else graphs.stage(
+                self._decode_impl, lambda p: param_tensors(p["decoder"])))
+            self._slots.append((d, replicas.setdefault(d, tree_to(params, d)), graphs, stage))
+        self.params, self.graphs = self._slots[0][1], self._slots[0][2]
         self._device_lock = threading.RLock()   # every device call and host copy
         self._explainers = {}          # method -> Explainer (kept warm)
         self._explainer_lock = threading.Lock()
@@ -119,13 +134,18 @@ class CaptionService:
 
     def _decode(self, images) -> np.ndarray:
         """(n <= B, H, W, 3) -> (n, T) tokens on the host, at batch B (zero
-        padded). Callers hold the device lock."""
+        padded) split over the slots. Callers hold the device lock."""
         n = images.shape[0]
         batch = self._images(images)
         if n < self._B:
             batch = torch.cat([batch, batch.new_zeros((self._B - n, *batch.shape[1:]))])
-        feat_grid = self.captioner.encode(self.params, batch, compute_dtype=self._dtype)
-        return self._decode_stage(self.params, feat_grid)[:n].cpu().numpy()
+        per = self._B // len(self._slots)
+        tokens = []
+        for i, (dev, params, _, stage) in enumerate(self._slots):
+            feat_grid = self.captioner.encode(params, batch[i * per:(i + 1) * per].to(dev),
+                                              compute_dtype=self._dtype)
+            tokens.append(stage(params, feat_grid))
+        return torch.cat([t.cpu() for t in tokens])[:n].numpy()
 
     @torch.no_grad()
     def warmup(self, explain: bool = False, method: str = "lrp"):
@@ -145,8 +165,8 @@ class CaptionService:
     def graph_stats(self) -> dict:
         """Captures and pool bytes of the service's graphs and its
         Explainers' (zeros on the CPU)."""
-        caches = [c for c in (self.graphs, *(e.graphs for e in self._explainers.values()))
-                  if c is not None]
+        caches = [g for _, _, g, _ in self._slots if g is not None]
+        caches += [c for e in self._explainers.values() for c in e.graph_caches]
         return {"captures": sum(c.captures for c in caches),
                 "pool_bytes": sum(c.pool_bytes() for c in caches)}
 
@@ -162,6 +182,7 @@ class CaptionService:
                 ex = Explainer(self.captioner, self.params, self._pp, method=method,
                                beam_size=self._beam, max_len=self._T,
                                storage_dtype=self._storage_dtype, batch_size=self._B,
+                               mesh=self._mesh, shard_words=self._shard_words,
                                device=self.device)
                 self._explainers[method] = ex
             return ex
@@ -199,8 +220,12 @@ class CaptionService:
         t0 = time.perf_counter()
         ex = self._get_explainer(method)
         with self._device_lock:
-            result = ex.analyze_many(_writable(images), batch_size=self._B,
-                                     split_buckets=self._split_buckets)
+            if self._shard_words and n == 1:
+                # latency mode: the one image's words split over the mesh
+                result = [ex.analyze(_writable(images)[0])]
+            else:
+                result = ex.analyze_many(_writable(images), batch_size=self._B,
+                                         split_buckets=self._split_buckets)
             self._note_request(n, t0)
         return result
 

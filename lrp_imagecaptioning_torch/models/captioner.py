@@ -46,13 +46,20 @@ def keras_categorical_ce(logits: torch.Tensor, y_onehot: torch.Tensor,
     return -(y * torch.log(p)).sum(-1).mean()
 
 
-def masked_accuracy(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
-    """Share of the non-padding steps (last step discarded) whose argmax is
-    the label's (categorical_accuracy_with_variable_timestep)."""
+def masked_accuracy_counts(logits: torch.Tensor, y_onehot: torch.Tensor):
+    """(steps whose argmax is the label's, non-padding steps), last step
+    discarded, as f32 scalars: a sharded step sums each over its slices."""
     logits, y = logits[:, :-1, :], y_onehot[:, :-1, :]
     valid = y.sum(-1) > 0
     match = logits.argmax(-1) == y.argmax(-1)
-    return (match & valid).sum().float() / valid.sum().clamp(min=1).float()
+    return (match & valid).sum().float(), valid.sum().float()
+
+
+def masked_accuracy(logits: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
+    """Share of the non-padding steps (last step discarded) whose argmax is
+    the label's (categorical_accuracy_with_variable_timestep)."""
+    correct, valid = masked_accuracy_counts(logits, y_onehot)
+    return correct / valid.clamp(min=1)
 
 
 @dataclass

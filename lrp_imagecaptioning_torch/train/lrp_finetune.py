@@ -16,6 +16,11 @@ One step, per batch:
 
 The decoder LRP runs on (image x word) rows in one pass; the CNN LRP runs
 per image, all its words against one shared forward.
+
+Over a mesh (``make_sharded_lrp_finetune_step``, ``LRPFinetuner(mesh=)``)
+each data slot predicts and weighs its own rows (the weights are per image
+and word, so they need no reduction), and the dual loss's gradient follows
+the sharded train step's rules (``train/step.py``).
 """
 
 from __future__ import annotations
@@ -29,11 +34,14 @@ from ..data.prefetch import prefetch
 from ..explain.aoa_backward import explain_word_aoa
 from ..explain.cnn_lrp import vgg_lrp_preset_a_wordbatched
 from ..explain.decoder_lrp import explain_word_adaptive, explain_word_gridtd
-from ..models.captioner import masked_accuracy, masked_ce_from_logits
+from ..models.captioner import masked_accuracy, masked_accuracy_counts, masked_ce_from_logits
+from ..parallel.mesh import batch_sharding
 from ..runtime import resolve_device
 from .checkpoint import save_checkpoint
 from .optimizer import apply_updates, make_optimizer
-from .step import metric_accumulator, run_stepped_steps, value_and_grad
+from .step import (global_masks, mask_rows, metric_accumulator, place_on_mesh, replicas,
+                   run_slots, run_stepped_steps, sharded_batch, sharded_value_and_grad,
+                   value_and_grad)
 
 # NLTK english stop words, frozen so that no corpus download is needed
 STOP_WORDS = frozenset("""a about above after again against ain all am an and any are aren aren't as at be
@@ -174,9 +182,48 @@ def make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int, eo
     return step
 
 
+def make_sharded_lrp_finetune_step(captioner, optimizer, mesh, stop_table, sos_1based: int,
+                                   eos_1based: int, mode: str = "mean",
+                                   max_words: int | None = None):
+    """Data-parallel LRP-inference fine-tuning: ``step(params, opt_state,
+    images, captions_in, y_onehot, generator, masks=None)`` as
+    ``make_lrp_finetune_step``'s, the batch split over the mesh's data slots
+    (global arrays or ``Sharded``). Each slot predicts and weighs its rows on
+    its own device (``train.step.run_slots``); the dual loss's gradients
+    are weighted, summed and then clipped, as ``train/step.py``'s sharded
+    step does. The params and the state stay on
+    the mesh's first slot (``train.step.place_on_mesh``)."""
+    phases = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
+                                    mode, max_words).phases
+
+    def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        images, captions_in, y_onehot = sharded_batch(mesh, images, captions_in, y_onehot)
+        B = images.global_rows
+        reps = replicas(mesh, params)
+        x, c = images.shards, captions_in.shards
+        weights = run_slots(mesh, lambda i: phases["lrp_weights"](
+            reps[i], x[i], phases["predict"](reps[i], x[i], c[i])))
+        masks = global_masks(captioner, params, B, generator, masks)
+
+        def slot_loss(i, p):
+            dev, y = mesh.slots[i], y_onehot.shards[i]
+            m = None if masks is None else mask_rows(masks, images.rows[i], dev)
+            logits = captioner.forward_train(p, images.shards[i], captions_in.shards[i], None, m)
+            return (dual_loss(logits, weights[i], y) * (y.shape[0] / B),
+                    masked_accuracy_counts(logits.detach(), y))
+
+        loss, accuracy, grads = sharded_value_and_grad(mesh, reps, slot_loss)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, {"loss": loss, "accuracy": accuracy}
+
+    return step
+
+
 class LRPFinetuner:
     """The chunked fine-tune loop with a checkpoint after each chunk,
-    resumable by ``save_idx``, on one device.
+    resumable by ``save_idx``, on one device or, with ``mesh``, data-parallel
+    over its slots (``make_sharded_lrp_finetune_step``; a ragged epoch tail
+    is dropped).
 
     ``provider`` has ``caption_preprocessor`` (``vocab_size``, ``word_of``,
     ``SOS_TOKEN_LABEL_ENCODED``, ``EOS_TOKEN_LABEL_ENCODED``) and
@@ -185,21 +232,30 @@ class LRPFinetuner:
 
     def __init__(self, captioner, params, provider, mode: str = "mean",
                  learning_rate: float = 1e-6, seed: int = 0,
-                 max_explained_words: int | None = None, device="cuda"):
+                 max_explained_words: int | None = None, mesh=None, device="cuda"):
         self.captioner = captioner
         self.provider = provider
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # on a mesh the params, the state and the dropout live on its first slot
+        self.device = mesh.primary if mesh is not None else resolve_device(device)
         self.params = params
         pp = provider.caption_preprocessor
         self.optimizer = make_optimizer(captioner.model_type, learning_rate)
         self.opt_state = self.optimizer.init(params)
-        self._step = make_lrp_finetune_step(captioner, self.optimizer, stop_word_table(pp),
-                                            pp.SOS_TOKEN_LABEL_ENCODED,
-                                            pp.EOS_TOKEN_LABEL_ENCODED, mode, max_explained_words)
+        step_args = (captioner, self.optimizer, stop_word_table(pp), pp.SOS_TOKEN_LABEL_ENCODED,
+                     pp.EOS_TOKEN_LABEL_ENCODED, mode, max_explained_words)
+        if mesh is None:
+            self._step = make_lrp_finetune_step(*step_args)
+        else:
+            self._step = make_sharded_lrp_finetune_step(step_args[0], step_args[1], mesh,
+                                                        *step_args[2:])
+            self.params, self.opt_state = place_on_mesh(mesh)(self.params, self.opt_state)
         self._seed = seed
         self._T = captioner.cfg.sentence_length + 1
 
     def _place(self, arr):
+        if self.mesh is not None:
+            return batch_sharding(self.mesh).place(arr)
         t = torch.as_tensor(arr, device=self.device)
         return t.long() if not t.is_floating_point() else t.float()
 
@@ -212,7 +268,8 @@ class LRPFinetuner:
         state = np.random.SeedSequence([self._seed, save_idx]).generate_state(1, np.uint64)[0]
         gen = torch.Generator(device=self.device).manual_seed(int(state) >> 1)
         batches = prefetch(self.provider.training_set(
-            pad_to_length=self._T, skip_batches=save_idx * epoch_length, drop_remainder=False))
+            pad_to_length=self._T, skip_batches=save_idx * epoch_length,
+            drop_remainder=self.mesh is not None))
         record, finalize = metric_accumulator()
         try:
             self.params, self.opt_state = run_stepped_steps(

@@ -1,4 +1,4 @@
-"""Train and eval steps on one device.
+"""Train and eval steps, on one device and over a mesh.
 
 One step: the teacher-forced forward with dropout, the loss, its gradient
 by autograd (through the ``lstm_gates`` kernel's Function on the card), the
@@ -6,13 +6,48 @@ clipped Adam update.
 
 Params and optimizer state are plain dicts of tensors; a step returns new
 ones and leaves its arguments as they were.
+
+The sharded step (``make_sharded_train_step``) computes what the one-device
+step computes on the global batch, as the JAX package's GSPMD program does,
+up to the order of the sums:
+
+* dropout: the masks of the global batch come from the one generator, and
+  each data slot takes its rows (every process of a group seeds the same
+  generator and keeps its own rows);
+* the loss is a mean over the rows, so each slot's loss and gradient are
+  weighted by its rows over the global batch before the sum (and the
+  ``all_reduce`` across processes);
+* the element-wise clip and Adam run once, on the summed gradient (a clip
+  of each slot's gradient before the sum would be another step);
+* the accuracy is a ratio of sums: its numerator and denominator are
+  summed apart.
+
+Each slot runs its forward and backward on its own device, and the host
+issues the slots one after the other from the caller's thread
+(``run_slots``). The train step is bound by that issue, so on several
+cards a step takes longer as slots are added; a host thread a slot was
+slower still (PERF.md, ``scripts/slot_issue_timing.py``). The slots'
+gradients are summed, in slot order, on the first slot's device, where
+the update is applied.
+
+With ``shard_vocab`` a data row's model slots hold slices of the
+vocabulary (``parallel.place_params``): the embedding's slices are
+gathered for the lookup, the decoder runs with its output layer replaced by
+the identity (its forward then returns the pre-logit features), each model
+slot computes its slice of the logits, and the softmax-CE takes its
+logsumexp across the slices; each slice's gradient and Adam moments stay on
+its slot.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from ..models.captioner import masked_accuracy
+from ..models.captioner import keras_categorical_ce, masked_accuracy, masked_accuracy_counts
+from ..parallel.distributed import all_reduce_sum
+from ..parallel.mesh import Sharded, VocabSlices, as_sharded, place_params
 from ..weights import tree_leaves, tree_map, tree_unflatten
 from .optimizer import apply_updates
 
@@ -88,5 +123,265 @@ def make_eval_step(captioner):
     def eval_step(params, images, captions_in, y_onehot):
         logits = captioner.forward_train(params, images, captions_in, None)
         return {"loss": loss_fn(logits, y_onehot), "accuracy": masked_accuracy(logits, y_onehot)}
+
+    return eval_step
+
+
+# -- over a mesh ---------------------------------------------------------------
+
+
+def on_device(dev: torch.device):
+    """The context that makes ``dev`` the current card (nothing on the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def run_slots(mesh, fn) -> list:
+    """``fn(i)`` for each data row ``i`` of ``mesh`` in turn, with its slot's
+    device current; the results in row order."""
+    out = []
+    for i, dev in enumerate(mesh.slots):
+        with on_device(dev):
+            out.append(fn(i))
+    return out
+
+
+def replicas(mesh, params) -> list:
+    """A replica of ``params`` for each data row of ``mesh``: on the row's
+    first device, a list of vocabulary slices (``shard_vocab``) slice j on
+    the row's model slot j; the tensors themselves where the device already
+    holds them."""
+    def on_row(node, row):
+        if isinstance(node, dict):
+            return {k: on_row(v, row) for k, v in node.items()}
+        if isinstance(node, VocabSlices):
+            return VocabSlices(t.to(d) for t, d in zip(node, row))
+        if isinstance(node, (list, tuple)):
+            return type(node)(on_row(v, row) for v in node)
+        return node.to(row[0])
+
+    return [on_row(params, row) for row in mesh.devices]
+
+
+def mask_rows(masks, rows: slice, device):
+    """Rows ``rows`` of a global batch's dropout masks (a decoder's
+    ``DropoutMasks`` NamedTuple) on ``device``: the batch axis is each
+    field's first, the LSTM masks' (4, B, ...) second."""
+    def take(x, axis):
+        if isinstance(x, tuple):
+            return tuple(take(v, axis) for v in x)
+        return (x[rows] if axis == 0 else x[:, rows]).to(device)
+
+    return type(masks)(*(take(v, 1 if name == "lstm" else 0)
+                         for name, v in zip(masks._fields, masks)))
+
+
+def global_masks(captioner, params, batch: int, generator, masks=None):
+    """The dropout masks of one training forward over the global batch:
+    ``masks`` when given, else drawn from ``generator`` as the one-device
+    forward draws them (None without a generator or at rate 0)."""
+    rate = captioner.cfg.drop_rate
+    if masks is None and generator is not None and rate > 0.0:
+        dec = params["decoder"]
+        # the draw reads the embedding's and the output layer's shapes alone
+        shapes = {"embedding": _whole(dec["embedding"], 0),
+                  "output": {"kernel": _whole(dec["output"]["kernel"], 1)}}
+        masks = captioner.decoder.draw_dropout_masks(generator, shapes, batch, captioner.cfg,
+                                                     rate)
+    return masks
+
+
+def _whole(x, dim: int) -> torch.Tensor:
+    """A tensor of the whole shape of ``x``, or of its vocabulary slices
+    joined on ``dim``, with no storage."""
+    if not isinstance(x, VocabSlices):
+        return torch.empty(x.shape, device="meta")
+    shape = list(x[0].shape)
+    shape[dim] = sum(t.shape[dim] for t in x)
+    return torch.empty(shape, device="meta")
+
+
+def sharded_batch(mesh, images, captions_in, y_onehot):
+    """The three batch arrays as ``Sharded`` row slices over the mesh's
+    slots, the captions as int64 embedding indices."""
+    images, captions_in, y_onehot = (as_sharded(mesh, a) for a in (images, captions_in, y_onehot))
+    return images, captions_in._replace(shards=[c.long() for c in captions_in.shards]), y_onehot
+
+
+def sharded_value_and_grad(mesh, reps, slot_loss):
+    """``slot_loss(i, params) -> (loss, (correct, valid))`` on each data row
+    ``i`` with its replica ``reps[i]`` (``run_slots``); the loss is the
+    row's share of the global mean. Returns (loss, accuracy, grads) summed
+    over the rows (in row order, each gradient leaf on the device of its
+    leaf in ``reps[0]``: the first slot's, or its vocabulary slice's) and
+    over the processes."""
+    primary = mesh.primary
+    targets = [leaf.device for leaf in tree_leaves(reps[0])]
+
+    def slot(i):
+        loss, (correct, valid), grads = value_and_grad(lambda q: slot_loss(i, q), reps[i])
+        parts = {primary: [torch.stack([loss, correct, valid]).to(primary)]}
+        for g, target in zip(tree_leaves(grads), targets):
+            parts.setdefault(target, []).append(g.reshape(-1).to(target))
+        return {d: torch.cat(v) for d, v in parts.items()}
+
+    total = None
+    for flat in run_slots(mesh, slot):
+        total = flat if total is None else {d: total[d] + flat[d] for d in total}
+    total = {d: all_reduce_sum(v, mesh) for d, v in total.items()}
+    loss, correct, valid = total[primary][:3]
+    start = dict.fromkeys(total, 0)
+    start[primary] = 3
+    leaves = []
+    for g, target in zip(tree_leaves(reps[0]), targets):
+        leaves.append(total[target][start[target]:start[target] + g.numel()].view(g.shape))
+        start[target] += g.numel()
+    return loss, correct / valid.clamp(min=1), tree_unflatten(reps[0], leaves)
+
+
+def place_on_mesh(mesh, shard_vocab: bool = False):
+    """-> ``place_state(params, opt_state)``: both where a sharded step keeps
+    them (``parallel.place_params``: the mesh's first slot, with
+    ``shard_vocab`` the vocabulary slices on the first row's model slots,
+    Adam's moments as their params); the other rows take replicas a step."""
+    def place_state(params, opt_state):
+        return place_params(mesh, params, shard_vocab), dict(
+            opt_state, mu=place_params(mesh, opt_state["mu"], shard_vocab),
+            nu=place_params(mesh, opt_state["nu"], shard_vocab))
+
+    return place_state
+
+
+def vocab_sharded_forward(captioner, params, images, captions_in, masks, row):
+    """The teacher-forced logits of ``params`` whose embedding and output
+    projection are vocabulary slices on the devices of ``row``: a list of
+    (B, T, V_j) logits, slice j on ``row[j]``. The decoder runs on
+    ``row[0]`` with the embedding gathered and its output layer the identity,
+    so that its "logits" are the features the output layer takes (with the
+    output dropout applied); each slot multiplies them by its slice, adds its
+    bias and applies its columns of the logits' dropout."""
+    dec = params["decoder"]
+    kernels, biases = dec["output"]["kernel"], dec["output"]["bias"]
+    H, dev = kernels[0].shape[0], row[0]
+    trunk = dict(params, decoder=dict(
+        dec, embedding=torch.cat([e.to(dev) for e in dec["embedding"]]),
+        output={"kernel": torch.eye(H, device=dev), "bias": torch.zeros(H, device=dev)}))
+    trunk_masks = None if masks is None else masks._replace(
+        logit=torch.ones((images.shape[0], H), device=dev))
+    feats = captioner.forward_train(trunk, images, captions_in, None, trunk_masks)
+    out, start = [], 0
+    for k, b, d in zip(kernels, biases, row):
+        logits = feats.to(d) @ k + b
+        if masks is not None:
+            logits = logits * masks.logit[:, None, start:start + k.shape[1]].to(d)
+        out.append(logits)
+        start += k.shape[1]
+    return out
+
+
+def vocab_sharded_loss(captioner, logits, y_onehot):
+    """``captioner.loss_fn()`` and the accuracy's counts over logits split on
+    the vocabulary (``vocab_sharded_forward``), ``y_onehot`` whole on the
+    first slice's device: (loss, (correct, valid)), each on that device."""
+    dev = logits[0].device
+    ys, start = [], 0
+    for z in logits:
+        ys.append(y_onehot[..., start:start + z.shape[-1]].to(z.device, z.dtype))
+        start += z.shape[-1]
+    if captioner.loss_fn() is keras_categorical_ce:
+        # Keras' CE on raw logits: the output over its sum, clipped (captioner.py)
+        eps = 1e-7
+        s = sum(z.sum(-1, keepdim=True).to(dev) for z in logits)
+        s = s + torch.where(s >= 0, torch.full_like(s, eps), torch.full_like(s, -eps))
+        loss = -sum((y * torch.log(torch.clamp(z / s.to(z.device), eps, 1.0 - eps))).sum(-1)
+                    .to(dev) for z, y in zip(logits, ys)).mean()
+    else:
+        # softmax-CE, last step discarded: -(y . z) + logsumexp(z) sum(y)
+        lse = torch.logsumexp(torch.stack([torch.logsumexp(z[:, :-1], -1).to(dev)
+                                           for z in logits]), 0)
+        dot = sum((y[:, :-1] * z[:, :-1]).sum(-1).to(dev) for z, y in zip(logits, ys))
+        mass = sum(y[:, :-1].sum(-1).to(dev) for y in ys)
+        loss = (lse * mass - dot).mean()
+    # argmax over the slices: each slice's largest, the first slice of the largest
+    best, where, offset = [], [], 0
+    for z in logits:
+        v, i = z[:, :-1].detach().max(-1)
+        best.append(v.to(dev))
+        where.append(i.to(dev) + offset)
+        offset += z.shape[-1]
+    pick = torch.stack(best).argmax(0, keepdim=True)
+    pred = torch.stack(where).gather(0, pick)[0]
+    y = y_onehot[:, :-1].to(dev)
+    valid = y.sum(-1) > 0
+    correct = (pred == y.argmax(-1)) & valid
+    return loss, (correct.sum().float(), valid.sum().float())
+
+
+def make_sharded_train_step(captioner, optimizer, mesh, shard_vocab: bool = False):
+    """Mesh-parallel train step: the batch split over the data slots, the
+    params replicated. Returns ``(step, place_state)``: ``step(params,
+    opt_state, images, captions_in, y_onehot, generator, masks=None)`` as
+    ``make_train_step``'s, the batch arrays global (host arrays or tensors)
+    or ``Sharded`` (``parallel.shard_batch``, ``global_batch_from_local``);
+    ``masks`` (the global batch's dropout masks) replace the generator's
+    draw. ``place_state(params, opt_state)`` moves the state where the step
+    keeps it. ``shard_vocab`` splits the embedding and the output projection
+    over the mesh's model axis (the module's docstring; ``place_state``
+    slices them, ``parallel.gather_params`` joins them again)."""
+    place_state = place_on_mesh(mesh, shard_vocab)
+    loss_fn = captioner.loss_fn()
+
+    def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        images, captions_in, y_onehot = sharded_batch(mesh, images, captions_in, y_onehot)
+        B = images.global_rows
+        masks = global_masks(captioner, params, B, generator, masks)
+        reps = replicas(mesh, params)
+
+        def slot_loss(i, p):
+            dev, y = mesh.slots[i], y_onehot.shards[i]
+            m = None if masks is None else mask_rows(masks, images.rows[i], dev)
+            if shard_vocab:
+                logits = vocab_sharded_forward(captioner, p, images.shards[i],
+                                               captions_in.shards[i], m, mesh.devices[i])
+                loss, counts = vocab_sharded_loss(captioner, logits, y)
+                return loss * (y.shape[0] / B), counts
+            logits = captioner.forward_train(p, images.shards[i], captions_in.shards[i], None, m)
+            return (loss_fn(logits, y) * (y.shape[0] / B),
+                    masked_accuracy_counts(logits.detach(), y))
+
+        loss, accuracy, grads = sharded_value_and_grad(mesh, reps, slot_loss)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, {"loss": loss, "accuracy": accuracy}
+
+    return step, place_state
+
+
+def make_sharded_eval_step(captioner, mesh):
+    """``make_eval_step`` over a mesh: each slot's loss times its rows and the
+    accuracy's counts, summed over the slots and the processes, the loss
+    then over the rows. A validation batch need not divide over the slots
+    (the provider yields a ragged tail): it splits into near-equal parts."""
+    loss_fn = captioner.loss_fn()
+
+    @torch.no_grad()
+    def eval_step(params, images, captions_in, y_onehot):
+        if isinstance(images, Sharded):
+            parts = [x.shards for x in (images, captions_in, y_onehot)]
+        else:
+            n = len(mesh.slots)
+            parts = [torch.tensor_split(torch.as_tensor(x), n) for x in
+                     (images, captions_in, y_onehot)]
+        total = None
+        for dev, p, x, c, y in zip(mesh.slots, replicas(mesh, params), *parts):
+            if not len(x):
+                continue
+            with on_device(dev):
+                x, c, y = x.to(dev), c.to(dev).long(), y.to(dev)
+                logits = captioner.forward_train(p, x, c, None)
+                part = torch.stack([loss_fn(logits, y) * y.shape[0],
+                                    torch.tensor(float(y.shape[0]), device=dev),
+                                    *masked_accuracy_counts(logits, y)]).to(mesh.primary)
+            total = part if total is None else total + part
+        loss_rows, rows, correct, valid = all_reduce_sum(total, mesh)
+        return {"loss": loss_rows / rows, "accuracy": correct / valid.clamp(min=1)}
 
     return eval_step

@@ -4,11 +4,15 @@
 epoch loop with per-epoch caption-metric evaluation, the plateau learning
 rate, the CSV log, checkpoints and the stop conditions.
 
-On one device (``device="cuda"`` by default; it raises without a card).
-Checkpoints are the port's npz files (``train/checkpoint.py``). Not ported,
-and rejected with a message rather than ignored: a device mesh and
-multi-host runs (ROADMAP A13b), several steps a call (the port has no
-K-steps-a-call variants, ROADMAP §C). ``cfg.pretrained_word_vector`` seeds
+On one device (``device="cuda"`` by default; it raises without a card), or
+data-parallel over a ``parallel.make_mesh`` mesh (``mesh=``: the sharded
+train and eval steps of ``train/step.py``; the ragged epoch tail dropped),
+and with ``multihost=True`` over the processes of a ``torch.distributed``
+group, each loading its own rows of the global batch
+(``parallel.make_multihost_mesh``; process 0 writes the checkpoints and the
+log). Checkpoints are the port's npz files (``train/checkpoint.py``).
+Several steps a call is rejected with a message rather than ignored (the
+port has no K-steps-a-call variants, ROADMAP §C). ``cfg.pretrained_word_vector`` seeds
 the embedding from the file at ``cfg.word_vector_path`` (an attribute the
 caller sets, as in the JAX package; ``models/word_vectors.py``).
 """
@@ -33,7 +37,9 @@ from ..utils.profiling import memory_stats
 from .callbacks import CSVLog, ReduceLROnPlateau, StopAfterTimedelta, StopWhenValLossExploding
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .optimizer import get_learning_rate, make_optimizer, set_learning_rate
-from .step import make_eval_step, make_train_step, metric_accumulator, run_stepped_steps
+from ..parallel.distributed import global_batch_from_local
+from .step import (make_eval_step, make_sharded_eval_step, make_sharded_train_step,
+                   make_train_step, metric_accumulator, run_stepped_steps)
 
 _TIME_UNITS = ("seconds", "minutes", "hours", "days", "weeks")
 
@@ -52,12 +58,9 @@ def parse_timedelta(s: Optional[str]) -> Optional[timedelta]:
     return timedelta(**{unit: float(parts[0])})
 
 
-def reject_unported(mesh=None, multihost: bool = False, steps_per_call: int = 1) -> None:
-    """Raise for the options of the JAX package's trainer that the port
-    lacks, naming where each stands."""
-    if mesh is not None or multihost:
-        raise NotImplementedError("a device mesh and multi-host training (torch.distributed "
-                                  "over several cards) are not ported yet: ROADMAP A13b")
+def reject_unported(steps_per_call: int = 1) -> None:
+    """Raise for the option of the JAX package's trainer that the port
+    lacks, naming where it stands."""
     if int(steps_per_call) != 1:
         raise NotImplementedError(f"steps_per_call={steps_per_call}: the port has no "
                                   "K-steps-a-call variants (ROADMAP §C, departures by design); "
@@ -93,12 +96,21 @@ class Trainer:
     def __init__(self, model_type: str, config, dataset, label: str = "run", mesh=None,
                  seed: int = 0, eval_metrics: bool = True, multihost: bool = False,
                  steps_per_call: int = 1, device="cuda"):
-        reject_unported(mesh, multihost, steps_per_call)
+        reject_unported(steps_per_call)
+        if multihost and mesh is None:
+            # each process would train on its own rows with no gradient sum
+            raise ValueError("multihost=True requires a mesh (make_multihost_mesh)")
+        if mesh is not None and config.batch_size % mesh.shape["data"]:
+            raise ValueError(f"batch_size {config.batch_size} not divisible by the mesh "
+                             f"data-axis size {mesh.shape['data']}")
         self.model_type = model_type
         self.config = config
         self.dataset = dataset
         self.label = label
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._multihost = multihost
+        # on a mesh the params, the state and the dropout live on its first slot
+        self.device = mesh.primary if mesh is not None else resolve_device(device)
 
         self.provider = DatasetProvider(dataset, config)
         self.captioner = build_captioner(model_type, config, self.provider.vocab_size)
@@ -111,8 +123,14 @@ class Trainer:
         self.opt_state = self.optimizer.init(self.params)
         # every train step's dropout masks
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._train_step = make_train_step(self.captioner, self.optimizer)
-        self._eval_step = make_eval_step(self.captioner)
+        if mesh is None:
+            self._train_step = make_train_step(self.captioner, self.optimizer)
+            self._eval_step = make_eval_step(self.captioner)
+        else:
+            self._train_step, place = make_sharded_train_step(self.captioner, self.optimizer,
+                                                              mesh)
+            self._eval_step = make_sharded_eval_step(self.captioner, mesh)
+            self.params, self.opt_state = place(self.params, self.opt_state)
         # built once and handed the new params each epoch (LogMetrics,
         # callbacks.py:37-70); it decodes eagerly (infer/api.py)
         self.inference = BasicInference(
@@ -126,14 +144,27 @@ class Trainer:
         os.makedirs(self.result_dir, exist_ok=True)
         self._initial_epoch = 0  # advanced by resume_latest()
 
-    def _place(self, arr) -> torch.Tensor:
-        """A host batch array on the device: images in the params' dtype,
+    def _typed(self, arr) -> torch.Tensor:
+        """A host batch array as a tensor: images in the params' dtype,
         caption ids int64 (embedding indices), the one-hot targets as they
         come (int32, as the JAX package feeds them)."""
-        t = torch.as_tensor(arr, device=self.device)
+        t = torch.as_tensor(arr)
         if t.is_floating_point():
             return t.to(self.params["decoder"]["embedding"].dtype)
         return t.long() if t.dim() == 2 else t
+
+    def _place(self, arr):
+        """A training batch array on the device, or on a mesh its rows split
+        over the data slots (a ``Sharded``; with ``multihost`` the array is
+        this process's rows of the global batch)."""
+        if self.mesh is not None:
+            return global_batch_from_local(self.mesh, self._typed(arr))
+        return self._typed(arr).to(self.device)
+
+    def _place_eval(self, arr):
+        """A validation batch array: on a mesh the eval step splits it (it
+        may be the epoch's ragged tail)."""
+        return self._typed(arr) if self.mesh is not None else self._place(arr)
 
     # -- weights -----------------------------------------------------------
 
@@ -169,12 +200,18 @@ class Trainer:
         else:
             for _ in range(steps):
                 (cap_in, imgs), y = next(batches)
-                record(self._eval_step(self.params, self._place(imgs), self._place(cap_in),
-                                       self._place(y)))
+                record(self._eval_step(self.params, self._place_eval(imgs),
+                                       self._place_eval(cap_in), self._place_eval(y)))
         return finalize(steps)
 
-    def _save(self, epoch: int, metric) -> str:
-        return save_checkpoint(self.result_dir, epoch, self.params, self.opt_state, metric=metric)
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the checkpoints and the log (one of a group does)."""
+        return self.mesh is None or self.mesh.process_index == 0
+
+    def _save(self, epoch: int, metric):
+        if self._writes:
+            save_checkpoint(self.result_dir, epoch, self.params, self.opt_state, metric=metric)
 
     def run(self, epochs: Optional[int] = None, time_limit: Optional[str] = None,
             steps_per_epoch: Optional[int] = None, log_prefix: str = "") -> list[dict]:
@@ -190,7 +227,9 @@ class Trainer:
 
         T = cfg.sentence_length + 1  # the provider pads captions to T + 1 (SOS..EOS)
         # producer threads prepare the next batches during the steps
-        train_gen = prefetch(self.provider.training_set(pad_to_length=T))
+        # a mesh run drops the ragged epoch tail: it does not split over the slots
+        train_gen = prefetch(self.provider.training_set(
+            pad_to_length=T, drop_remainder=self.mesh is not None))
         val_gen = prefetch(self.provider.validation_set(pad_to_length=T))
         csv_log = CSVLog(os.path.join(self.result_dir, "metrics-log.csv"),
                          append=self._initial_epoch > 0)
@@ -224,7 +263,8 @@ class Trainer:
                 logs.update(memory_stats())
 
                 self._save(epoch, logs.get("val_cider"))
-                csv_log.on_epoch_end(epoch, logs)
+                if self._writes:
+                    csv_log.on_epoch_end(epoch, logs)
                 history.append(logs)
                 print(f"{log_prefix}epoch {epoch}: " + " ".join(
                     f"{k}={v:.4f}" for k, v in logs.items() if isinstance(v, float)))
@@ -236,7 +276,8 @@ class Trainer:
             train_gen.stop()
             val_gen.stop()
             csv_log.close()
-        cfg.save_yaml(os.path.join(self.result_dir, "config.yaml"))
+        if self._writes:
+            cfg.save_yaml(os.path.join(self.result_dir, "config.yaml"))
         return history
 
 

@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""What issuing a mesh's slots from one host thread each would buy over
+issuing them in turn from one, as the package does, for the sharded train
+and fine-tune steps. Needs a CUDA card; uses up to four.
+
+    python3 scripts/slot_issue_timing.py [--reps 5]
+
+FlickrConfig at full width (VGG16, 224 x 224, E = H = 512, vocab 7003, T =
+21), batch 32, dropout from one seeded generator, params from seed 0. Each
+step runs on one device and on each mesh that the cards allow: two slots
+both on cuda:0, two slots on two cards, four on four. On every mesh it runs
+with the slots issued
+
+* ``serial``: in turn, from the caller's thread, as the package issues them
+  (``train.step.run_slots``);
+* ``threads``: from a host thread each (``run_slots`` replaced for the run
+  by one that hands each slot to a thread of a pool).
+
+For each it reports the median wall time of a step (every card
+synchronized before and after), the median host time until the step
+returns (its launches issued, the cards not waited for), and, against the
+one-device step on the same batch, the loss's relative distance and the
+gradient's largest 2-norm distance of a leaf over that leaf's norm. Runs
+alternate serial, threads, threads, serial. The result is printed as one
+JSON line and written to ``chiprun_out/slot_issue_timing.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B, STEPS, VOCAB, SOS, EOS = 32, 21, 7003, 1, 2
+
+
+class Recorder:
+    """An optimizer that keeps the gradient it is handed and moves nothing."""
+
+    def __init__(self):
+        self.grads = None
+
+    def update(self, grads, state, params=None):
+        from lrp_imagecaptioning_torch.weights import tree_map
+
+        self.grads = grads
+        return tree_map(torch.zeros_like, grads), state
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@contextlib.contextmanager
+def threaded_slots():
+    """``run_slots`` with a host thread a slot, where the steps look it up."""
+    from lrp_imagecaptioning_torch.train import lrp_finetune, step
+
+    def run_slots(mesh, fn):
+        def run(i):
+            with step.on_device(mesh.slots[i]):
+                return fn(i)
+
+        with ThreadPoolExecutor(len(mesh.slots)) as pool:
+            return list(pool.map(run, range(len(mesh.slots))))
+
+    saved = step.run_slots, lrp_finetune.run_slots
+    step.run_slots = lrp_finetune.run_slots = run_slots
+    try:
+        yield
+    finally:
+        step.run_slots, lrp_finetune.run_slots = saved
+
+
+def grad_dist(got, ref) -> float:
+    from lrp_imagecaptioning_torch.weights import tree_leaves
+
+    return max(float((g.to(r.device) - r).norm() / r.norm().clamp(min=1e-30))
+               for g, r in zip(tree_leaves(got), tree_leaves(ref)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("slot_issue_timing: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.parallel import make_mesh
+    from lrp_imagecaptioning_torch.runtime import resolve_device
+    from lrp_imagecaptioning_torch.train.lrp_finetune import (make_lrp_finetune_step,
+                                                              make_sharded_lrp_finetune_step)
+    from lrp_imagecaptioning_torch.train.optimizer import make_optimizer
+    from lrp_imagecaptioning_torch.train.step import make_sharded_train_step, make_train_step
+
+    dev = resolve_device("cuda:0")
+    n_cards = torch.cuda.device_count()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()
+    cfg = FlickrConfig()
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    rng = np.random.default_rng(12)
+    images = torch.from_numpy(rng.standard_normal((B, 224, 224, 3), dtype=np.float32) * 50).to(dev)
+    caps = torch.from_numpy(rng.integers(0, VOCAB, size=(B, STEPS))).to(dev)
+    y = torch.nn.functional.one_hot(torch.from_numpy(rng.integers(0, VOCAB, size=(B, STEPS))),
+                                    VOCAB).float().to(dev)
+    stop = np.zeros(VOCAB + 1, bool)
+    meshes = {"2 slots on cuda:0": [dev, dev]}
+    if n_cards >= 2:
+        meshes["2 cards"] = [torch.device("cuda", i) for i in range(2)]
+    if n_cards >= 4:
+        meshes["4 cards"] = [torch.device("cuda", i) for i in range(4)]
+    steps = {
+        "train": (lambda o: make_train_step(cap, o),
+                  lambda o, m: make_sharded_train_step(cap, o, m)[0], cfg.learning_rate),
+        "finetune": (lambda o: make_lrp_finetune_step(cap, o, stop, SOS, EOS),
+                     lambda o, m: make_sharded_lrp_finetune_step(cap, o, m, stop, SOS, EOS),
+                     1e-6),
+    }
+    gen = lambda: torch.Generator(device=dev).manual_seed(7)   # noqa: E731
+
+    def run(step, state):
+        """(wall ms, host ms, metrics) of one step."""
+        sync_all()
+        t0 = time.perf_counter()
+        out = step(params, state, images, caps, y, gen())
+        host = time.perf_counter() - t0
+        sync_all()
+        return (time.perf_counter() - t0) * 1e3, host * 1e3, out[2]
+
+    result = {"card": card, "cards": n_cards, "batch": B, "reps": args.reps, "steps": {}}
+    for name, (single, sharded, lr) in steps.items():
+        opt = make_optimizer("adaptiveattention", lr)
+        state = opt.init(params)
+        one = single(opt)
+        rec = Recorder()
+        _, _, ref = run(single(rec), None)
+        ref_grads, ref_loss = rec.grads, float(ref["loss"])
+        run(one, state)
+        times = [run(one, state)[:2] for _ in range(args.reps)]
+        row = {"one device": {"ms": float(np.median([t[0] for t in times])),
+                              "host_ms": float(np.median([t[1] for t in times]))}}
+        print(f"{name} one device: {json.dumps(row['one device'])}", file=sys.stderr, flush=True)
+        for label, devices in meshes.items():
+            mesh = make_mesh(devices=devices)
+            step = sharded(opt, mesh)
+            rec = Recorder()
+            _, _, m = run(sharded(rec, mesh), None)
+            cell = {"loss_rel": abs(float(m["loss"]) - ref_loss) / abs(ref_loss),
+                    "grad_dist": grad_dist(rec.grads, ref_grads)}
+            got = {"serial": [], "threads": []}
+            for mode in ("serial", "threads"):   # warm both
+                with threaded_slots() if mode == "threads" else contextlib.nullcontext():
+                    run(step, state)
+            for r in range(args.reps):
+                for mode in (("serial", "threads") if r % 2 == 0 else ("threads", "serial")):
+                    with threaded_slots() if mode == "threads" else contextlib.nullcontext():
+                        got[mode].append(run(step, state)[:2])
+            for mode, ts in got.items():
+                cell[mode] = {"ms": float(np.median([t[0] for t in ts])),
+                              "host_ms": float(np.median([t[1] for t in ts]))}
+            row[label] = cell
+            print(f"{name} {label}: {json.dumps(cell)}", file=sys.stderr, flush=True)
+            del step
+        result["steps"][name] = row
+    line = json.dumps(result)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "slot_issue_timing.json"), "w") as f:
+        f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

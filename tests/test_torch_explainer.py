@@ -244,11 +244,18 @@ def test_smoothgrad_noise_keyed_per_position():
     torch.testing.assert_close(a, b[:2], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw, match", [(dict(mesh=object()), "A13"),
-                                       (dict(shard_words=True), "A13")])
+@pytest.mark.parametrize("kw, match", [
+    (dict(mesh="2 cpu slots", batch_size=5), "not divisible by the mesh"),
+    (dict(shard_words=True), "requires a mesh")])
 def test_unported_options_raise(kw, match):
+    """The JAX package's errors on these paths: shard_words without a mesh,
+    a batch that does not divide over the mesh's data slots."""
+    from lrp_imagecaptioning_torch.parallel import make_mesh
+
     tcap = _models("adaptiveattention")[2]
-    with pytest.raises(NotImplementedError, match=match):
+    if "mesh" in kw:
+        kw = dict(kw, mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match=match):
         Explainer(tcap, None, FakePP(), device="cpu", **kw)
 
 

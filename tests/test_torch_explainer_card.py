@@ -75,7 +75,7 @@ def fake_cuda_graphs(monkeypatch):
     pools = []
 
     @contextlib.contextmanager
-    def graph(g, pool=None):
+    def graph(g, pool=None, stream=None):
         pools.append(pool)
         # a capture runs with the cyclic garbage collector off
         assert not gc.isenabled()
@@ -157,7 +157,8 @@ def test_graphed_stage_still_captures_without_a_shared_pool(fake_cuda_graphs):
 def _recording_stages(ex, calls):
     """Wrap the Explainer's two graphed stages so that each call records
     (stage, rows, bucket)."""
-    decode, decoder = ex._decode_stage, ex._decoder_stage
+    slot = ex._slots[0]
+    decode, decoder = slot.decode, slot.decoder
 
     def rec_decode(params, feat):
         calls.append(("decode", feat.shape[0], None))
@@ -167,7 +168,7 @@ def _recording_stages(ex, calls):
         calls.append(("decoder", feat.shape[0], positions.shape[1]))
         return decoder(params, feat, toks, positions)
 
-    ex._decode_stage, ex._decoder_stage = rec_decode, rec_decoder
+    slot.decode, slot.decoder = rec_decode, rec_decoder
 
 
 def test_every_dispatch_takes_a_ladder_size():
@@ -283,11 +284,11 @@ class TestExplainerOnCard:
         order = plan[::-1] + [plan[i] for i in np.random.default_rng(3).permutation(len(plan))]
         for size, W in order:
             pos = torch.arange(W, device="cuda").expand(size, W).contiguous()
-            got = ex._decoder_stage(ex.params, feat[:size], toks[:size], pos)
+            got = ex._slots[0].decoder(ex.params, feat[:size], toks[:size], pos)
             want = ex._decoder_impl(ex.params, feat[:size], toks[:size], pos)
             for g, w in zip(got, want):
                 assert g.shape == w.shape and _rel(g, w) <= 1e-6, (size, W)
-        tok_g = ex._decode_stage(ex.params, feat)
+        tok_g = ex._slots[0].decode(ex.params, feat)
         assert torch.equal(tok_g, ex._decode_impl(ex.params, feat))
         assert ex.graphs.captures == captured
 

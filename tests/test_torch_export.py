@@ -196,9 +196,10 @@ def test_exported_service_dispatch(service):
 
 def test_exported_service_warmup_calls_every_program(service, monkeypatch):
     called = []
-    monkeypatch.setattr(service._ec, "_explain", {
+    slot, *rest = service._ec._slots
+    monkeypatch.setattr(service._ec, "_slots", [slot._replace(explain={
         w: (lambda *x, _w=w, _f=f: called.append(_w) or _f(*x))
-        for w, f in service._ec._explain.items()})
+        for w, f in slot.explain.items()}), *rest])
     service.warmup()
     assert sorted(called) == [2, 5] and service.stats["warmup_s"] >= 0
 
@@ -283,13 +284,16 @@ def test_cli_export_serving_writes_a_decode_artifact(tmp_path, monkeypatch):
 
 
 def test_export_refuses_what_it_cannot_carry(artifact, tmp_path):
-    """The gradient methods (autograd) do not export; several cards raise
-    naming ROADMAP A13b."""
+    """The gradient methods (autograd) do not export; more cards than there
+    are raise the JAX facade's ValueError, and a device that does not exist
+    raises too."""
     out, cap, params = artifact
     with pytest.raises(NotImplementedError, match="gradient"):
         export_serving(cap, params, PP(), str(tmp_path / "g"), method="gradient", device="cpu")
-    for devices in (2, ["a", "b"]):
-        with pytest.raises(NotImplementedError, match="A13b"):
+    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for devices, exc, match in ((avail + 1, ValueError, "available"),
+                                (["a", "b"], RuntimeError, "device")):
+        with pytest.raises(exc, match=match):
             ExportedCaptioner(out, devices=devices, device="cpu")
 
 

@@ -305,6 +305,14 @@ def test_cli_serve_answers_on_the_mini_fixture(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2"], ["--shard-words"]])
-def test_cli_serve_several_cards_raise_naming_a13b(flag):
-    with pytest.raises(NotImplementedError, match="A13b"):
+def test_cli_serve_several_cards_raise_naming_a13b(flag, tmp_path):
+    """The JAX CLI's up-front errors: ``--exported DIR --mesh N`` with more
+    devices than there are (on a CPU-only host the card has none), and
+    ``--shard-words`` without a mesh."""
+    if flag[0] == "--mesh":
+        (tmp_path / "meta.json").write_text('{"method": null, "batch_size": 2, "beam_size": 3}')
+        with pytest.raises(SystemExit, match="available"):
+            cli.main(["serve", "--exported", str(tmp_path), *flag])
+        return
+    with pytest.raises(ValueError, match="requires a mesh"):
         cli.main(["serve", "--device", "cpu", *flag])

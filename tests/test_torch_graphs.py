@@ -85,7 +85,8 @@ def fake_cuda_graphs(monkeypatch):
             pass
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None, stream=None:
+                        contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "Stream", _Stream)
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())

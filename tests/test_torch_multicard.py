@@ -1,0 +1,203 @@
+"""PyTorch port over several cards (marker ``cuda``; skips with fewer than
+two cards, so here and on a one-card machine):
+
+* each kernel launched on every card in turn, cuda:0 first: its launch on
+  a second card must not rest on a setting made on the first (the dynamic
+  shared memory that K3 and K4 opt in to is a setting of each device's
+  context); each held to its plain version on the same card, K1 and K3 at
+  1e-5 of scale (f32), K4 at 1e-2 (bf16 storage), K2 at 1e-6;
+* the sharded train and fine-tune steps on a mesh of two cards against
+  the one-device step on cuda:0, at the CPU tests' size: loss at rel 1e-5,
+  gradients within 1e-4 of each leaf's scale (the card tests' bound;
+  cuDNN sums in another order at another batch);
+* the mesh Explainer over two cards against one card, f32 and bf16
+  storage, on two calls with other images (the second replays the graphs
+  the first captured, on each card; an empty capture is an error):
+  captions token-exact, every array within 1e-4 of its scale (f32) or
+  1e-2 (bf16 storage);
+* an artifact exported on cuda:0 served over two cards (its programs
+  moved to the second by ``move_to_device_pass``) against one card, two
+  calls of two chunks each: the same programs on the same shapes, so
+  captions token-exact and every array within 1e-6 of its scale.
+
+Nothing here imports JAX: ``pytest --noconftest -m cuda`` runs it on a
+machine without JAX.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from lrp_imagecaptioning_torch.config import FlickrConfig  # noqa: E402
+from lrp_imagecaptioning_torch.explain.engine import Explainer  # noqa: E402
+from lrp_imagecaptioning_torch.infer.export import ExportedCaptioner, export_serving  # noqa: E402
+from lrp_imagecaptioning_torch.models.captioner import build_captioner  # noqa: E402
+from lrp_imagecaptioning_torch.ops import kernels  # noqa: E402
+from lrp_imagecaptioning_torch.parallel import make_mesh  # noqa: E402
+from lrp_imagecaptioning_torch.train import lrp_finetune, step  # noqa: E402
+from lrp_imagecaptioning_torch.weights import tree_leaves, tree_map  # noqa: E402
+
+CFG = FlickrConfig(embedding_dim=16, hidden_dim=16, layer_name="block2_conv1",
+                   img_feature_length=16, img_feature_dim=128, sentence_length=6, batch_size=4,
+                   drop_rate=0.5)
+VOCAB, B, T = 32, 4, 7
+STOP = np.zeros(VOCAB + 1, bool)
+FIELDS = ("relevance_maps", "feat_relevance", "attentions", "word_relevances", "betas")
+
+
+def _rel(got, ref):
+    got, ref = (torch.as_tensor(np.asarray(a, np.float32)) if not torch.is_tensor(a)
+                else a.float().cpu() for a in (got, ref))
+    if not ref.numel():
+        return 0.0
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+@pytest.fixture(autouse=True)
+def _cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a mesh over cards and a launch on a second card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _cards_in_turn():
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.cuda
+def test_every_kernel_launches_on_every_card():
+    """At shapes that take K3's big tile and K4's widest launch (both above
+    48 KB of shared memory a block)."""
+    rng = np.random.default_rng(30)
+
+    def t(*shape, scale=1.0, positive=False):
+        a = rng.normal(size=shape).astype(np.float32) * scale
+        return torch.from_numpy(np.abs(a) if positive else a)
+
+    x = t(5, 28, 28, 64, positive=True)
+    k, b, r = t(3, 3, 64, 128, scale=0.1), t(128, scale=0.1), t(5, 28, 28, 128)
+    lin_x, lin_w, lin_r = t(160, 512), t(512, 7003), t(160, 7003)
+    zx, zh, bias, c = t(24, 2048), t(24, 2048), t(2048), t(24, 512)
+    x4 = t(1, 56, 56, 64, positive=True)
+    k4, b4, r4 = t(3, 3, 64, 64, scale=0.1), t(64, scale=0.1), t(20, 56, 56, 64)
+    for dev in _cards_in_turn():
+        on = lambda *a: [v.to(dev) for v in a]   # noqa: E731
+        before = {f.__name__: f.launches for f in kernels.KERNELS}
+        xd, kd, bd, rd = on(x, k, b, r)
+        got = kernels.conv3x3_fused(xd, rd, kd, None, mode="multiply")
+        assert _rel(got, kernels.conv3x3_fused_plain(xd, rd, kd, None, mode="multiply")) < 1e-5
+        xl, wl, rl = on(lin_x, lin_w, lin_r)
+        got = kernels.lrp_linear(rl, xl, xl @ wl, wl)
+        assert _rel(got, kernels.lrp_linear_plain(rl, xl, xl @ wl, wl)) < 1e-5
+        got = kernels.lstm_gates(*on(zx, zh, bias, c))
+        for g, w in zip(got, kernels.lstm_gates_plain(*on(zx, zh, bias, c))):
+            assert _rel(g, w) < 1e-6
+        xb, kb, bb, rb = (v.bfloat16() for v in on(x4, k4, b4, r4))
+        got = kernels.lrp_a1b0_fused(rb, xb, kb, bb)
+        assert _rel(got, kernels.lrp_a1b0_fused_plain(rb, xb, kb, bb)) < 1e-2
+        assert {f.__name__: f.launches - before[f.__name__] for f in kernels.KERNELS} == \
+            {"lrp_linear": 1, "lstm_gates": 1, "conv3x3_fused": 1, "lrp_a1b0_fused": 1}, dev
+
+
+class _Recorder:
+    def __init__(self):
+        self.grads = None
+
+    def update(self, grads, state, params=None):
+        self.grads = grads
+        return tree_map(torch.zeros_like, grads), state
+
+
+def _batch(seed, dev):
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.normal(size=(B, 8, 8, 3)).astype(np.float32) * 40)
+    caps = torch.from_numpy(rng.integers(0, VOCAB, size=(B, T)))
+    y = torch.from_numpy(np.eye(VOCAB, dtype=np.float32)[rng.integers(0, VOCAB, size=(B, T))])
+    y[0, -3:] = 0
+    return images.to(dev), caps.to(dev), y.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["train", "finetune"])
+def test_sharded_steps_over_two_cards(path):
+    dev = torch.device("cuda", 0)
+    cap = build_captioner("adaptiveattention", CFG, VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    mesh = make_mesh(devices=_cards_in_turn()[:2])
+    one, shard = _Recorder(), _Recorder()
+    if path == "train":
+        single, sharded = step.make_train_step(cap, one), step.make_sharded_train_step(
+            cap, shard, mesh)[0]
+    else:
+        single = lrp_finetune.make_lrp_finetune_step(cap, one, STOP, 1, 2)
+        sharded = lrp_finetune.make_sharded_lrp_finetune_step(cap, shard, mesh, STOP, 1, 2)
+    batch = _batch(1, dev)
+    _, _, m1 = single(params, None, *batch, torch.Generator(device=dev).manual_seed(3))
+    _, _, m2 = sharded(params, None, *batch, torch.Generator(device=dev).manual_seed(3))
+    assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-5)
+    assert float(m2["accuracy"]) == float(m1["accuracy"])
+    leaves = list(zip(tree_leaves(shard.grads), tree_leaves(one.grads)))
+    floor = 1e-3 * max(float(r.abs().max()) for _, r in leaves)
+    for g, r in leaves:
+        assert g.device == dev
+        assert float((g - r).abs().max()) <= 1e-4 * max(float(r.abs().max()), floor)
+
+
+class _PP:
+    SOS_TOKEN, EOS_TOKEN = "szeros", "zeros"
+    SOS_TOKEN_LABEL_ENCODED, EOS_TOKEN_LABEL_ENCODED = 1, 2
+    word_of = {i: f"w{i}" for i in range(1, VOCAB + 1)}
+    word_of[1], word_of[2] = "szeros", "zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("error:The CUDA Graph is empty")
+@pytest.mark.parametrize("storage_dtype, tol", [(None, 1e-4), (torch.bfloat16, 1e-2)])
+def test_mesh_explainer_over_two_cards(storage_dtype, tol):
+    cfg = FlickrConfig(embedding_dim=16, hidden_dim=16, layer_name="block2_conv1",
+                       img_feature_length=16, img_feature_dim=128, sentence_length=5,
+                       image_size=(8, 8))
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    params = cap.init_params(seed=0, device="cuda:0")
+    kw = dict(beam_size=2, word_buckets=(2,), batch_size=4, storage_dtype=storage_dtype)
+    one = Explainer(cap, params, _PP(), device="cuda:0", **kw)
+    two = Explainer(cap, params, _PP(), mesh=make_mesh(devices=_cards_in_turn()[:2]), **kw)
+    for seed in (5, 6):
+        images = (np.random.default_rng(seed).normal(size=(4, 8, 8, 3)) * 40).astype(np.float32)
+        want, got = one.analyze_batch(images), two.analyze_batch(images)
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            assert g.words == w.words and g.caption == w.caption
+            for name in FIELDS:
+                a, b = (np.asarray(getattr(e, name), np.float32) for e in (g, w))
+                assert a.shape == b.shape and np.isfinite(a).all(), name
+                assert _rel(a, b) <= tol, (seed, name, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("error:The CUDA Graph is empty")
+def test_exported_over_two_cards(tmp_path):
+    cfg = FlickrConfig(embedding_dim=16, hidden_dim=16, layer_name="block2_conv1",
+                       img_feature_length=16, img_feature_dim=128, sentence_length=5,
+                       image_size=(8, 8))
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    params = cap.init_params(seed=0, device="cuda:0")
+    out = str(tmp_path / "artifact")
+    export_serving(cap, params, _PP(), out, batch_size=3, beam_size=2, method="lrp",
+                   word_buckets=(2,), device="cuda:0")
+    one = ExportedCaptioner(out, device="cuda:0")
+    two = ExportedCaptioner(out, devices=2, device="cuda:0")
+    assert two.devices == _cards_in_turn()[:2]
+    for seed in (7, 8):
+        images = (np.random.default_rng(seed).normal(size=(6, 8, 8, 3)) * 40).astype(np.float32)
+        want, got = one.explain(images), two.explain(images)
+        assert two.caption(images) == one.caption(images)
+        assert len(got) == len(want) == 6
+        for g, w in zip(got, want):
+            assert g["words"] == w["words"] and g["caption"] == w["caption"]
+            for name in FIELDS:
+                a, b = (np.asarray(e[name], np.float32) for e in (g, w))
+                assert a.shape == b.shape and np.isfinite(a).all(), name
+                assert _rel(a, b) <= 1e-6, (seed, name, _rel(a, b))

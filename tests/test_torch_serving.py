@@ -245,8 +245,14 @@ def test_two_threads_of_direct_dispatch_get_their_own_answers():
             _assert_same(answer, want[i], rtol=0.0)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(shard_words=True)])
+@pytest.mark.parametrize("kw", [dict(mesh="2 cpu slots", batch_size=5), dict(shard_words=True)])
 def test_several_cards_raise_naming_a13b(kw):
+    """The JAX service's errors: a batch that does not divide over the
+    mesh's data slots, shard_words without a mesh."""
+    from lrp_imagecaptioning_torch.parallel import make_mesh
+
     _, _, tcap, pt = _models()
-    with pytest.raises(NotImplementedError, match="A13b"):
+    if "mesh" in kw:
+        kw = dict(kw, mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="not divisible" if "mesh" in kw else "requires a mesh"):
         CaptionService(tcap, pt, FakePP(), device="cpu", **kw)

@@ -189,10 +189,18 @@ def test_trainer_resume_continues_the_numbering(runs, model_type):
         os.chdir(cwd)
 
 
-@pytest.mark.parametrize("kw, match", [
-    ({"mesh": object()}, "A13"), ({"multihost": True}, "A13"),
-    ({"steps_per_call": 4}, "K-steps-a-call")])
-def test_trainer_rejects_unported_options(runs, kw, match):
+@pytest.mark.parametrize("kw, exc, match", [
+    ({"mesh": "batch + 1 cpu slots"}, ValueError, "not divisible by the mesh"),
+    ({"multihost": True}, ValueError, "requires a mesh"),
+    ({"steps_per_call": 4}, NotImplementedError, "K-steps-a-call")])
+def test_trainer_rejects_unported_options(runs, kw, exc, match):
+    """The JAX trainer's errors (a batch that does not divide over the
+    mesh's data slots, multihost without a mesh) and the port's one
+    departure (no K-steps-a-call variants)."""
+    from lrp_imagecaptioning_torch.parallel import make_mesh
+
     t1 = runs["adaptiveattention"]["torch"]["trainer"]
-    with pytest.raises(NotImplementedError, match=match):
+    if "mesh" in kw:
+        kw = {"mesh": make_mesh(devices=["cpu"] * (t1.config.batch_size + 1))}
+    with pytest.raises(exc, match=match):
         ttrainer.Trainer("adaptiveattention", t1.config, t1.dataset, device="cpu", **kw)
