@@ -102,8 +102,8 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             after): 10a the f32
             Explainer's deep_taylor and deep_lift, analyze_batch of 8 images
             (img/s, launches held to the plan: deep_lift runs no K3), one
-            image against CPU f32 and f64 (deep_taylor as 8b, deep_lift as
-            8d); 10b evaluate_dataset and analyze_results over the 64 test
+            image against CPU f32 and f64, each f32 walk held to the f64
+            walk over its own forward; 10b evaluate_dataset and analyze_results over the 64 test
             images at batch 32, with an entities dict of two words of each
             image's own caption (img/s, analyze_many and the host's scoring
             apart, launches held to the plan), one image's scores against a
@@ -169,12 +169,20 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             explain against their one-device runs; 14e
             ExportedCaptioner(devices=[cuda:0, cuda:0]) on phase 12's
             artifact, two chunks dealt to the two slots against each chunk on
-            the first slot; 14f a 1-rank NCCL group and a 2-process gloo
-            group (both ranks on cuda:0) each run one multihost Trainer step
-            in child processes (``--multihost-worker``), the gloo ranks bit
-            for bit each other and within the step tolerances of NCCL's.
-            Every path's launches are held to each slot's derived counts,
-            the mesh's ms or img/s beside one device's;
+            the first slot; 14f groups started by ``torchrun``
+            (``tests/torch_parallel_worker.py``'s launcher and rank), each
+            rank a multihost Trainer at full width on its rows, each step
+            held to the one-device step on rank 0 (loss, gradient, Adam
+            flips, the ranks' params bit for bit): a 1-rank NCCL group whose
+            mesh comes from the default ``make_multihost_mesh()`` (it must
+            be [[cuda:0]]), a Trainer step and a fine-tune step; a 2-rank
+            gloo group (both ranks on cuda:0), a Trainer step;
+            ``--nproc-per-node 2`` under NCCL on the one card, whose ranks
+            must both raise the split's ValueError before joining; where
+            two or more cards are visible, NCCL groups of 2 and 4 ranks (as
+            the cards allow), one a card, both steps, else a line says they
+            did not run. Every path's launches are held to each slot's
+            derived counts, the mesh's ms or img/s beside one device's;
 5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph,
             training, trainer, encoder, serving and analyzer card tests, in a
             child process (run last).
@@ -184,8 +192,8 @@ gridtd_train, evaluate, phase 10's deep_taylor and bbox, phase 11's,
 phase 12's serve_f32, serve_bf16 and exported, phase 13's
 analyzers_f32 and analyzers_bf16, and phase 14's mesh_train, vocab_train,
 mesh_finetune, shard_words_f32, shard_words_bf16, mesh_bf16, mesh_serve,
-mesh_exported and multihost_train, the last summed over the gloo ranks) is
-driven
+mesh_exported, multihost_train summed over the gloo ranks, multihost_nccl,
+and on several cards nccl_2_ranks and nccl_4_ranks a rank) is driven
 with the launch counts set to 0 just before it and read just after; each
 kernel's count must equal its calls on that path as phase 2's shapes derive
 them (for deep_taylor and bbox the shapes of the run's chunks, timed after
@@ -259,6 +267,23 @@ F64_RATIO = {"r_feat": 2.0, "maps": 4.0}
 # --phase9 3): the card read 9.1e-7 to 3.11e-5 of scale, the CPU 1.02e-6 to
 # 2.56e-4 (H100 80GB HBM3 at 700 W); 10a's one failure read 2.89e-5
 F64_FLOOR = {"r_feat": 5.2e-4, "maps": 5.2e-3}
+# phase 10a, on phase 9's trained checkpoint: the decoder LRP divides by
+# z +- 1e-7 and DeepLIFT's CNN walk by the output difference y - y_ref, which
+# cancels, so either carries the ~1e-7 rounding of one f32 forward into its
+# result without bound, a new draw in each run: an H100 read DeepLIFT's maps
+# 1.255e3 of their 2-norm from f64 where the CPU-f32 run read 8.6e-6, and on
+# the CPU alone an f32 DeepLIFT walk lies 5e-3 to 1.9 from f64 while the same
+# walk over its own forward, promoted to f64, lies 2e-6 from it
+# (scripts/deeplift_conditioning.py). So each f32 run's walk is held to the
+# f64 walk over that run's own forward (its features, caches and activations
+# promoted exactly): the decoder LRP and DeepTaylor's maps (whose max pools a
+# near-tie of the forward flips: 2.1e-3 of scale from f64 where the CPU read
+# 5.5e-7) by the largest distance, DeepLIFT's maps by the 2-norm, within
+# F64_RATIO or GRAD_MAPS_RATIO times the CPU-f32 run's distance, or TOL_WALK
+# of the scale; the card's features within F64_RATIO["r_feat"] times the
+# CPU's distance from the f64 features, or TOL_WALK. The distances between
+# whole runs are logged beside.
+TOL_WALK = 1e-4
 # phase 4b: the card-bf16 heatmaps' distance from a CPU-f32 run, as a multiple
 # of the CPU-bf16 run's own distance from it. An H100 80GB HBM3 at 700 W read
 # 0.84x (7.6e-3 against 9.1e-3 of scale); 2x is also the CPU tests' bound for
@@ -1751,8 +1776,7 @@ def grad_vs_cpu(ex, cap, params, image, tokens, e, failures, label="phase 8d"):
     against CPU f32 and f64 runs on the first word. The decoder gradient: the
     card's in the timed Explanation ``e``, the CPU runs' from their own
     encode; within F64_RATIO["r_feat"] times the CPU-f32 run's distance from
-    f64 (floor F64_FLOOR); deep_lift's decoder side is the LRP relevance.
-    The CNN side: ``ex._cnn`` and the CPU runs' on one
+    f64 (floor F64_FLOOR). The CNN side: ``ex._cnn`` and the CPU runs' on one
     shared seed, the f64 run's decoder gradient, so that a ReLU mask the
     CPU-f32 decoder flips does not widen the bound; by the 2-norm, within
     GRAD_MAPS_RATIO times the CPU-f32 run's distance from f64 (floor
@@ -1797,6 +1821,108 @@ def grad_vs_cpu(ex, cap, params, image, tokens, e, failures, label="phase 8d"):
             failures.append(f"{label} {ex.method} {key}: card deviates {got:.3e} from f64 "
                             f"({suffix or 'largest'}), CPU f32 {cpu:.3e}")
     log(f"  {label} {ex.method} card vs CPU, word 0 (maps on the f64 seed): {out}")
+    return out
+
+
+def walk_vs_cpu(ex, cap, params, image, tokens, failures, label, words, check_tokens):
+    """10a: one image with ``tokens`` cut to its first ``words`` words, on
+    the card (``ex``, eager, batch 1) and on the CPU in f32, each against the
+    f64 walk over its own forward (TOL_WALK above), and an f64 run of its
+    own. The CNN side of every run takes the f64 run's decoder relevance;
+    DeepTaylor's maps are held by the largest distance (F64_RATIO["maps"]),
+    DeepLIFT's by the 2-norm (GRAD_MAPS_RATIO). With ``check_tokens`` the
+    card's decode must equal the CPU's beam search."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.explain import cnn_lrp
+    from lrp_imagecaptioning_torch.explain.cnn_deeplift import (_deeplift_backward,
+                                                                reference_image)
+    from lrp_imagecaptioning_torch.explain.engine import _n_explained
+    from lrp_imagecaptioning_torch.models.vgg import vgg_apply_with_acts, vgg_layers
+    from lrp_imagecaptioning_torch.weights import tree_to
+
+    def f64(t):
+        return t.detach().cpu().double()
+
+    def promote(tup):
+        return type(tup)(*(f64(x) if x.is_floating_point() else x.cpu() for x in tup))
+
+    def l2(got, ref):
+        return float((f64(got) - ref).norm()) / max(float(ref.norm()), 1e-30)
+
+    n = min(_n_explained(tokens, EOS), words)
+    cut = np.zeros(T, np.int32)
+    cut[:n] = tokens[:n]
+    cut[n] = EOS
+    cfg = cap.cfg
+    params_c = tree_to(params, "cpu")
+    p64 = tree_to(params_c, dtype=torch.float64)
+    cpu64 = explainer_for(cap, p64, "cpu", pp=ex._pp, method=ex.method)
+    runs = {"card": ex, "cpu": explainer_for(cap, params_c, "cpu", pp=ex._pp, method=ex.method)}
+
+    def decoder(run, img):
+        """features, the decoder LRP of the cut's words, and its f64
+        recursion over the same caches."""
+        toks = torch.as_tensor(cut[None], dtype=torch.long, device=img.device)
+        pos = torch.arange(n, device=img.device)[None]
+        words0 = torch.clamp(toks - 1, min=0).gather(1, pos)
+        feat = run._encode(img)
+        consts, caches = cap.cached_forward(run.params, feat, toks, SOS)
+        r = run._backward(run.params["decoder"], consts, caches, words0, pos)[0]
+        r_own = cpu64._backward(p64["decoder"], promote(consts), promote(caches), words0.cpu(),
+                                pos.cpu())[0]
+        return feat, r, r_own
+
+    t0 = time.perf_counter()
+    out = {"words": n}
+    with torch.no_grad():
+        if check_tokens:
+            cpu_tokens = runs["cpu"].predict_caption(image.cpu())[0]
+            out["tokens_equal"] = bool(np.array_equal(cpu_tokens, tokens))
+        img64 = f64(image)[None]
+        feat64, r64, _ = decoder(cpu64, img64)
+        maps64 = cpu64._cnn(img64, feat64, r64)
+        for name, run in runs.items():
+            img = image.to(run.device)[None]
+            feat, r, r_own = decoder(run, img)
+            out[f"feat_{name}_vs_f64"] = rel_err(f64(feat), feat64)[1]
+            out[f"r_feat_{name}_walk"] = rel_err(f64(r), r_own)[1]
+            out[f"r_feat_{name}_vs_f64"] = rel_err(f64(r), r64)[1]
+            seed = r64.to(img.device, img.dtype)
+            maps = run._cnn(img, feat, seed)
+            out[f"maps_{name}_vs_f64"] = rel_err(f64(maps), maps64)[1]
+            out[f"maps_{name}_vs_f64_l2"] = l2(maps, maps64)
+            # the CNN walk over this run's own forward, in f64
+            vgg, until, arch = run.params["vgg"], cfg.layer_name, cfg.img_encoder
+            g = math.isqrt(seed.shape[2])
+            seed64 = f64(seed).reshape(n, g, g, -1)
+            top, acts = vgg_apply_with_acts(vgg, img, until, arch)
+            if ex.method == "deep_lift":
+                top_ref, acts_ref = vgg_apply_with_acts(vgg, reference_image(img, 0.0), until,
+                                                        arch)
+                own = _deeplift_backward(p64["vgg"], seed64, vgg_layers(until, arch),
+                                         [f64(a) for a in acts], [f64(a) for a in acts_ref],
+                                         f64(top), f64(top_ref), True)
+                out[f"maps_{name}_walk_l2"] = l2(maps[0], own)
+            else:
+                own = cnn_lrp._backward(p64["vgg"], [f64(a) for a in acts], torch.relu(seed64),
+                                        until, cnn_lrp.conv_rule, arch)
+                out[f"maps_{name}_walk"] = rel_err(f64(maps[0]), own)[1]
+    out["cpu_s"] = time.perf_counter() - t0
+    gates = [("feat", "_vs_f64", F64_RATIO["r_feat"], TOL_WALK),
+             ("r_feat", "_walk", F64_RATIO["r_feat"], TOL_WALK)]
+    if ex.method == "deep_lift":
+        gates.append(("maps", "_walk_l2", GRAD_MAPS_RATIO, TOL_WALK))
+    else:
+        gates.append(("maps", "_walk", F64_RATIO["maps"], TOL_WALK))
+    for key, suffix, ratio, floor in gates:
+        got, cpu = out[f"{key}_card{suffix}"], out[f"{key}_cpu{suffix}"]
+        if got > max(ratio * cpu, floor):
+            failures.append(f"{label} {key}: the card lies {got:.3e} from f64 ({suffix[1:]}), "
+                            f"CPU f32 {cpu:.3e}, floor {floor:.1e}")
+    if check_tokens and not out["tokens_equal"]:
+        failures.append(f"{label}: card tokens {tokens.tolist()} != CPU {cpu_tokens.tolist()}")
+    log(f"  {label} card vs CPU, {n} words (the CNN side on the f64 seed): {out}")
     return out
 
 
@@ -2390,7 +2516,8 @@ def phase_deep_methods(dev, failures, cap, params, pp, images):
     """10a: deep_taylor and deep_lift, f32, one counted analyze_batch of
     B_MAIN images each (launches as derived: deep_taylor as f32 lrp,
     deep_lift without K3), then the first image with a word against CPU f32
-    and f64: deep_taylor as phase 8b, deep_lift as phase 8d."""
+    and f64 (``walk_vs_cpu``: deep_taylor on CPU_WORDS words, deep_lift on
+    the first)."""
     out, launches = {}, None
     images = torch.from_numpy(images[:B_MAIN]).to(dev)
     for method in ("deep_taylor", "deep_lift"):
@@ -2401,12 +2528,10 @@ def phase_deep_methods(dev, failures, cap, params, pp, images):
         i = next((i for i, e in enumerate(res) if e.words), None)
         if i is None:
             failures.append(f"10a {method}: every caption is empty")
-        elif method == "deep_taylor":
-            rep["cpu"] = card_vs_cpu(ex, cap, params, images[i], res[i].tokens_1based, failures,
-                                     "10a deep_taylor")
         else:
-            rep["cpu"] = grad_vs_cpu(ex, cap, params, images[i], res[i].tokens_1based, res[i],
-                                     failures, label="10a")
+            taylor = method == "deep_taylor"
+            rep["cpu"] = walk_vs_cpu(ex, cap, params, images[i], res[i].tokens_1based, failures,
+                                     f"10a {method}", CPU_WORDS if taylor else 1, taylor)
         out[method] = rep
         del ex, res
         gc.collect()
@@ -3954,14 +4079,17 @@ MESH_PATHS = {
     "mesh_serve": ("serve_f32", (None, B_MESH_SERVE // SLOTS, T), SLOTS),
     "mesh_exported": ("serve_f32", (None, B_MAIN, T), N_EXPORTED // B_MAIN),
     "multihost_train": ("train", (None, B_TRAIN // SLOTS, T_TRAIN), SLOTS),
+    "multihost_nccl": ("train", (None, B_TRAIN, T_TRAIN), 1),
+    "multihost_nccl_finetune": ("finetune", (None, B_TRAIN, T_TRAIN), 1),
     "vocab_train": ("train", (None, B_TRAIN, T_TRAIN), 1),
 }
 # the paths explaining given captions: K2 in the cached forward only
 GIVEN_TOKENS = ("shard_words_f32", "shard_words_bf16", "mesh_bf16")
 PATH_KERNELS.update({
     "mesh_train": ("lstm_gates",), "multihost_train": ("lstm_gates",),
-    "vocab_train": ("lstm_gates",),
+    "multihost_nccl": ("lstm_gates",), "vocab_train": ("lstm_gates",),
     "mesh_finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+    "multihost_nccl_finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
     "shard_words_f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
     "shard_words_bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
     "mesh_bf16": ("lrp_linear", "lstm_gates", "lrp_a1b0_fused"),
@@ -4184,114 +4312,134 @@ def mesh_step(label, make_single, make_sharded, params, batch, seed, opt, want, 
     return rep
 
 
-def multihost_worker(argv) -> int:
-    """One process of 14f: ``RANK WORLD PORT BACKEND OUT``. Joins the group,
-    builds a Trainer on a one-slot multihost mesh on cuda:0, takes its rows
-    of one seeded global batch, runs one counted Trainer step and writes the
-    loss, the launches, the step's ms and the params to OUT (npz)."""
-    import numpy as np
+def parallel_worker():
+    """``tests/torch_parallel_worker.py``: the launcher (``torchrun``) and
+    the rank of 14f."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_parallel_worker
 
-    sys.path.insert(0, HERE)
-    from lrp_imagecaptioning_torch.config import FlickrConfig
-    from lrp_imagecaptioning_torch.ops import kernels
-    from lrp_imagecaptioning_torch.parallel import (initialize_distributed, make_multihost_mesh,
-                                                    process_batch_slice)
-    from lrp_imagecaptioning_torch.runtime import resolve_device
-    from lrp_imagecaptioning_torch.train.trainer import Trainer
-    from lrp_imagecaptioning_torch.weights import tree_leaves
+    return torch_parallel_worker
 
-    rank, world, port, backend, out = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
-    dev = resolve_device("cuda:0")
-    torch.cuda.set_device(dev)
-    initialize_distributed(f"localhost:{port}", world, rank, backend=backend)
-    try:
-        cfg = FlickrConfig()
-        t = Trainer("adaptiveattention", cfg, smoke_dataset(cfg), label=f"mh{world}_{rank}",
-                    seed=0, eval_metrics=False, mesh=make_multihost_mesh(devices=[dev]),
-                    multihost=True)
-        rows = process_batch_slice(B_TRAIN)
-        batch = [t._place(a[rows]) for a in train_batch(
-            torch.Generator(device=dev).manual_seed(14), dev, B_TRAIN, T_TRAIN)]
-        kernels.reset_launches()
-        (params, _, m), ms = timed(t._train_step, t.params, t.opt_state, *batch, t.generator)
-        launches = counts()
-        np.savez(out, loss=float(m["loss"]), accuracy=float(m["accuracy"]), ms=ms,
-                 launches=json.dumps(launches),
-                 params=torch.cat([p.reshape(-1) for p in tree_leaves(params)]).cpu().numpy())
-    finally:
-        torch.distributed.destroy_process_group()
-    return 0
+
+def start_group(work, name, n, cards, backend="nccl", steps="train,finetune"):
+    """A group of ``n`` ranks, one ``torchrun`` agent on this host, the
+    first ``cards`` cards visible: each rank builds a Trainer on its
+    default mesh (gloo: on cuda:0, shared) and runs ``steps`` at full
+    width on its rows of one seeded global batch of 32, each against the
+    one-device step on rank 0. -> (output prefix, the agent)."""
+    prefix = os.path.join(work, f"{name}_")
+    return prefix, parallel_worker().launch(
+        n, ["--rank", prefix, "--size", "full", "--backend", backend, "--steps", steps],
+        cards=cards, cwd=work)
+
+
+def read_group(group, n, label):
+    """The ranks' results of ``start_group``; raises where the agent failed."""
+    worker = parallel_worker()
+    prefix, procs = group
+    (text, rc), = worker.finish(procs)
+    if rc != 0:
+        log(text[-4000:])
+        raise RuntimeError(f"14f {label}: torchrun rc {rc}")
+    return [worker.load_rank(f"{prefix}{r}.npz") for r in range(n)]
+
+
+def ranks_held(label, ranks, key, lr, want, failures):
+    """Step ``key`` (its index in the ranks' steps) of a group against the
+    one-device step on rank 0 (``torch_parallel_worker.against``): the loss,
+    the gradient, the params after the step (the share apart by over lr / 2:
+    Adam's flips; the largest distance), the ranks' params bit for bit, each
+    rank's launches against ``want``. Returns the report."""
+    r0 = ranks[0]
+    equal = len({r[f"{key}_digest"] for r in ranks}) == 1
+    rep = dict(loss=[r[f"{key}_loss"] for r in ranks], ms=[r[f"{key}_ms"] for r in ranks],
+               accuracy=[r[f"{key}_acc"] for r in ranks],
+               launches=[r[f"{key}_launches"] for r in ranks], ranks_equal=equal,
+               expected_a_rank=want, **{k: r0[f"{key}_{k}"] for k in (
+                   "ref_loss", "loss_rel", "grad_dist", "leaf_dist", "apart", "largest")})
+    log(f"  14f {label} {r0['steps'][key]}: losses {rep['loss']} (one device "
+        f"{rep['ref_loss']:.6f}, rel {rep['loss_rel']:.3e}), ms "
+        f"{[round(v, 1) for v in rep['ms']]}, gradient {rep['grad_dist']:.3e} of its norm "
+        f"(largest |distance| {rep['leaf_dist']:.3e} of scale), {rep['apart']:.3e} of params "
+        f"apart by > lr/2 (largest {rep['largest']:.3e}); the ranks' params bit for bit "
+        f"{equal}; launches {rep['launches']}")
+    if any(v != want for v in rep["launches"]):
+        failures.append(f"14f {label} {key}: launches {rep['launches']}, {want} derived a rank")
+    if (rep["loss_rel"] > TOL_MESH_LOSS or rep["grad_dist"] > TOL_MESH_GRAD
+            or rep["apart"] > MESH_FLIP_SHARE or rep["largest"] > 2.5 * lr or not equal):
+        failures.append(f"14f {label} {key} against one device: loss rel {rep['loss_rel']:.3e}, "
+                        f"gradient {rep['grad_dist']:.3e}, params apart {rep['apart']:.3e} "
+                        f"(largest {rep['largest']:.3e}), ranks equal {equal}")
+    return rep
 
 
 def phase_multihost(dev, failures, work):
-    """14f: a 1-rank NCCL group and a 2-process gloo group (both ranks on
-    cuda:0: NCCL refuses two ranks on one card) each run one multihost
-    Trainer step on one seeded global batch of 32, in child processes
-    started together; each rank's launches held to one train step's, the
-    two gloo ranks' params bit for bit each other's, and both groups within
-    the step tolerances of each other."""
-    import socket
-
-    import numpy as np
-
+    """14f: groups started by ``torchrun`` (its agent serves the store),
+    each rank building a multihost Trainer and running its steps at full
+    width on its rows of one seeded global batch of 32, held to the
+    one-device step on rank 0 (loss, gradient, Adam's flips, the ranks'
+    params bit for bit) and each rank's launches to one step's at its rows.
+    Started together: a 1-rank NCCL group on its default mesh (it must be
+    ``[[cuda:0]]``), a Trainer step and a sharded fine-tune step; a 2-rank
+    gloo group on cuda:0 (two ranks share the card: NCCL refuses that),
+    a Trainer step; ``torchrun --nproc-per-node 2`` under NCCL on the one
+    card, which must raise the split's ValueError in both ranks before the
+    group is joined. With N >= 2 cards, then NCCL groups of 2 and 4 ranks
+    (as the cards allow), one a card, both steps. Returns (launches by
+    path, report)."""
     from lrp_imagecaptioning_torch.config import FlickrConfig
 
-    def port():
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return str(s.getsockname()[1])
-
-    nccl_port, gloo_port = port(), port()
-    runs = [("nccl", 1, 0, nccl_port), ("gloo", 2, 0, gloo_port), ("gloo", 2, 1, gloo_port)]
-    procs = []
-    for backend, world, rank, p in runs:
-        out = os.path.join(work, f"{backend}{world}_{rank}.npz")
-        procs.append((out, subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--multihost-worker",
-             str(rank), str(world), p, backend, out], cwd=work, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    results = []
-    try:
-        for (backend, world, rank, _), (out, proc) in zip(runs, procs):
-            text = proc.communicate(timeout=600)[0]
-            if proc.returncode != 0:
-                log(text[-4000:])
-                raise RuntimeError(f"14f {backend} rank {rank} of {world}: rc {proc.returncode}")
-            with np.load(out) as z:
-                results.append(dict(loss=float(z["loss"]), accuracy=float(z["accuracy"]),
-                                    ms=float(z["ms"]), launches=json.loads(str(z["launches"])),
-                                    params=z["params"]))
-    finally:
-        for _, proc in procs:
-            proc.kill()
-            proc.wait()
+    worker = parallel_worker()
     cfg = FlickrConfig()
-    want = expected_launches("train", cfg)
-    nccl, g0, g1 = results
     lr = cfg.learning_rate
-    apart = float(np.mean(np.abs(g0["params"] - nccl["params"]) > lr / 2))
-    largest = float(np.abs(g0["params"] - nccl["params"]).max())
-    loss_rel = abs(g0["loss"] - nccl["loss"]) / abs(nccl["loss"])
-    rep = dict(nccl_1_rank={k: v for k, v in nccl.items() if k != "params"},
-               gloo_2_ranks=[{k: v for k, v in g.items() if k != "params"} for g in (g0, g1)],
-               ranks_equal=bool(np.array_equal(g0["params"], g1["params"])),
-               loss_rel=loss_rel, params_apart_share=apart, params_largest=largest,
-               expected_a_rank=want)
-    log(f"  14f 1-rank NCCL: loss {nccl['loss']:.6f}, {nccl['ms']:.1f} ms, launches "
-        f"{nccl['launches']}; 2-process gloo: losses {g0['loss']:.6f} / {g1['loss']:.6f}, "
-        f"{g0['ms']:.1f} / {g1['ms']:.1f} ms (the three processes share the card), launches "
-        f"{g0['launches']} / {g1['launches']}; the ranks' params bit for bit "
-        f"{rep['ranks_equal']}; gloo vs NCCL: loss rel {loss_rel:.3e}, {apart:.3e} of params "
-        f"apart by > lr/2 (largest {largest:.3e})")
-    for r, name in ((nccl, "NCCL rank 0"), (g0, "gloo rank 0"), (g1, "gloo rank 1")):
-        if r["launches"] != want:
-            failures.append(f"14f {name}: launches {r['launches']}, {want} derived")
-    if not rep["ranks_equal"]:
-        failures.append("14f: the two gloo ranks end on different params")
-    if loss_rel > TOL_MESH_LOSS or apart > MESH_FLIP_SHARE or largest > 2.5 * lr:
-        failures.append(f"14f: gloo against NCCL: loss rel {loss_rel:.3e}, params apart "
-                        f"{apart:.3e}, largest {largest:.3e}")
-    return {k: g0["launches"][k] + g1["launches"][k] for k in want}, rep
+    want = {"train": expected_launches("train", cfg),
+            "finetune": expected_launches("finetune", cfg)}
+    split = start_group(work, "split", 2, 1)
+    nccl_group = start_group(work, "nccl1", 1, 1)
+    gloo_group = start_group(work, "gloo2", 2, 1, backend="gloo", steps="train")
+    (split_text, split_rc), = worker.finish(split[1])
+    (nccl,), gloo = read_group(nccl_group, 1, "1-rank NCCL"), read_group(gloo_group, 2, "gloo")
+    split_error = "1 visible cards do not split into LOCAL_WORLD_SIZE=2 equal blocks"
+    refused = [worker.load_rank(f"{split[0]}{r}.npz") if os.path.exists(f"{split[0]}{r}.npz")
+               else {} for r in range(2)]
+    rep = dict(nccl_mesh=nccl["mesh"], split_rc=split_rc, split_refused=split_rc == 0 and all(
+        r.get("error") == split_error and not r["initialized"] for r in refused))
+    log(f"  14f 1-rank NCCL on its default mesh {nccl['mesh']}; torchrun --nproc-per-node 2 "
+        f"on one card: rc {split_rc}, both ranks refused with the split's ValueError before "
+        f"joining {rep['split_refused']}")
+    if nccl["mesh"] != [["cuda:0"]]:
+        failures.append(f"14f: the 1-rank NCCL group's default mesh is {nccl['mesh']}")
+    if not rep["split_refused"]:
+        failures.append(f"14f: two ranks on one card were not refused with the split's "
+                        f"ValueError (rc {split_rc}): {refused} {split_text[-2000:]}")
+    rep["nccl_1_rank"] = {key: ranks_held("1-rank NCCL", [nccl], k, lr, want[key], failures)
+                          for k, key in enumerate(want)}
+    rep["gloo_2_ranks"] = ranks_held("2-rank gloo (the ranks share the card)", gloo, 0, lr,
+                                     expected_launches("train", FlickrConfig(batch_size=16)),
+                                     failures)
+    launches = {"multihost_train": {k: sum(r["0_launches"][k] for r in gloo)
+                                    for k in want["train"]},
+                "multihost_nccl": nccl["0_launches"],
+                "multihost_nccl_finetune": nccl["1_launches"]}
+    cards = torch.cuda.device_count()
+    groups = [n for n in (2, 4) if n <= cards]
+    if not groups:
+        log(f"  14f: {cards} card visible: the NCCL groups of one rank a card did not run")
+    for n in groups:
+        ranks = read_group(start_group(work, f"nccl{n}", n, n), n, f"{n}-rank NCCL")
+        meshes = [r["mesh"] for r in ranks]
+        log(f"  14f {n}-rank NCCL, one rank a card: meshes {meshes}")
+        if meshes != [[[f"cuda:{r}"]] for r in range(n)]:
+            failures.append(f"14f {n}-rank NCCL: meshes {meshes}")
+        rows = B_TRAIN // n
+        for k, (key, suffix) in enumerate((("train", ""), ("finetune", "_finetune"))):
+            path = f"nccl_{n}_ranks{suffix}"
+            rep[path] = ranks_held(f"{n}-rank NCCL", ranks, k, lr, expected_launches(
+                key, FlickrConfig(batch_size=rows)), failures)
+            launches[path] = ranks[0][f"{k}_launches"]
+            MESH_PATHS[path] = (key, (None, rows, T_TRAIN), 1)
+            PATH_KERNELS[path] = PATH_KERNELS[key]
+    return launches, rep
 
 
 def phase_scale_out(dev, failures, detail, artifact):
@@ -4471,7 +4619,8 @@ def phase_scale_out(dev, failures, detail, artifact):
         MESH_PATHS["mesh_exported"] = ("serve_f32", (None, B_MAIN, max(buckets)), len(plan))
 
     def multihost():
-        launches["multihost_train"], rep["multihost"] = phase_multihost(dev, failures, work)
+        mh_launches, rep["multihost"] = phase_multihost(dev, failures, work)
+        launches.update(mh_launches)
 
     try:
         for title, fn in ((f"14a: one sharded train step at {B_TRAIN}, {SLOTS} slots", train),
@@ -4532,17 +4681,12 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None, help="comma-separated phase keys")
-    ap.add_argument("--multihost-worker", nargs=5, default=None,
-                    metavar=("RANK", "WORLD", "PORT", "BACKEND", "OUT"),
-                    help="one process of phase 14f (started by the phase)")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test runs on the card only",
               file=sys.stderr)
         return 1
-    if args.multihost_worker is not None:
-        return multihost_worker(args.multihost_worker)
     sys.path.insert(0, HERE)
     from lrp_imagecaptioning_torch.ops import _build, kernels
     from lrp_imagecaptioning_torch.runtime import resolve_device
@@ -4776,7 +4920,7 @@ def main(argv=None) -> int:
                     "plain_backward_ms_train": by_path["train"]["plain_backward_ms"]}
                    if "backward_ms" in by_path.get("train", {}) else {}),
                 **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {})))
-    report.update(card=card_line, kernels=kernels_line, failures=failures)
+    report.update(card=card_line, kernels=kernels_line, by_path=summary, failures=failures)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

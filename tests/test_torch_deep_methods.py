@@ -12,7 +12,8 @@ run, the JAX package's as the port's, lies far more than 1e-4 of the scale
 from an f64 one. So the DeepLIFT functions are held to the JAX package
 in f64 on both sides (``jax.enable_x64``), with drawn biases, the zero
 reference and a reference image; the Explainer's ``deep_lift`` in f32 at
-the engine tests' size, where the tap is two convs deep.
+the engine tests' size, where the tap is two convs deep; and the port's f32
+walk against the JAX package's f64 walk over the port's own f32 forward.
 """
 
 import numpy as np
@@ -158,6 +159,33 @@ def test_deeplift_words_as_the_batch_match_jax_per_word():
     for w in range(3):
         _, ref = _deeplift_pair(pj, pt, image, seeds[w:w + 1], 0.0)
         assert _rel(got[w:w + 1], ref) <= MAP_RTOL
+
+
+@pytest.mark.parametrize("reference", ["zero", "half"])
+def test_deeplift_f32_walk_matches_jax_f64_walk_over_its_forward(reference):
+    """The port's f32 DeepLIFT against the JAX package's f64 backward walk
+    over the port's own f32 forward, promoted exactly: the forward's rounding
+    is then shared, so only the walk's own f32 rounding remains, within
+    MAP_RTOL (the smoke's 10a holds the card so)."""
+    from lrp_imagecaptioning_torch.models.vgg import vgg_apply_with_acts
+
+    pj, pt = _vgg(8)
+    image, seeds = _inputs(2, 2, seed=7)
+    x, s = torch.from_numpy(image), torch.from_numpy(seeds)
+    x_ref = (torch.zeros_like(x) if reference == "zero"
+             else torch.from_numpy(_reference_image(image, 7)))
+    got = t_dl.vgg_deeplift(pt, x, s, UNTIL, reference_inputs=x_ref).numpy()
+    top, acts = vgg_apply_with_acts(pt, x, UNTIL)
+    top_ref, acts_ref = vgg_apply_with_acts(pt, x_ref, UNTIL)
+    with jax.enable_x64(True):
+        def f64(a):
+            return jnp.asarray(np.asarray(a), jnp.float64)
+
+        ref = np.asarray(j_dl._deeplift_backward(
+            jax.tree.map(f64, pj), f64(seeds), jvgg.vgg_layers("vgg16", UNTIL),
+            [f64(a) for a in acts], [f64(a) for a in acts_ref], f64(top), f64(top_ref), True))
+    assert ref.dtype == np.float64 and np.abs(ref).max() > 0
+    assert _rel(got, ref) <= MAP_RTOL
 
 
 def test_deeplift_gradient_switch_fires():

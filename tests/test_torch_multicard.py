@@ -20,9 +20,27 @@ two cards, so here and on a one-card machine):
   calls of two chunks each: the same programs on the same shapes, so
   captions token-exact and every array within 1e-6 of its scale.
 
+* NCCL groups of one process a block of cards (2 ranks of one card, 4 of
+  one, 2 of two), started by a real ``torchrun --nproc-per-node N``
+  (``torch_parallel_worker.launch``; its agent serves the rendezvous
+  store), each rank's mesh from the default ``make_multihost_mesh()``: two
+  sharded train steps (the Trainer's) and one fine-tune step on its rows,
+  each against the one-device step on rank 0's card from the same params
+  and dropout at the bounds above; the ranks' params bit for bit equal
+  after each step (they apply one all-reduced gradient);
+* two ``torchrun`` agents of one rank each on one host
+  (``LOCAL_WORLD_SIZE=1``), both claiming every card, refused with
+  ``ValueError`` before the group is joined, so before any NCCL call;
+* two such agents, each seeing only its own card (``CUDA_VISIBLE_DEVICES``
+  a rank): both ranks at cuda:0 of distinct cards, accepted (a card is
+  known by its UUID), the steps as above.
+
 Nothing here imports JAX: ``pytest --noconftest -m cuda`` runs it on a
 machine without JAX.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -201,3 +219,63 @@ def test_exported_over_two_cards(tmp_path):
                 a, b = (np.asarray(e[name], np.float32) for e in (g, w))
                 assert a.shape == b.shape and np.isfinite(a).all(), name
                 assert _rel(a, b) <= 1e-6, (seed, name, _rel(a, b))
+
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _group(tmp_path, n, nodes=1, cards=None):
+    """``n`` ranks a node of ``torch_parallel_worker.py --rank`` at the
+    small size under ``torchrun``: two train steps and a fine-tune step,
+    rank 0 against one device. -> (agents' logs, return codes, each rank's
+    results)."""
+    sys.path.insert(0, HERE)
+    import torch_parallel_worker as worker
+
+    prefix = str(tmp_path / "rank")
+    done = worker.finish(worker.launch(n, ["--rank", prefix, "--steps", "train,train,finetune"],
+                                       cards=cards, nodes=nodes, cwd=tmp_path), timeout=300)
+    logs, rcs = [d[0] for d in done], [d[1] for d in done]
+    ranks = [worker.load_rank(f"{prefix}{r}.npz") for r in range(n * nodes)
+             if os.path.exists(f"{prefix}{r}.npz")]
+    return logs, rcs, ranks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks, cards_a_rank", [(2, 1), (4, 1), (2, 2)])
+def test_nccl_group_one_process_a_block_of_cards(tmp_path, ranks, cards_a_rank):
+    if torch.cuda.device_count() < ranks * cards_a_rank:
+        pytest.skip(f"needs {ranks * cards_a_rank} cards")
+    logs, rcs, got = _group(tmp_path, ranks, cards=ranks * cards_a_rank)
+    assert rcs == [0] and len(got) == ranks, logs
+    for r, z in enumerate(got):
+        assert z["mesh"] == [[f"cuda:{r * cards_a_rank + j}"] for j in range(cards_a_rank)]
+    ref = got[0]
+    for k in range(3):   # train, train, fine-tune
+        assert ref[f"{k}_loss_rel"] <= 1e-5, (k, ref[f"{k}_loss_rel"])
+        assert ref[f"{k}_leaf_dist"] <= 1e-4, (k, ref[f"{k}_leaf_dist"])
+        for r, z in enumerate(got):
+            assert z[f"{k}_loss"] == ref[f"{k}_loss"] and z[f"{k}_acc"] == ref[f"{k}_ref_acc"]
+            assert z[f"{k}_digest"] == ref[f"{k}_digest"], (k, r)
+
+
+@pytest.mark.cuda
+def test_two_ranks_claiming_every_card_raise_before_nccl(tmp_path):
+    logs, rcs, got = _group(tmp_path, 1, nodes=2)
+    assert rcs == [0, 0] and len(got) == 2, logs
+    for z in got:
+        assert not z["initialized"]
+        assert z["error"].startswith("processes 0 and 1 both hold card "), z["error"]
+        assert "(cuda:0 in process 0, cuda:0 in process 1)" in z["error"]
+
+
+@pytest.mark.cuda
+def test_ranks_each_seeing_only_their_own_card(tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards")
+    logs, rcs, got = _group(tmp_path, 1, nodes=2, cards=[[0], [1]])
+    assert rcs == [0, 0] and len(got) == 2, logs
+    assert [z["mesh"] for z in got] == [[["cuda:0"]]] * 2
+    for k in range(3):
+        assert got[0][f"{k}_loss_rel"] <= 1e-5 and got[0][f"{k}_leaf_dist"] <= 1e-4, k
+        assert got[0][f"{k}_digest"] == got[1][f"{k}_digest"], k
