@@ -61,6 +61,16 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
 6b. finetune: two LRP-inference fine-tune steps at the same size (mode
             'mean', lr 1e-6, every word explained), then one more step's
             three phases (predict, lrp_weights, update) timed apart;
+6c. K steps a call (``--steps-per-call``): the train step at K = 4 and the
+            fine-tune step at K = 2, batch 32, each step replayed from one
+            captured CUDA graph (``graphs.StepGraph``), against K chained
+            eager steps: with cuDNN's deterministic algorithms bit for bit
+            (losses, params, Adam's moments), on a first call and on one
+            after ``set_learning_rate``, the launches K x one step's; with
+            its default ones (two eager chains already differ) the distance
+            beside a second eager chain's, the losses within TOL_MULTI_LOSS,
+            ms a step against the eager chain's, capture s, peak memory and
+            the host's share of a call;
 7. card vs CPU, fine-tune: one step at batch 1 without dropout on the card,
             on the CPU in f32 and in f64: gradients within FT_GRAD_RATIO of
             the CPU-f32 run's distance from f64, relevance weights within
@@ -89,7 +99,9 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             provider (``seeded_images``), in ``build/phase9`` (removed after):
             9a Trainer.run at batch 32, two epochs of 8 steps, a new Trainer
             resuming the last checkpoint and one more epoch (its epoch split,
-            the targets' copy to the card, peak memory, launches); 9b the
+            the targets' copy to the card, peak memory, launches), then a
+            Trainer at steps_per_call 4 on that checkpoint, one epoch that
+            captures and one counted (launches, its step calls' ms); 9b the
             trainer at batch 2 on the card and on the CPU in f32 and f64;
             9c three grid-TD train steps in each loss mode, one step's
             gradients at batch 1 against the CPU; 9d BeamSearchInference's
@@ -175,7 +187,11 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             held to the one-device step on rank 0 (loss, gradient, Adam
             flips, the ranks' params bit for bit): a 1-rank NCCL group whose
             mesh comes from the default ``make_multihost_mesh()`` (it must
-            be [[cuda:0]]), a Trainer step and a fine-tune step; a 2-rank
+            be [[cuda:0]]), a Trainer step, a fine-tune step and the
+            Trainer's K-step call (K = 4: on a group of one rank the
+            one-device call, its step captured and replayed, held to 4
+            chained one-device steps, both under cuDNN's deterministic
+            algorithms); a 2-rank
             gloo group (both ranks on cuda:0), a Trainer step;
             ``--nproc-per-node 2`` under NCCL on the one card, whose ranks
             must both raise the split's ValueError before joining; where
@@ -187,13 +203,14 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             training, trainer, encoder, serving and analyzer card tests, in a
             child process (run last).
 
-Every path (f32, bf16, train, finetune, gridtd_f32, gridtd_bf16, trainer,
+Every path (f32, bf16, train, finetune, multi_train and multi_finetune
+(phase 6c), gridtd_f32, gridtd_bf16, trainer,
 gridtd_train, evaluate, phase 10's deep_taylor and bbox, phase 11's,
 phase 12's serve_f32, serve_bf16 and exported, phase 13's
 analyzers_f32 and analyzers_bf16, and phase 14's mesh_train, vocab_train,
 mesh_finetune, shard_words_f32, shard_words_bf16, mesh_bf16, mesh_serve,
 mesh_exported, multihost_train summed over the gloo ranks, multihost_nccl,
-and on several cards nccl_2_ranks and nccl_4_ranks a rank) is driven
+multi_nccl (14f's K-step call), and on several cards nccl_2_ranks and nccl_4_ranks a rank) is driven
 with the launch counts set to 0 just before it and read just after; each
 kernel's count must equal its calls on that path as phase 2's shapes derive
 them (for deep_taylor and bbox the shapes of the run's chunks, timed after
@@ -1244,6 +1261,189 @@ def phase_finetune(dev, failures):
     return records[-1]["launches"], out
 
 
+# phase 6c: K steps a call (--steps-per-call), each step the replay of one
+# captured graph, against K chained eager steps at full width
+K_TRAIN, K_FINETUNE = 4, 2
+MULTI_REPS = 3              # timed graphed calls after the one that captures
+# the graphed call's losses against the eager chain's, relative, with
+# cuDNN's default algorithms: its weight gradients sum in a varying order,
+# so from the second step on each side's loss is taken at params that
+# Adam's sign-like first steps moved apart. An H100 80GB HBM3 at 700 W read
+# 1.114e-6 graphed and 7.43e-7 for a second eager chain (train, K = 4, lr
+# 2e-4), 0 for both (fine-tune, K = 2, lr 1e-6): about 9x the largest
+TOL_MULTI_LOSS = 1e-5
+
+
+def tree_distance(got, ref):
+    """(leaves not bit for bit equal, of all; the largest |distance|; the
+    2-norm of the distance over the reference's), over two trees."""
+    from lrp_imagecaptioning_torch.weights import tree_leaves
+
+    pairs = list(zip(tree_leaves(got), tree_leaves(ref)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    largest = max(float((a - b).abs().max()) for a, b in pairs)
+    num = math.sqrt(sum(float((a.double() - b.double()).norm()) ** 2 for a, b in pairs))
+    den = math.sqrt(sum(float(b.double().norm()) ** 2 for _, b in pairs))
+    return differ, len(pairs), largest, num / max(den, 1e-30)
+
+
+def phase_multi_step(dev, failures):
+    """6c: ``make_multi_train_step`` at K = K_TRAIN and
+    ``make_multi_lrp_finetune_step`` at K = K_FINETUNE, batch 32, each step
+    replayed from one captured graph (``graphs.StepGraph``), against K
+    chained eager steps from generators of one seed.
+
+    With cuDNN's deterministic algorithms (``torch.backends.cudnn.
+    deterministic``) the eager step repeats itself bit for bit, so the
+    replay is held to it bit for bit: losses, params and moments, on a first
+    call and on a second after ``set_learning_rate`` (the rate and the bias
+    corrections read from the card, written by the host); the launches of
+    the first held to K x one step's. With cuDNN's default algorithms, as a
+    user trains, two eager chains already differ (its weight gradients sum
+    in a varying order): the replay's distance from an eager chain is
+    logged beside the second eager chain's, its losses held within
+    TOL_MULTI_LOSS; ms a step (the median of MULTI_REPS calls, and of as
+    many eager chains after a warm-up one), capture s, peak GiB and the
+    host's share of a call are read there. Returns (launches by path, report)."""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.train.lrp_finetune import (make_lrp_finetune_step,
+                                                              make_multi_lrp_finetune_step)
+    from lrp_imagecaptioning_torch.train.optimizer import make_optimizer, set_learning_rate
+    from lrp_imagecaptioning_torch.train.step import (chain_steps, make_multi_train_step,
+                                                      make_train_step)
+
+    cfg = FlickrConfig()
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    stop = np.zeros(VOCAB + 1, bool)
+    launches, rep = {}, {}
+    for path, K, lr, seed in (("multi_train", K_TRAIN, cfg.learning_rate, 60),
+                              ("multi_finetune", K_FINETUNE, 1e-6, 70)):
+        opt = make_optimizer("adaptiveattention", lr)
+
+        def steps():
+            if path == "multi_train":
+                return make_train_step(cap, opt), make_multi_train_step(cap, opt)
+            return (make_lrp_finetune_step(cap, opt, stop, SOS, EOS, "mean"),
+                    make_multi_lrp_finetune_step(cap, opt, stop, SOS, EOS, "mean"))
+
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        stacks = [[torch.stack(x) for x in zip(*(train_batch(gen, dev, B_TRAIN, T_TRAIN)
+                                                 for _ in range(K)))] for _ in range(2)]
+        want = {k: K * v for k, v in expected_launches(path[6:], cfg).items()}
+        drop = lambda: torch.Generator(device=dev).manual_seed(seed + 1)   # noqa: E731
+        state0 = opt.init(params)
+        r = rep[path] = dict(K=K, lr=lr, expected=want)
+
+        # deterministic cuDNN: the replay against the eager chain, bit for bit
+        torch.backends.cudnn.deterministic = True
+        try:
+            single, multi = steps()
+            drop_e = drop()
+            e1, t1, m1 = chain_steps(single, params, state0, stacks[0], drop_e)
+            e2, t2, m2 = chain_steps(single, e1, set_learning_rate(t1, lr / 2), stacks[1], drop_e)
+            multi(params, state0, *stacks[0], torch.Generator(device=dev).manual_seed(seed + 2))
+            drop_m = drop()
+            kernels.reset_launches()
+            p1, s1, n1 = multi(params, state0, *stacks[0], drop_m)
+            r["launches"] = counted = counts()
+            held1 = (tree_distance(p1, e1), tree_distance([s1["mu"], s1["nu"]], [t1["mu"], t1["nu"]]),
+                     torch.equal(n1["loss"], m1["loss"]))
+            p2, s2, n2 = multi(p1, set_learning_rate(s1, lr / 2), *stacks[1], drop_m)
+            held2 = (tree_distance(p2, e2), tree_distance([s2["mu"], s2["nu"]], [t2["mu"], t2["nu"]]),
+                     torch.equal(n2["loss"], m2["loss"]))
+            r.update(deterministic=dict(
+                params=held1[0], moments=held1[1], losses_equal=held1[2],
+                after_rate_params=held2[0], after_rate_moments=held2[1],
+                after_rate_losses_equal=held2[2], count=[s1["count"], s2["count"]],
+                losses=[n1["loss"].tolist(), n2["loss"].tolist()], captures=multi.graph.captures))
+            del single, multi, e1, e2, t1, t2, p1, p2, s1, s2
+        finally:
+            torch.backends.cudnn.deterministic = False
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # cuDNN's default algorithms, as a user trains: the spread and the times
+        single, multi = steps()
+        # the eager chain timed as the graphed calls are: after a warm-up
+        # chain (the reference), the median of MULTI_REPS chains; the last
+        # is the second eager chain held to the first
+        ea, ta, ma = chain_steps(single, params, state0, stacks[0], drop())
+        eager_reps = []
+        for _ in range(MULTI_REPS):
+            (eb, tb, mb), ms = timed(chain_steps, single, params, state0, stacks[0], drop())
+            eager_reps.append(ms)
+        eager_ms = float(np.median(eager_reps))
+        parts = {}
+        timed_method(multi.graph, "_capture", parts)
+        torch.cuda.reset_peak_memory_stats()
+        _, first_ms = timed(multi, params, state0, *stacks[0],
+                            torch.Generator(device=dev).manual_seed(seed + 2))
+        reps, hosts = [], []
+        for _ in range(MULTI_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pg, sg, ng = multi(params, state0, *stacks[0], drop())
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        mem = memory_gib()
+        steady = float(np.median(reps))
+        loss_rel = float(((ng["loss"] - ma["loss"]).abs() / ma["loss"].abs()).max())
+        r.update(captures=multi.graph.captures, capture_s=parts["_capture"][0] / 1e3,
+                 first_call_ms=first_ms, reps_ms=reps, reps_host_ms=hosts,
+                 eager_reps_ms=eager_reps,
+                 ms_per_step=steady / K, eager_ms_per_step=eager_ms / K,
+                 host_share=float(np.median(hosts)) / steady, loss_rel=loss_rel,
+                 graphed_vs_eager=dict(params=tree_distance(pg, ea),
+                                       moments=tree_distance([sg["mu"], sg["nu"]],
+                                                             [ta["mu"], ta["nu"]])),
+                 eager_vs_eager=dict(params=tree_distance(eb, ea),
+                                     moments=tree_distance([tb["mu"], tb["nu"]],
+                                                           [ta["mu"], ta["nu"]]),
+                                     loss_rel=float(((mb["loss"] - ma["loss"]).abs()
+                                                     / ma["loss"].abs()).max())),
+                 losses=ng["loss"].tolist(), eager_losses=ma["loss"].tolist(), **mem)
+        d = r["deterministic"]
+        log(f"  6c {path}, K = {K}, cuDNN deterministic: against the eager chain params "
+            f"{d['params']} (leaves differing, of; largest; 2-norm rel), moments {d['moments']}, "
+            f"losses equal {d['losses_equal']}; after set_learning_rate({lr / 2:g}): params "
+            f"{d['after_rate_params']}, moments {d['after_rate_moments']}, losses equal "
+            f"{d['after_rate_losses_equal']}; counts {d['count']}; launches {counted}")
+        log(f"  6c {path}, K = {K}, cuDNN default: {steady / K:.2f} ms a step graphed (median of "
+            f"{MULTI_REPS} calls; host {r['host_share']:.3f} of a call), {eager_ms / K:.2f} ms a "
+            f"step eager chained (median of {MULTI_REPS} chains after a warm-up one); capture "
+            f"{r['capture_s']:.2f} s (first call {first_ms:.1f} ms); "
+            f"peak {mem['peak_gib']:.2f} GiB allocated, {mem['reserved_gib']:.2f} reserved; "
+            f"losses {r['losses']} (eager {r['eager_losses']}, rel {loss_rel:.3e}); graphed "
+            f"against eager {r['graphed_vs_eager']}, a second eager chain against the first "
+            f"{r['eager_vs_eager']}")
+        if counted != want:
+            failures.append(f"6c {path}: launches {counted}, {want} derived (K x one step's)")
+        if d["captures"] != 1 or r["captures"] != 1:
+            failures.append(f"6c {path}: captures {d['captures']}, {r['captures']}; 1 expected")
+        if d["count"] != [K, 2 * K]:
+            failures.append(f"6c {path}: Adam counts {d['count']}, {[K, 2 * K]} expected")
+        for label, pd, md, eq in (("first call", d["params"], d["moments"], d["losses_equal"]),
+                                  ("after set_learning_rate", d["after_rate_params"],
+                                   d["after_rate_moments"], d["after_rate_losses_equal"])):
+            if pd[0] or md[0] or not eq:
+                failures.append(f"6c {path} {label} (cuDNN deterministic): not bit for bit the "
+                                f"eager chain's: params {pd}, moments {md}, losses equal {eq}")
+        if loss_rel > TOL_MULTI_LOSS or not all(math.isfinite(v) for v in r["losses"]):
+            failures.append(f"6c {path} (cuDNN default): losses {r['losses']}, eager "
+                            f"{r['eager_losses']}")
+        launches[path] = counted
+        del single, multi, ea, eb, ta, tb, pg, sg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, rep
+
+
 def leaf_names(tree, prefix=""):
     """The '/'-joined key paths of a params tree, in ``tree_leaves`` order."""
     if isinstance(tree, dict):
@@ -2057,12 +2257,13 @@ def timed_method(obj, name, store, keep=None):
     return fn
 
 
-def smoke_trainer(cfg, ds, label, device="cuda", parts=None):
+def smoke_trainer(cfg, ds, label, device="cuda", parts=None, steps_per_call=1):
     """A Trainer on ``ds`` with seeded images; with ``parts`` its epoch's
     pieces are timed into it."""
     from lrp_imagecaptioning_torch.train.trainer import Trainer
 
-    t = Trainer("adaptiveattention", cfg, ds, label=label, seed=0, device=device)
+    t = Trainer("adaptiveattention", cfg, ds, label=label, seed=0, device=device,
+                steps_per_call=steps_per_call)
     t.provider.image_preprocessor.preprocess_batch_paths = seeded_images
     if parts is not None:
         for name in ("_epoch", "_save", "_train_step"):
@@ -2150,6 +2351,7 @@ def phase_trainer(dev, failures, report):
         f"({out['target_copy']['gb_s']:.1f} GB/s, pageable); peak memory "
         f"{mem['peak_gib']:.2f} GiB allocated, {mem['reserved_gib']:.2f} reserved")
     log(f"  the resumed epoch launched {launches}; CSV epochs {csv_epochs}; latest {latest}")
+    out["steps_per_call"] = trainer_k_steps(dev, failures, cfg, ds, t2, per_epoch)
     if csv_epochs != ["0", "1", "2"]:
         failures.append(f"9a: the CSV's epochs are {csv_epochs}")
     if not latest.startswith("ckpt_02_"):
@@ -2157,6 +2359,44 @@ def phase_trainer(dev, failures, report):
     if not all(math.isfinite(v) for v in losses):
         failures.append(f"9a: a loss is not finite: {losses}")
     return launches, out, (cfg, ds, t2)
+
+
+def trainer_k_steps(dev, failures, cfg, ds, resumed, per_epoch):
+    """9a at ``steps_per_call`` K_TRAIN: a Trainer on the resumed trainer's
+    latest checkpoint runs one epoch of TRAINER_STEPS steps (K-step calls,
+    each step replayed from one captured graph; the first epoch captures),
+    then the same epoch again, counted: its launches are one epoch's
+    (``per_epoch``), its step calls timed against the K = 1 epochs'."""
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.train.checkpoint import latest_checkpoint
+
+    parts = {}
+    t = smoke_trainer(cfg, ds, "phase9_k", dev, parts, steps_per_call=K_TRAIN)
+    multi = timed_method(t, "_multi_step", parts)
+    t.load_weights(latest_checkpoint(resumed.result_dir))
+    first, first_ms = timed(t.run, 1, None, TRAINER_STEPS)
+    kernels.reset_launches()
+    hist, run_ms = timed(t.run, 1, None, TRAINER_STEPS)
+    launches = counts()
+    calls = parts["_multi_step"][-TRAINER_STEPS // K_TRAIN:]
+    out = dict(K=K_TRAIN, first_run_ms=first_ms, run_ms=run_ms, captures=multi.graph.captures,
+               train_ms=parts["_epoch"][2], ms_per_train_step=parts["_epoch"][2] / TRAINER_STEPS,
+               call_ms=calls, step_in_calls_ms=sum(calls) / TRAINER_STEPS, launches=launches,
+               count=t.opt_state["count"], loss=[first[0]["loss"], hist[0]["loss"]])
+    log(f"  9a at steps_per_call {K_TRAIN}: an epoch's train part {out['train_ms']:.1f} ms = "
+        f"{out['ms_per_train_step']:.1f} ms a step, {out['step_in_calls_ms']:.1f} of it in the "
+        f"{len(calls)} calls ({[round(c, 1) for c in calls]} ms); first run {first_ms:.0f} ms "
+        f"(it captures), the counted one {run_ms:.0f}; loss {out['loss']}; captures "
+        f"{out['captures']}; Adam count {out['count']}; launches {launches}")
+    if launches != per_epoch:
+        failures.append(f"9a at steps_per_call {K_TRAIN}: launches {launches}, {per_epoch} an "
+                        "epoch expected")
+    if out["captures"] != 1 or out["count"] != resumed.opt_state["count"] + 2 * TRAINER_STEPS:
+        failures.append(f"9a at steps_per_call {K_TRAIN}: captures {out['captures']}, count "
+                        f"{out['count']}")
+    if not all(math.isfinite(v) for v in out["loss"]):
+        failures.append(f"9a at steps_per_call {K_TRAIN}: a loss is not finite: {out['loss']}")
+    return out
 
 
 def first_difference(a, b):
@@ -4085,7 +4325,17 @@ MESH_PATHS = {
 }
 # the paths explaining given captions: K2 in the cached forward only
 GIVEN_TOKENS = ("shard_words_f32", "shard_words_bf16", "mesh_bf16")
+# phase 6c's K-step calls and 14f's K-step call of the 1-rank NCCL group
+# (the one-device call, captured): name -> (the path whose kernel shapes each step takes, (storage,
+# rows, words), steps a call)
+MESH_PATHS.update({
+    "multi_train": ("train", (None, B_TRAIN, T_TRAIN), K_TRAIN),
+    "multi_finetune": ("finetune", (None, B_TRAIN, T_TRAIN), K_FINETUNE),
+    "multi_nccl": ("train", (None, B_TRAIN, T_TRAIN), K_TRAIN),
+})
 PATH_KERNELS.update({
+    "multi_train": ("lstm_gates",), "multi_nccl": ("lstm_gates",),
+    "multi_finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
     "mesh_train": ("lstm_gates",), "multihost_train": ("lstm_gates",),
     "multihost_nccl": ("lstm_gates",), "vocab_train": ("lstm_gates",),
     "mesh_finetune": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
@@ -4395,7 +4645,7 @@ def phase_multihost(dev, failures, work):
     want = {"train": expected_launches("train", cfg),
             "finetune": expected_launches("finetune", cfg)}
     split = start_group(work, "split", 2, 1)
-    nccl_group = start_group(work, "nccl1", 1, 1)
+    nccl_group = start_group(work, "nccl1", 1, 1, steps="train,finetune,multi")
     gloo_group = start_group(work, "gloo2", 2, 1, backend="gloo", steps="train")
     (split_text, split_rc), = worker.finish(split[1])
     (nccl,), gloo = read_group(nccl_group, 1, "1-rank NCCL"), read_group(gloo_group, 2, "gloo")
@@ -4414,13 +4664,26 @@ def phase_multihost(dev, failures, work):
                         f"ValueError (rc {split_rc}): {refused} {split_text[-2000:]}")
     rep["nccl_1_rank"] = {key: ranks_held("1-rank NCCL", [nccl], k, lr, want[key], failures)
                           for k, key in enumerate(want)}
+    # the Trainer's K-step call: on a group of one rank the one-device call
+    # (train.step.one_device_mesh), its step captured and replayed K times,
+    # against K chained one-device steps
+    rep["nccl_1_rank"]["multi"] = ranks_held(
+        f"1-rank NCCL, K = {parallel_worker().MULTI_K} steps a call", [nccl], 2, lr,
+        {k: parallel_worker().MULTI_K * v for k, v in want["train"].items()}, failures)
+    rep["nccl_1_rank"]["multi"].update(captures=nccl["2_captures"], losses=nccl["2_losses"].tolist(),
+                                       ref_losses=nccl["2_ref_losses"].tolist())
+    if nccl["2_captures"] != 1:
+        failures.append(f"14f: the 1-rank NCCL group's K-step call made {nccl['2_captures']} "
+                        "captures (-1: it chained the sharded steps), 1 expected: a group "
+                        "of one rank runs the one-device call")
     rep["gloo_2_ranks"] = ranks_held("2-rank gloo (the ranks share the card)", gloo, 0, lr,
                                      expected_launches("train", FlickrConfig(batch_size=16)),
                                      failures)
     launches = {"multihost_train": {k: sum(r["0_launches"][k] for r in gloo)
                                     for k in want["train"]},
                 "multihost_nccl": nccl["0_launches"],
-                "multihost_nccl_finetune": nccl["1_launches"]}
+                "multihost_nccl_finetune": nccl["1_launches"],
+                "multi_nccl": nccl["2_launches"]}
     cards = torch.cuda.device_count()
     groups = [n for n in (2, 4) if n <= cards]
     if not groups:
@@ -4716,6 +4979,8 @@ def main(argv=None) -> int:
               (f"phase 6: train steps at full width, batch {B_TRAIN}", "train"),
               (f"phase 6b: LRP-inference fine-tune steps at full width, batch {B_TRAIN}",
                "finetune"),
+              (f"phase 6c: K steps a call, each replayed from a CUDA graph: train K = {K_TRAIN}, "
+               f"fine-tune K = {K_FINETUNE}, batch {B_TRAIN}", "multi_step"),
               ("phase 7: card vs CPU, one fine-tune step, batch 1", "cpu_finetune"),
               (f"phase 8: the Explainer, adaptive attention, bf16 storage, {N_NATURAL} "
                f"natural-length captions at batch {B_BF16}", "explainer"),
@@ -4785,6 +5050,16 @@ def main(argv=None) -> int:
                     launches["finetune"], report["finetune"] = phase_finetune(dev, failures)
                 else:
                     report["cpu_finetune"] = phase_finetune_cpu(dev, failures)
+            elif key == "multi_step":
+                built = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                multi_launches, report["multi_step"] = phase_multi_step(dev, failures)
+                launches.update(multi_launches)
+                for path in multi_launches:
+                    for name, s_ in mesh_summary(dev, path, failures, report.setdefault(
+                            "kernel_shapes", {})).items():
+                        summary.setdefault(name, {})[path] = s_
             elif key in ("explainer", "explainer_f32", "gridtd", "gradients"):
                 # an Explainer refers to itself through its graphed stages: the
                 # cyclic collector frees an earlier phase's graphs and pool

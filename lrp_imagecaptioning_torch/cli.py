@@ -141,12 +141,12 @@ def _mesh(n: int, device: str):
 
 
 def cmd_train(args):
-    from .train.trainer import Trainer, reject_unported
+    from .train.trainer import Trainer
 
-    reject_unported(steps_per_call=args.steps_per_call)
     cfg, dataset = _build_dataset(args)
     mesh = _mesh(args.num_devices, args.device) if args.num_devices else None
-    t = Trainer(args.model_type, cfg, dataset, label=args.label, mesh=mesh, device=args.device)
+    t = Trainer(args.model_type, cfg, dataset, label=args.label, mesh=mesh,
+                steps_per_call=args.steps_per_call, device=args.device)
     if args.weights:
         t.load_weights(args.weights)
     if args.resume:
@@ -158,14 +158,13 @@ def cmd_finetune_lrp(args):
     from .data.provider import DatasetProvider
     from .models.captioner import build_captioner
     from .train.lrp_finetune import LRPFinetuner
-    from .train.trainer import reject_unported
 
-    reject_unported(steps_per_call=args.steps_per_call)
     cfg, dataset = _build_dataset(args)
     provider = DatasetProvider(dataset, cfg)
     captioner = build_captioner(args.model_type, cfg, provider.vocab_size)
     tuner = LRPFinetuner(captioner, _load_params(captioner, args), provider, mode=args.lrp_mode,
                          learning_rate=args.learning_rate or 1e-6,
+                         steps_per_call=args.steps_per_call,
                          max_explained_words=args.max_explained_words, device=args.device)
     # the reference drives 50 chunks x 10 iterations (train.py:696-716)
     for save_idx in range(args.start_chunk, args.chunks):
@@ -498,7 +497,8 @@ def main(argv=None):
                    help="data-parallel mesh size (the first N cards; N CPU slots with "
                         "--device cpu)")
     p.add_argument("--steps-per-call", type=int, default=1,
-                   help="only 1: the port has no K-steps-a-call variants")
+                   help="optimizer steps per device dispatch (CUDA-graph replays over "
+                        "stacked batches; amortizes dispatch latency)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("finetune-lrp", help="LRP-inference fine-tuning (train.py:519-673)")
@@ -509,7 +509,8 @@ def main(argv=None):
     p.add_argument("--start-chunk", type=int, default=0)
     p.add_argument("--epoch-length", type=int, default=10)
     p.add_argument("--steps-per-call", type=int, default=1,
-                   help="only 1: the port has no K-steps-a-call variants")
+                   help="finetune steps per device dispatch (CUDA-graph replays over "
+                        "stacked batches; amortizes dispatch latency)")
     p.add_argument("--max-explained-words", type=int, default=None, dest="max_explained_words",
                    help="run the per-word LRP backward for at most this many non-stop pre-EOS "
                         "positions per sample (default: all positions)")

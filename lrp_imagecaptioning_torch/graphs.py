@@ -31,6 +31,12 @@ Two runners:
   on one stream, each replay's outputs are cloned before the next, and the
   static inputs are cloned before capture, outside the pool: so their
   scratch may overlap, and only their static outputs stay resident.
+
+A third, ``StepGraph``, runs K optimizer steps a call (``--steps-per-call``,
+``train/step.py::make_multi_train_step``): one train or fine-tune step is
+captured over static state and inputs and replayed once a step, the step's
+batch, dropout masks and Adam scalars copied in on the card before each
+replay.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .ops import kernels
+from .weights import tree_leaves, tree_map
 
 
 def param_tensors(tree) -> list[torch.Tensor]:
@@ -191,3 +198,123 @@ class GraphCache:
         pool = tuple(self.pool)
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", (0, 0))) == pool)
+
+
+def _rebuild(tree, fn):
+    """A tuple tree of ``tree``'s structure (NamedTuples kept) of ``fn(t)``."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    items = [_rebuild(v, fn) for v in tree]
+    return type(tree)._make(items) if hasattr(type(tree), "_make") else type(tree)(items)
+
+
+def _adopt(static, given) -> None:
+    """Copy the tensors of ``given`` into the tree ``static`` of the same
+    structure, unless they are its own tensors."""
+    pairs = list(zip(tree_leaves(static), tree_leaves(given)))
+    if any(s is not g for s, g in pairs):
+        for s, g in pairs:
+            s.copy_(g)
+
+
+class StepGraph:
+    """K optimizer steps a call, each the replay of one captured step: the
+    CUDA counterpart of the JAX package's jitted ``lax.scan`` over K stacked
+    batches, where the host issues one launch a step.
+
+    ``body(params, mu, nu, scalars, *batch, masks) -> (params, mu, nu,
+    metrics)`` is one step: ``batch`` one step's input tensors, ``masks``
+    its dropout masks (a tuple tree, or None), ``scalars`` a (3,) float32
+    tensor of the step's (bc1, bc2, lr) (``Adam.step_scalars``, read by
+    ``Adam.moments``), ``metrics`` {"loss", "accuracy"} of 0-d tensors.
+    It is captured over static tensors, and the captured step copies the new
+    params and moments back into the static ones: the state handed in is
+    the state updated, as with the JAX package's ``donate_argnums=(0, 1)``.
+
+    A call (``__call__``) takes the state, the batch as (K, ...) stacks on
+    the card and the K steps' masks. Each step copies its batch slice, masks
+    and scalars into the static inputs, on the card, and replays, with no
+    host sync between steps. It returns the runner's own static params and
+    moments, which the next call rewrites, and the metrics (K,)-stacked on
+    the card. A params or moments tree that is not the runner's own (the
+    first call, a checkpoint loaded, a single step between calls) is copied
+    in, not recaptured; new input shapes or a new masks layout (dropout on
+    or off) capture anew. One graph replayed K times: its capture time and
+    memory do not grow with K.
+
+    The kernel wrappers' launch counts are derived from the capture (as
+    ``capture_stage`` does) and grow by each replay's. The capture's warm-up
+    is one real step on the static state (the state is copied in after it),
+    and its launches count. A capture that fails raises."""
+
+    def __init__(self, body: Callable, optimizer):
+        self.body = body
+        self.optimizer = optimizer
+        self.key: tuple | None = None
+        self.graph = None
+        self.captures = 0
+        # static: the state a call returns, and the inputs copied into before each replay
+        self.params = self.mu = self.nu = None
+        self.scalars = self.batch = self.masks = self.out = None
+        self.launches: dict = {}
+
+    def __call__(self, params, opt_state, stacks, masks=None):
+        K, dev = stacks[0].shape[0], stacks[0].device
+        count, lr = opt_state["count"], opt_state["learning_rate"]
+        # every step's scalars in one copy to the card; the pinned buffer is
+        # kept until the copy has run
+        rows = torch.stack([torch.stack(self.optimizer.step_scalars(count + k + 1, lr))
+                            for k in range(K)])
+        scalars = rows.pin_memory().to(dev, non_blocking=True)
+        key = (tuple((tuple(x.shape[1:]), x.dtype, x.device) for x in stacks),
+               None if masks is None else tuple((tuple(t.shape), t.dtype)
+                                                for t in tree_leaves(masks[0])),
+               tuple((tuple(p.shape), p.dtype, p.device) for p in tree_leaves(params)))
+        if key != self.key:
+            self.key = self.graph = None   # release the old graph's pool first
+            self._capture(params, opt_state, [x[0] for x in stacks],
+                          None if masks is None else masks[0], scalars[0])
+            self.key = key
+        _adopt(self.params, params)
+        _adopt(self.mu, opt_state["mu"])
+        _adopt(self.nu, opt_state["nu"])
+        metrics = torch.empty((2, K), device=dev)
+        for k in range(K):
+            for s, x in zip(self.batch, stacks):
+                s.copy_(x[k])
+            if masks is not None:
+                for s, m in zip(tree_leaves(self.masks), tree_leaves(masks[k])):
+                    s.copy_(m)
+            self.scalars.copy_(scalars[k])
+            self.graph.replay()
+            metrics[:, k].copy_(self.out)
+            for wrapper, n in self.launches.items():
+                wrapper.launches += n
+        return self.params, {"count": count + K, "mu": self.mu, "nu": self.nu,
+                             "learning_rate": lr}, {"loss": metrics[0], "accuracy": metrics[1]}
+
+    def _capture(self, params, opt_state, batch, masks, scalars) -> None:
+        def static(t):
+            return t.detach().clone(memory_format=torch.contiguous_format)
+
+        self.params, self.mu, self.nu = (tree_map(static, t) for t in (
+            params, opt_state["mu"], opt_state["nu"]))
+        self.scalars, self.batch = static(scalars), [static(x) for x in batch]
+        self.masks = None if masks is None else _rebuild(masks, static)
+        state = [*tree_leaves(self.params), *tree_leaves(self.mu), *tree_leaves(self.nu)]
+        launches = {}
+
+        def run():   # records the launches of its last call: the captured one
+            before = {k: k.launches for k in kernels.KERNELS}
+            p, mu, nu, m = self.body(self.params, self.mu, self.nu, self.scalars, *self.batch,
+                                     self.masks)
+            for dst, src in zip(state, [*tree_leaves(p), *tree_leaves(mu), *tree_leaves(nu)]):
+                dst.copy_(src)
+            launches.update((k, k.launches - before[k]) for k in kernels.KERNELS)
+            return torch.stack([m["loss"].float(), m["accuracy"].float()])
+
+        self.graph, self.out = capture(run, self.batch[0].device)
+        for wrapper, n in launches.items():
+            wrapper.launches -= n   # the capture launched nothing
+        self.launches = launches
+        self.captures += 1

@@ -4,6 +4,7 @@
 from .distributed import (  # noqa: F401
     all_reduce_sum,
     global_batch_from_local,
+    global_stacked_batch_from_local,
     initialize_distributed,
     make_multihost_mesh,
     process_batch_slice,
@@ -18,6 +19,7 @@ from .mesh import (  # noqa: F401
     Sharded,
     VocabSlices,
     as_sharded,
+    as_stacked,
     batch_sharding,
     decoder_param_pspecs,
     gather_params,
@@ -27,4 +29,5 @@ from .mesh import (  # noqa: F401
     place_params,
     replicated,
     shard_batch,
+    stacked_batch_sharding,
 )

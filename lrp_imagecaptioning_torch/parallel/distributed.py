@@ -36,7 +36,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh, NamedSharding, Sharded, batch_sharding, cuda_devices
+from .mesh import (Mesh, NamedSharding, Sharded, batch_sharding, cuda_devices,
+                   stacked_batch_sharding)
 
 
 def _process_count() -> int:
@@ -251,9 +252,20 @@ def global_batch_from_local(mesh: Mesh, local_array, global_batch: int | None = 
     slots. Nothing crosses processes."""
     sharded = (sharding or batch_sharding(mesh)).place(local_array)
     if global_batch is not None and global_batch != sharded.global_rows:
-        raise ValueError(f"{np.shape(local_array)[0]} local rows x {mesh.process_count} "
+        raise ValueError(f"{np.shape(local_array)[sharded.axis]} local rows x "
+                         f"{mesh.process_count} "
                          f"processes is not the global batch {global_batch}")
     return sharded
+
+
+def global_stacked_batch_from_local(mesh: Mesh, local_array,
+                                    global_batch: int | None = None) -> Sharded:
+    """``global_batch_from_local`` for (K, B_local, ...) ``steps_per_call``
+    stacks: each process stacks its own K local batches, and the stack's
+    batch axis (axis 1) splits over this process's slots
+    (``stacked_batch_sharding``), K whole. Nothing crosses processes."""
+    return global_batch_from_local(mesh, local_array, global_batch,
+                                   stacked_batch_sharding(mesh))
 
 
 def shard_global_batch(mesh: Mesh, *local_arrays, global_batch: int | None = None):

@@ -132,19 +132,22 @@ class VocabSlices(list):
 class Sharded(NamedTuple):
     """A global batch as this process's row slices, one a data slot (each on
     its slot's device). ``global_rows`` rows in all; this process's first
-    row is ``offset``."""
+    row is ``offset``. The rows are the shards' axis ``axis``: 0 for a
+    batch, 1 for a (K, B, ...) stack of K batches
+    (``stacked_batch_sharding``)."""
 
     shards: list
     global_rows: int
     offset: int = 0
+    axis: int = 0
 
     @property
     def rows(self) -> list[slice]:
         """Each shard's rows of the global batch."""
         out, start = [], self.offset
         for s in self.shards:
-            out.append(slice(start, start + s.shape[0]))
-            start += s.shape[0]
+            out.append(slice(start, start + s.shape[self.axis]))
+            start += s.shape[self.axis]
         return out
 
 
@@ -157,9 +160,11 @@ class NamedSharding(NamedTuple):
 
     def place(self, x):
         """Replicated: a list of ``x`` on each slot (the same tensor where the
-        slot's device holds it). Batch-split: a ``Sharded`` of ``x``'s rows.
-        Split on the model axis: a list of ``x``'s contiguous slices along
-        that dimension, slice j on the first data row's model slot j."""
+        slot's device holds it). Batch-split (``P(DATA_AXIS)``, or
+        ``P(None, DATA_AXIS)`` for a stack of batches): a ``Sharded`` of
+        ``x``'s rows on that axis. Split on the model axis: a list of
+        ``x``'s contiguous slices along that dimension, slice j on the first
+        data row's model slot j."""
         if MODEL_AXIS in self.spec:
             dim = self.spec.index(MODEL_AXIS)
             row = self.mesh.devices[0]
@@ -167,22 +172,29 @@ class NamedSharding(NamedTuple):
                 torch.tensor_split(torch.as_tensor(x), len(row), dim), row))
         if not self.spec:
             return [torch.as_tensor(x).to(d) for d in self.mesh.slots]
-        if self.spec[0] != DATA_AXIS:
+        if self.spec not in ((DATA_AXIS,), (None, DATA_AXIS)):
             raise ValueError(f"unsupported partition spec {self.spec}")
+        axis = len(self.spec) - 1
         x = torch.as_tensor(x)
         slots = self.mesh.slots
         n = len(slots) * self.mesh.process_count
-        if x.shape[0] % len(slots):
-            raise ValueError(f"batch of {x.shape[0]} rows not divisible by the mesh's "
+        if x.shape[axis] % len(slots):
+            raise ValueError(f"batch of {x.shape[axis]} rows not divisible by the mesh's "
                              f"{len(slots)} data slots")
-        per = x.shape[0] // len(slots)
-        return Sharded([x[i * per:(i + 1) * per].to(d) for i, d in enumerate(slots)],
-                       per * n, per * len(slots) * self.mesh.process_index)
+        per = x.shape[axis] // len(slots)
+        return Sharded([x.narrow(axis, i * per, per).to(d) for i, d in enumerate(slots)],
+                       per * n, per * len(slots) * self.mesh.process_index, axis)
 
 
 def batch_sharding(mesh: Mesh) -> NamedSharding:
     """Leading (batch) axis split over the data axis."""
     return NamedSharding(mesh, P(DATA_AXIS))
+
+
+def stacked_batch_sharding(mesh: Mesh) -> NamedSharding:
+    """(K, B, ...) stacks of K batches (``steps_per_call``): K whole, the
+    batch axis split over the data axis."""
+    return NamedSharding(mesh, P(None, DATA_AXIS))
 
 
 def replicated(mesh: Mesh) -> NamedSharding:
@@ -277,3 +289,10 @@ def as_sharded(mesh: Mesh, x) -> Sharded:
     """``x`` as a ``Sharded`` batch: a ``Sharded`` as it is, an array or a
     tensor (the global batch of a one-process mesh) split over the slots."""
     return x if isinstance(x, Sharded) else batch_sharding(mesh).place(x)
+
+
+def as_stacked(mesh: Mesh, x) -> Sharded:
+    """A (K, B, ...) stack as a ``Sharded`` on axis 1: a ``Sharded`` as it is,
+    an array or a tensor (a one-process mesh's global stack) split over the
+    slots."""
+    return x if isinstance(x, Sharded) else stacked_batch_sharding(mesh).place(x)

@@ -35,13 +35,13 @@ from ..explain.aoa_backward import explain_word_aoa
 from ..explain.cnn_lrp import vgg_lrp_preset_a_wordbatched
 from ..explain.decoder_lrp import explain_word_adaptive, explain_word_gridtd
 from ..models.captioner import masked_accuracy, masked_accuracy_counts, masked_ce_from_logits
-from ..parallel.mesh import batch_sharding
+from ..parallel.mesh import batch_sharding, stacked_batch_sharding
 from ..runtime import resolve_device
 from .checkpoint import save_checkpoint
 from .optimizer import apply_updates, make_optimizer
-from .step import (global_masks, mask_rows, metric_accumulator, place_on_mesh, replicas,
-                   run_slots, run_stepped_steps, sharded_batch, sharded_value_and_grad,
-                   value_and_grad)
+from .step import (chain_steps, drawn_masks, graph_body, mask_rows, metric_accumulator,
+                   one_device_mesh, place_on_mesh, replicas, run_slots, run_stepped_steps,
+                   sharded_multi, sharded_step, sharded_value_and_grad, value_and_grad)
 
 # NLTK english stop words, frozen so that no corpus download is needed
 STOP_WORDS = frozenset("""a about above after again against ain all am an and any are aren aren't as at be
@@ -92,7 +92,8 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
     """(B, T, V) relevance weights.
 
     images: (B, H, W, 3) preprocessed; y_pred_logits: (B, T, V) teacher-forced
-    predictions; stop_table: (V + 1,) bool (True = stop word). The CNN LRP
+    predictions; stop_table: (V + 1,) bool (True = stop word), an array or
+    a tensor (one on the images' device is used as it is). The CNN LRP
     is VGG's (vgg16 or vgg19), as in the JAX package.
 
     ``max_words = W`` explains only the first W valid words of each sample
@@ -111,7 +112,7 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
     caches = cap.decoder.forward_cached_from_inputs(params["decoder"], consts,
                                                     torch.clamp(prev - 1, min=0), cfg.hidden_dim)
     # stop words skipped; EOS and everything after it skipped
-    is_stop = torch.as_tensor(np.asarray(stop_table), dtype=torch.bool, device=dev)[caption1]
+    is_stop = torch.as_tensor(stop_table, dtype=torch.bool, device=dev)[caption1]
     seen_eos = torch.cumsum((caption1 == eos_1based).int(), dim=1) > 0
     valid = ~is_stop & ~seen_eos                                        # (B, T)
     words0 = torch.clamp(caption1 - 1, min=0)
@@ -151,35 +152,106 @@ def dual_loss(logits: torch.Tensor, lrp_weight: torch.Tensor, y_onehot: torch.Te
 
 def make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int, eos_1based: int,
                            mode: str = "mean", max_words: int | None = None):
-    """-> step(params, opt_state, images, captions_in, y_onehot, generator)
-    -> (params, opt_state, metrics): predict -> LRP weights -> dual-loss
-    gradient step. ``step.phases`` holds the three phases (``predict``,
-    ``lrp_weights``, ``update``) for timing them apart."""
+    """-> step(params, opt_state, images, captions_in, y_onehot, generator,
+    masks=None) -> (params, opt_state, metrics): predict -> LRP weights ->
+    dual-loss gradient step (``masks``, the decoder's ``DropoutMasks``,
+    replace the generator's draw). ``step.phases`` holds the three phases
+    (``predict``, ``lrp_weights``, ``update``) for timing them apart;
+    ``step.dual`` is the dual loss's (loss, metrics, grads) from given
+    masks, the body the K-step call captures."""
+    stop_cpu = torch.as_tensor(np.asarray(stop_table), dtype=torch.bool)
+    stops = {}   # the stop table on each device, copied there once (no copy a step)
 
     @torch.no_grad()
     def predict(params, images, captions_in):
         return captioner.forward_train(params, images, captions_in, None)
 
     def weights(params, images, y_pred):
-        return lrp_weights(captioner, params, images, y_pred, stop_table, sos_1based,
+        if images.device not in stops:
+            stops[images.device] = stop_cpu.to(images.device)
+        return lrp_weights(captioner, params, images, y_pred, stops[images.device], sos_1based,
                            eos_1based, mode, max_words=max_words)
 
-    def update(params, opt_state, images, captions_in, y_onehot, w, generator):
+    def weighted(params, images, captions_in, y_onehot, w, generator, masks=None):
         def loss(p):
-            logits = captioner.forward_train(p, images, captions_in, generator)
+            logits = captioner.forward_train(p, images, captions_in, generator, masks)
             return dual_loss(logits, w, y_onehot), logits.detach()
 
         loss_value, logits, grads = value_and_grad(loss, params)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, {
-            "loss": loss_value, "accuracy": masked_accuracy(logits, y_onehot)}
+        return loss_value, {"accuracy": masked_accuracy(logits, y_onehot)}, grads
 
-    def step(params, opt_state, images, captions_in, y_onehot, generator):
+    def dual(params, images, captions_in, y_onehot, masks, generator=None):
         w = weights(params, images, predict(params, images, captions_in))
-        return update(params, opt_state, images, captions_in, y_onehot, w, generator)
+        return weighted(params, images, captions_in, y_onehot, w, generator, masks)
+
+    def applied(params, opt_state, loss, metrics, grads):
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, dict(metrics, loss=loss)
+
+    def update(params, opt_state, images, captions_in, y_onehot, w, generator):
+        return applied(params, opt_state,
+                       *weighted(params, images, captions_in, y_onehot, w, generator))
+
+    def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        return applied(params, opt_state,
+                       *dual(params, images, captions_in, y_onehot, masks, generator))
 
     step.phases = {"predict": predict, "lrp_weights": weights, "update": update}
+    step.dual = dual
     return step
+
+
+def make_multi_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int,
+                                 eos_1based: int, mode: str = "mean",
+                                 max_words: int | None = None):
+    """K fine-tune steps a call over K stacked batches, the JAX package's
+    ``make_multi_lrp_finetune_step``: ``multi(params, opt_state, images,
+    captions_in, y_onehot, generator, masks=None)`` as
+    ``train.step.make_multi_train_step``'s, the same as K chained
+    ``make_lrp_finetune_step`` steps (each step's ``lrp_weights`` reads the
+    params the step before wrote). On the card each step is the replay of
+    one captured step (predict -> ``lrp_weights`` -> update); on the CPU the
+    call is the loop of single steps."""
+    from ..graphs import StepGraph
+
+    single = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
+                                    mode, max_words)
+    graph = StepGraph(graph_body(optimizer, single.dual), optimizer)
+
+    def multi(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        stacks = (images, captions_in, y_onehot)
+        if images.device.type != "cuda":
+            return chain_steps(single, params, opt_state, stacks, generator, masks)
+        masks = drawn_masks(captioner, params, images.shape[1], images.shape[0], generator,
+                            masks)
+        return graph(params, opt_state, stacks, masks)
+
+    multi.graph = graph
+    return multi
+
+
+def sharded_finetune_grads(captioner, mesh, phases):
+    """``train.step.sharded_train_grads`` for the fine-tune step of
+    ``phases`` (``make_lrp_finetune_step``'s): each slot predicts and weighs
+    its rows on its own device, then the dual loss's gradient is summed."""
+    def grads(params, images, captions_in, y_onehot, masks):
+        B = images.global_rows
+        reps = replicas(mesh, params)
+        x, c = images.shards, captions_in.shards
+        weights = run_slots(mesh, lambda i: phases["lrp_weights"](
+            reps[i], x[i], phases["predict"](reps[i], x[i], c[i])))
+
+        def slot_loss(i, p):
+            dev, y = mesh.slots[i], y_onehot.shards[i]
+            m = None if masks is None else mask_rows(masks, images.rows[i], dev)
+            logits = captioner.forward_train(p, images.shards[i], captions_in.shards[i], None, m)
+            return (dual_loss(logits, weights[i], y) * (y.shape[0] / B),
+                    masked_accuracy_counts(logits.detach(), y))
+
+        loss, accuracy, g = sharded_value_and_grad(mesh, reps, slot_loss)
+        return loss, {"accuracy": accuracy}, g
+
+    return grads
 
 
 def make_sharded_lrp_finetune_step(captioner, optimizer, mesh, stop_table, sos_1based: int,
@@ -195,35 +267,31 @@ def make_sharded_lrp_finetune_step(captioner, optimizer, mesh, stop_table, sos_1
     the mesh's first slot (``train.step.place_on_mesh``)."""
     phases = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
                                     mode, max_words).phases
+    return sharded_step(captioner, optimizer, mesh, sharded_finetune_grads(captioner, mesh,
+                                                                           phases))
 
-    def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
-        images, captions_in, y_onehot = sharded_batch(mesh, images, captions_in, y_onehot)
-        B = images.global_rows
-        reps = replicas(mesh, params)
-        x, c = images.shards, captions_in.shards
-        weights = run_slots(mesh, lambda i: phases["lrp_weights"](
-            reps[i], x[i], phases["predict"](reps[i], x[i], c[i])))
-        masks = global_masks(captioner, params, B, generator, masks)
 
-        def slot_loss(i, p):
-            dev, y = mesh.slots[i], y_onehot.shards[i]
-            m = None if masks is None else mask_rows(masks, images.rows[i], dev)
-            logits = captioner.forward_train(p, images.shards[i], captions_in.shards[i], None, m)
-            return (dual_loss(logits, weights[i], y) * (y.shape[0] / B),
-                    masked_accuracy_counts(logits.detach(), y))
-
-        loss, accuracy, grads = sharded_value_and_grad(mesh, reps, slot_loss)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, {"loss": loss, "accuracy": accuracy}
-
-    return step
+def make_sharded_multi_lrp_finetune_step(captioner, optimizer, mesh, stop_table,
+                                         sos_1based: int, eos_1based: int, mode: str = "mean",
+                                         max_words: int | None = None):
+    """K sharded fine-tune steps a call over (K, B, ...) stacks split on the
+    batch axis, the JAX package's ``make_sharded_multi_lrp_finetune_step``:
+    the K ``make_sharded_lrp_finetune_step`` steps chained
+    (``train.step.sharded_multi``)."""
+    phases = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
+                                    mode, max_words).phases
+    return sharded_multi(captioner, optimizer, mesh, sharded_finetune_grads(captioner, mesh,
+                                                                            phases))
 
 
 class LRPFinetuner:
     """The chunked fine-tune loop with a checkpoint after each chunk,
     resumable by ``save_idx``, on one device or, with ``mesh``, data-parallel
     over its slots (``make_sharded_lrp_finetune_step``; a ragged epoch tail
-    is dropped).
+    is dropped). ``steps_per_call = K > 1`` runs K steps a call
+    (``make_multi_lrp_finetune_step``, or its sharded form on a mesh of
+    several slots or processes; values below 1 are 1, as in the JAX
+    package), the ragged tail as single steps.
 
     ``provider`` has ``caption_preprocessor`` (``vocab_size``, ``word_of``,
     ``SOS_TOKEN_LABEL_ENCODED``, ``EOS_TOKEN_LABEL_ENCODED``) and
@@ -232,7 +300,8 @@ class LRPFinetuner:
 
     def __init__(self, captioner, params, provider, mode: str = "mean",
                  learning_rate: float = 1e-6, seed: int = 0,
-                 max_explained_words: int | None = None, mesh=None, device="cuda"):
+                 max_explained_words: int | None = None, mesh=None, steps_per_call: int = 1,
+                 device="cuda"):
         self.captioner = captioner
         self.provider = provider
         self.mesh = mesh
@@ -244,11 +313,20 @@ class LRPFinetuner:
         self.opt_state = self.optimizer.init(params)
         step_args = (captioner, self.optimizer, stop_word_table(pp), pp.SOS_TOKEN_LABEL_ENCODED,
                      pp.EOS_TOKEN_LABEL_ENCODED, mode, max_explained_words)
+        self._steps_per_call = max(int(steps_per_call), 1)
+        self._multi_step = None
         if mesh is None:
             self._step = make_lrp_finetune_step(*step_args)
+            if self._steps_per_call > 1:
+                self._multi_step = make_multi_lrp_finetune_step(*step_args)
         else:
             self._step = make_sharded_lrp_finetune_step(step_args[0], step_args[1], mesh,
                                                         *step_args[2:])
+            if self._steps_per_call > 1:
+                self._multi_step = (
+                    make_multi_lrp_finetune_step(*step_args) if one_device_mesh(mesh) else
+                    make_sharded_multi_lrp_finetune_step(step_args[0], step_args[1], mesh,
+                                                         *step_args[2:]))
             self.params, self.opt_state = place_on_mesh(mesh)(self.params, self.opt_state)
         self._seed = seed
         self._T = captioner.cfg.sentence_length + 1
@@ -256,6 +334,16 @@ class LRPFinetuner:
     def _place(self, arr):
         if self.mesh is not None:
             return batch_sharding(self.mesh).place(arr)
+        return self._on_device(arr)
+
+    def _place_stacked(self, arr):
+        """A (K, B, ...) stack: on a mesh of several slots its batch axis (1)
+        split over the slots."""
+        if self.mesh is not None and not one_device_mesh(self.mesh):
+            return stacked_batch_sharding(self.mesh).place(arr)
+        return self._on_device(arr)
+
+    def _on_device(self, arr):
         t = torch.as_tensor(arr, device=self.device)
         return t.long() if not t.is_floating_point() else t.float()
 
@@ -274,7 +362,7 @@ class LRPFinetuner:
         try:
             self.params, self.opt_state = run_stepped_steps(
                 batches, epoch_length, self._place, self._step, gen, self.params, self.opt_state,
-                record)
+                record, self._steps_per_call, self._multi_step, self._place_stacked)
         finally:
             batches.stop()   # each chunk starts its own producer thread
         metrics = finalize(epoch_length)

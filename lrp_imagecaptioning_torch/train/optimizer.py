@@ -40,25 +40,49 @@ class Adam:
         step (``apply_updates``)."""
         del params
         count = state["count"] + 1
-        # float32 constants as 0-d CPU tensors: they enter a kernel on the
-        # card as scalars and keep every product in float32
-        b1, b2, eps, lr = (torch.tensor(v, dtype=torch.float32)
-                           for v in (self.b1, self.b2, self.eps, state["learning_rate"]))
-        # beta ** count rounded once to float32, as XLA's pow gives it: 1 - beta ** count
-        # cancels (1 - 0.999 ** 3 ~ 3e-3), so one ulp of the power moves the update by 2e-5
-        bc1, bc2 = (1 - torch.tensor(b.item() ** count, dtype=torch.float32) for b in (b1, b2))
+        updates, mu, nu = self.moments(grads, state["mu"], state["nu"],
+                                       *self.step_scalars(count, state["learning_rate"]))
+        return updates, {"count": count, "mu": mu, "nu": nu,
+                         "learning_rate": state["learning_rate"]}
+
+    def step_scalars(self, count: int, learning_rate: float) -> tuple:
+        """(bc1, bc2, lr) of step ``count`` as 0-d float32 CPU tensors: the
+        bias corrections 1 - beta ** count, each power rounded once to
+        float32 as XLA's pow gives it (1 - beta ** count cancels: 1 - 0.999 ** 3
+        ~ 3e-3, so one ulp of the power moves the update by 2e-5), and the
+        learning rate."""
+        bc1, bc2 = (1 - torch.tensor(torch.tensor(b, dtype=torch.float32).item() ** count,
+                                     dtype=torch.float32) for b in (self.b1, self.b2))
+        return bc1, bc2, torch.tensor(learning_rate, dtype=torch.float32)
+
+    def moments(self, grads, mu, nu, bc1, bc2, lr):
+        """The update of one step from its scalars (``step_scalars``):
+        (updates, mu, nu). The scalars are 0-d float32 tensors, on the CPU
+        (``update``: they enter a kernel on the card as arguments) or on the
+        grads' device, where a CUDA graph reads the values the host wrote
+        before its replay (``graphs.StepGraph``). The two give the same bits:
+        see ``_over``."""
+        # float32 constants: they keep every product in float32
+        b1, b2, eps = (torch.tensor(v, dtype=torch.float32) for v in (self.b1, self.b2, self.eps))
 
         def one(g, mu, nu):
             g = torch.clamp(g, -self.clipvalue, self.clipvalue)
             mu = (1 - b1) * g + b1 * mu
             nu = (1 - b2) * g ** 2 + b2 * nu
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            u = _over(mu, bc1) / (torch.sqrt(_over(nu, bc2)) + eps)
             return u * -lr, mu, nu
 
-        out = [one(*leaves) for leaves in zip(*map(tree_leaves, (grads, state["mu"], state["nu"])))]
-        updates, mu, nu = (tree_unflatten(grads, [o[i] for o in out]) for i in range(3))
-        return updates, {"count": count, "mu": mu, "nu": nu,
-                         "learning_rate": state["learning_rate"]}
+        out = [one(*leaves) for leaves in zip(*map(tree_leaves, (grads, mu, nu)))]
+        return tuple(tree_unflatten(grads, [o[i] for o in out]) for i in range(3))
+
+
+def _over(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``x / s`` for a 0-d ``s`` as the eager step computes it where ``s`` is
+    a CPU scalar: CUDA's true divide by a CPU scalar multiplies by its
+    float32 reciprocal (``div_true_kernel_cuda``), the CPU divides. A graph
+    that reads ``s`` from the card takes the same route, so a replayed step
+    gives the eager step's bits."""
+    return x * torch.reciprocal(s) if x.is_cuda else x / s
 
 
 def apply_updates(params, updates):

@@ -7,6 +7,17 @@ clipped Adam update.
 Params and optimizer state are plain dicts of tensors; a step returns new
 ones and leaves its arguments as they were.
 
+K steps a call (``make_multi_train_step``, ``make_sharded_multi_train_step``;
+the JAX package's ``lax.scan`` over K stacked batches, ``--steps-per-call``)
+compute what K chained steps compute. On the card each step is the replay
+of one captured step (``graphs.StepGraph``), its dropout drawn before the
+replays in the single steps' order and Adam's scalars read from the card;
+the state handed in is the state updated (the runner's own, rewritten by
+its next call). A sharded call chains the sharded steps; a mesh of one
+slot in one process (``one_device_mesh``: a 1-rank NCCL group too) takes
+the one-device call instead. ``run_stepped_steps`` feeds stacks of K and
+runs the ragged rest as single steps.
+
 The sharded step (``make_sharded_train_step``) computes what the one-device
 step computes on the global batch, as the JAX package's GSPMD program does,
 up to the order of the sums:
@@ -43,11 +54,12 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from ..models.captioner import keras_categorical_ce, masked_accuracy, masked_accuracy_counts
 from ..parallel.distributed import all_reduce_sum
-from ..parallel.mesh import Sharded, VocabSlices, as_sharded, place_params
+from ..parallel.mesh import Sharded, VocabSlices, as_sharded, as_stacked, place_params
 from ..weights import tree_leaves, tree_map, tree_unflatten
 from .optimizer import apply_updates
 
@@ -62,25 +74,104 @@ def value_and_grad(loss_of_params, params):
     return loss.detach(), aux, tree_unflatten(params, grads)
 
 
-def make_train_step(captioner, optimizer):
-    """-> step(params, opt_state, images, captions_in, y_onehot, generator)
-    -> (params, opt_state, metrics): loss -> grad -> optimizer update.
-    ``generator`` (a ``torch.Generator`` on the params' device) draws the
-    dropout masks; None runs without dropout."""
+def train_grads(captioner):
+    """-> ``grads(params, images, captions_in, y_onehot, masks,
+    generator=None) -> (loss, {"accuracy"}, grads)``: the teacher-forced
+    loss with dropout (``masks``, or drawn from ``generator``) and its
+    gradient, the train step before its optimizer update."""
     loss_fn = captioner.loss_fn()
 
-    def step(params, opt_state, images, captions_in, y_onehot, generator):
+    def grads(params, images, captions_in, y_onehot, masks, generator=None):
         def loss(p):
-            logits = captioner.forward_train(p, images, captions_in, generator)
+            logits = captioner.forward_train(p, images, captions_in, generator, masks)
             return loss_fn(logits, y_onehot), logits.detach()
 
-        loss_value, logits, grads = value_and_grad(loss, params)
+        loss_value, logits, g = value_and_grad(loss, params)
+        return loss_value, {"accuracy": masked_accuracy(logits, y_onehot)}, g
+
+    return grads
+
+
+def make_train_step(captioner, optimizer):
+    """-> step(params, opt_state, images, captions_in, y_onehot, generator,
+    masks=None) -> (params, opt_state, metrics): loss -> grad -> optimizer
+    update. ``generator`` (a ``torch.Generator`` on the params' device)
+    draws the dropout masks; None runs without dropout; ``masks`` (the
+    decoder's ``DropoutMasks``) replace the draw."""
+    grads_of = train_grads(captioner)
+
+    def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        loss, metrics, grads = grads_of(params, images, captions_in, y_onehot, masks, generator)
         updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
-        return params, opt_state, {"loss": loss_value,
-                                   "accuracy": masked_accuracy(logits, y_onehot)}
+        return apply_updates(params, updates), opt_state, dict(metrics, loss=loss)
 
     return step
+
+
+def graph_body(optimizer, grads_of):
+    """The body of a ``graphs.StepGraph``: ``grads_of(params, *batch,
+    masks) -> (loss, metrics, grads)`` (``train_grads``'s, the fine-tune's)
+    then Adam from the step's scalars on the card (``Adam.moments``, the
+    arithmetic of ``Adam.update``)."""
+    def body(params, mu, nu, scalars, *batch_and_masks):
+        loss, metrics, grads = grads_of(params, *batch_and_masks)
+        updates, mu, nu = optimizer.moments(grads, mu, nu, *scalars)
+        return apply_updates(params, updates), mu, nu, dict(metrics, loss=loss)
+
+    return body
+
+
+def chain_steps(step, params, opt_state, stacks, generator, masks=None):
+    """K chained calls of ``step`` over (K, ...) batch ``stacks`` (each step
+    drawing its dropout from ``generator``, or taking ``masks[k]``), the
+    metrics (K,)-stacked: what a K-step call computes, as single steps."""
+    out = []
+    for k in range(len(stacks[0])):
+        params, opt_state, m = step(params, opt_state, *(x[k] for x in stacks), generator,
+                                    masks=None if masks is None else masks[k])
+        out.append(m)
+    return params, opt_state, {key: torch.stack([torch.as_tensor(m[key]) for m in out])
+                               for key in ("loss", "accuracy")}
+
+
+def drawn_masks(captioner, params, batch: int, K: int, generator, masks=None):
+    """The dropout masks of K steps over ``batch`` rows: ``masks`` when given,
+    else drawn from ``generator`` step by step, as K single steps draw them;
+    None where there is no dropout."""
+    if masks is None:
+        masks = [global_masks(captioner, params, batch, generator) for _ in range(K)]
+    return None if masks[0] is None else list(masks)
+
+
+def make_multi_train_step(captioner, optimizer):
+    """K optimizer steps a call over K stacked batches, the JAX package's
+    ``make_multi_train_step``: -> ``multi(params, opt_state, images (K, B,
+    H, W, 3), captions_in (K, B, T), y_onehot (K, B, T, V), generator,
+    masks=None) -> (params, opt_state, metrics (K,)-stacked)``, the same as
+    K chained single steps (``make_train_step``).
+
+    On the card each step is the replay of one captured step
+    (``graphs.StepGraph``, ``multi.graph``): K dependent steps cost the
+    host K replays instead of K Python steps. The dropout masks are drawn
+    from ``generator`` step by step before the replays, in the single
+    steps' order, or taken from ``masks`` (a list of K). The returned state
+    is the runner's own, rewritten by its next call. On the CPU the call is
+    the loop of single steps."""
+    from ..graphs import StepGraph
+
+    single = make_train_step(captioner, optimizer)
+    graph = StepGraph(graph_body(optimizer, train_grads(captioner)), optimizer)
+
+    def multi(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        stacks = (images, captions_in, y_onehot)
+        if images.device.type != "cuda":
+            return chain_steps(single, params, opt_state, stacks, generator, masks)
+        masks = drawn_masks(captioner, params, images.shape[1], images.shape[0], generator,
+                            masks)
+        return graph(params, opt_state, stacks, masks)
+
+    multi.graph = graph
+    return multi
 
 
 def metric_accumulator(keys=("loss", "accuracy")):
@@ -100,17 +191,35 @@ def metric_accumulator(keys=("loss", "accuracy")):
     return record, finalize
 
 
-def run_stepped_steps(batches, steps, place, step_fn, generator, params, opt_state, record):
+def run_stepped_steps(batches, steps, place, step_fn, generator, params, opt_state, record,
+                      K: int = 1, multi_fn=None, place_stacked=None):
     """Pulls ``steps`` batches ``((captions_in, images), y_onehot)`` from
-    ``batches`` and runs ``step_fn`` on each, in order. ``place(arr)`` moves a
-    host array to the device, ``generator`` draws every step's dropout,
-    ``record(metrics)`` takes each step's metrics. Returns the updated
+    ``batches`` and runs them in order: ``multi_fn`` on stacks of ``K`` (the
+    JAX package's ``steps_per_call``), ``step_fn`` on the ragged tail and on
+    a K-group holding a batch of another size (a short epoch-tail batch
+    cannot stack with full ones). ``place(arr)`` moves a host array to the
+    device, ``place_stacked`` a (K, B, ...) stack (on a mesh it splits axis
+    1); ``generator`` draws every step's dropout; ``record(metrics)`` takes
+    each call's metrics, (K,)-stacked from ``multi_fn``. Returns the updated
     (params, opt_state)."""
-    for _ in range(steps):
-        (cap_in, imgs), y = next(batches)
-        params, opt_state, m = step_fn(params, opt_state, place(imgs), place(cap_in), place(y),
-                                       generator)
-        record(m)
+    done = 0
+    while done < steps:
+        if K > 1 and steps - done >= K:
+            group = [next(batches) for _ in range(K)]
+            if len({b[0][1].shape[0] for b in group}) == 1:
+                stacked = [place_stacked(np.stack(a)) for a in (
+                    [b[0][1] for b in group], [b[0][0] for b in group], [b[1] for b in group])]
+                params, opt_state, m = multi_fn(params, opt_state, *stacked, generator)
+                record(m)
+                done += K
+                continue
+        else:
+            group = [next(batches)]
+        for (cap_in, imgs), y in group:
+            params, opt_state, m = step_fn(params, opt_state, place(imgs), place(cap_in),
+                                           place(y), generator)
+            record(m)
+            done += 1
     return params, opt_state
 
 
@@ -316,24 +425,15 @@ def vocab_sharded_loss(captioner, logits, y_onehot):
     return loss, (correct.sum().float(), valid.sum().float())
 
 
-def make_sharded_train_step(captioner, optimizer, mesh, shard_vocab: bool = False):
-    """Mesh-parallel train step: the batch split over the data slots, the
-    params replicated. Returns ``(step, place_state)``: ``step(params,
-    opt_state, images, captions_in, y_onehot, generator, masks=None)`` as
-    ``make_train_step``'s, the batch arrays global (host arrays or tensors)
-    or ``Sharded`` (``parallel.shard_batch``, ``global_batch_from_local``);
-    ``masks`` (the global batch's dropout masks) replace the generator's
-    draw. ``place_state(params, opt_state)`` moves the state where the step
-    keeps it. ``shard_vocab`` splits the embedding and the output projection
-    over the mesh's model axis (the module's docstring; ``place_state``
-    slices them, ``parallel.gather_params`` joins them again)."""
-    place_state = place_on_mesh(mesh, shard_vocab)
+def sharded_train_grads(captioner, mesh, shard_vocab: bool = False):
+    """-> ``grads(params, images, captions_in, y_onehot, masks) -> (loss,
+    {"accuracy"}, grads)`` of the sharded train step: the batch ``Sharded``
+    over the slots, ``masks`` the global batch's dropout masks (or None),
+    the gradient summed over the slots and the processes."""
     loss_fn = captioner.loss_fn()
 
-    def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
-        images, captions_in, y_onehot = sharded_batch(mesh, images, captions_in, y_onehot)
+    def grads(params, images, captions_in, y_onehot, masks):
         B = images.global_rows
-        masks = global_masks(captioner, params, B, generator, masks)
         reps = replicas(mesh, params)
 
         def slot_loss(i, p):
@@ -348,11 +448,86 @@ def make_sharded_train_step(captioner, optimizer, mesh, shard_vocab: bool = Fals
             return (loss_fn(logits, y) * (y.shape[0] / B),
                     masked_accuracy_counts(logits.detach(), y))
 
-        loss, accuracy, grads = sharded_value_and_grad(mesh, reps, slot_loss)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, {"loss": loss, "accuracy": accuracy}
+        loss, accuracy, g = sharded_value_and_grad(mesh, reps, slot_loss)
+        return loss, {"accuracy": accuracy}, g
 
-    return step, place_state
+    return grads
+
+
+def make_sharded_train_step(captioner, optimizer, mesh, shard_vocab: bool = False):
+    """Mesh-parallel train step: the batch split over the data slots, the
+    params replicated. Returns ``(step, place_state)``: ``step(params,
+    opt_state, images, captions_in, y_onehot, generator, masks=None)`` as
+    ``make_train_step``'s, the batch arrays global (host arrays or tensors)
+    or ``Sharded`` (``parallel.shard_batch``, ``global_batch_from_local``);
+    ``masks`` (the global batch's dropout masks) replace the generator's
+    draw. ``place_state(params, opt_state)`` moves the state where the step
+    keeps it. ``shard_vocab`` splits the embedding and the output projection
+    over the mesh's model axis (the module's docstring; ``place_state``
+    slices them, ``parallel.gather_params`` joins them again)."""
+    return sharded_step(captioner, optimizer, mesh, sharded_train_grads(
+        captioner, mesh, shard_vocab)), place_on_mesh(mesh, shard_vocab)
+
+
+def sharded_step(captioner, optimizer, mesh, grads_of):
+    """The sharded step over ``grads_of`` (``sharded_train_grads`` or the
+    fine-tune's): the batch placed, the global batch's dropout drawn, the
+    summed gradient's clipped Adam update."""
+    def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        images, captions_in, y_onehot = sharded_batch(mesh, images, captions_in, y_onehot)
+        masks = global_masks(captioner, params, images.global_rows, generator, masks)
+        loss, metrics, grads = grads_of(params, images, captions_in, y_onehot, masks)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, dict(metrics, loss=loss)
+
+    return step
+
+
+def one_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is one slot in a group of one process (or none): its
+    sharded step computes the one-device step (an all-reduce over one rank
+    is the identity), so the trainers run its K steps a call as the
+    one-device call, replayed from one captured step on a card. A graph
+    belongs to one device and gloo cannot be captured; a NCCL group of
+    several processes chains its sharded steps, its captured K-step call
+    having not finished on four H100s (ROADMAP §C)."""
+    return mesh.devices.size == 1 and mesh.process_count == 1
+
+
+def sharded_multi(captioner, optimizer, mesh, grads_of):
+    """K sharded steps a call over ``grads_of`` (``sharded_step``'s): ->
+    ``multi(params, opt_state, images, captions_in, y_onehot, generator,
+    masks=None)`` over (K, B, ...) stacks, global arrays or ``Sharded``
+    split on axis 1 (``parallel.stacked_batch_sharding``,
+    ``global_stacked_batch_from_local``); ``masks`` a list of K global
+    batches' masks. The K sharded steps chained, the slots issued in
+    turn."""
+    step = sharded_step(captioner, optimizer, mesh, grads_of)
+
+    def multi(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        stacks = [as_stacked(mesh, a) for a in (images, captions_in, y_onehot)]
+        stacks[1] = stacks[1]._replace(shards=[c.long() for c in stacks[1].shards])
+        K = stacks[0].shards[0].shape[0]
+        return chain_steps(step, params, opt_state, [_steps_of(x, K) for x in stacks],
+                           generator, masks)
+
+    return multi
+
+
+def _steps_of(stacked: Sharded, K: int) -> list:
+    """A (K, B, ...) stack split on axis 1 as K batches ``Sharded`` on axis 0."""
+    return [Sharded([s[k] for s in stacked.shards], stacked.global_rows, stacked.offset)
+            for k in range(K)]
+
+
+def make_sharded_multi_train_step(captioner, optimizer, mesh, shard_vocab: bool = False):
+    """K sharded train steps a call over (K, B, ...) stacks whose batch axis
+    is split over the data slots, the JAX package's
+    ``make_sharded_multi_train_step``: the same as K chained sharded steps
+    (``make_sharded_train_step``). Returns ``(multi, place_state)``;
+    ``multi`` as ``sharded_multi``'s."""
+    return sharded_multi(captioner, optimizer, mesh, sharded_train_grads(
+        captioner, mesh, shard_vocab)), place_on_mesh(mesh, shard_vocab)
 
 
 def make_sharded_eval_step(captioner, mesh):

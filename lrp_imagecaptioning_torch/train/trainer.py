@@ -11,8 +11,10 @@ and with ``multihost=True`` over the processes of a ``torch.distributed``
 group, each loading its own rows of the global batch
 (``parallel.make_multihost_mesh``; process 0 writes the checkpoints and the
 log). Checkpoints are the port's npz files (``train/checkpoint.py``).
-Several steps a call is rejected with a message rather than ignored (the
-port has no K-steps-a-call variants, ROADMAP §C). ``cfg.pretrained_word_vector`` seeds
+``steps_per_call = K > 1`` runs K train steps a call
+(``train/step.py::make_multi_train_step``, on the card each step replayed
+from one captured CUDA graph; on a mesh of several slots or processes its
+sharded form), the ragged epoch tail as single steps. ``cfg.pretrained_word_vector`` seeds
 the embedding from the file at ``cfg.word_vector_path`` (an attribute the
 caller sets, as in the JAX package; ``models/word_vectors.py``).
 """
@@ -37,9 +39,10 @@ from ..utils.profiling import memory_stats
 from .callbacks import CSVLog, ReduceLROnPlateau, StopAfterTimedelta, StopWhenValLossExploding
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .optimizer import get_learning_rate, make_optimizer, set_learning_rate
-from ..parallel.distributed import global_batch_from_local
-from .step import (make_eval_step, make_sharded_eval_step, make_sharded_train_step,
-                   make_train_step, metric_accumulator, run_stepped_steps)
+from ..parallel.distributed import global_batch_from_local, global_stacked_batch_from_local
+from .step import (make_eval_step, make_multi_train_step, make_sharded_eval_step,
+                   make_sharded_multi_train_step, make_sharded_train_step, make_train_step,
+                   metric_accumulator, one_device_mesh, run_stepped_steps)
 
 _TIME_UNITS = ("seconds", "minutes", "hours", "days", "weeks")
 
@@ -56,15 +59,6 @@ def parse_timedelta(s: Optional[str]) -> Optional[timedelta]:
     if unit not in _TIME_UNITS:
         raise ValueError(f"time_limit unit must be one of {_TIME_UNITS}, got {parts[1]!r}")
     return timedelta(**{unit: float(parts[0])})
-
-
-def reject_unported(steps_per_call: int = 1) -> None:
-    """Raise for the option of the JAX package's trainer that the port
-    lacks, naming where it stands."""
-    if int(steps_per_call) != 1:
-        raise NotImplementedError(f"steps_per_call={steps_per_call}: the port has no "
-                                  "K-steps-a-call variants (ROADMAP §C, departures by design); "
-                                  "each call runs one step")
 
 
 def load_weights_file(path: str, captioner, device):
@@ -96,7 +90,6 @@ class Trainer:
     def __init__(self, model_type: str, config, dataset, label: str = "run", mesh=None,
                  seed: int = 0, eval_metrics: bool = True, multihost: bool = False,
                  steps_per_call: int = 1, device="cuda"):
-        reject_unported(steps_per_call)
         if multihost and mesh is None:
             # each process would train on its own rows with no gradient sum
             raise ValueError("multihost=True requires a mesh (make_multihost_mesh)")
@@ -123,13 +116,24 @@ class Trainer:
         self.opt_state = self.optimizer.init(self.params)
         # every train step's dropout masks
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # steps_per_call > 1: K steps a call, the ragged epoch tail as singles;
+        # below 1 it is 1, as in the JAX package
+        self._steps_per_call = max(int(steps_per_call), 1)
+        self._multi_step = None
         if mesh is None:
             self._train_step = make_train_step(self.captioner, self.optimizer)
             self._eval_step = make_eval_step(self.captioner)
+            if self._steps_per_call > 1:
+                self._multi_step = make_multi_train_step(self.captioner, self.optimizer)
         else:
             self._train_step, place = make_sharded_train_step(self.captioner, self.optimizer,
                                                               mesh)
             self._eval_step = make_sharded_eval_step(self.captioner, mesh)
+            if self._steps_per_call > 1:
+                self._multi_step = (
+                    make_multi_train_step(self.captioner, self.optimizer)
+                    if one_device_mesh(mesh) else
+                    make_sharded_multi_train_step(self.captioner, self.optimizer, mesh)[0])
             self.params, self.opt_state = place(self.params, self.opt_state)
         # built once and handed the new params each epoch (LogMetrics,
         # callbacks.py:37-70); it decodes eagerly (infer/api.py)
@@ -144,14 +148,15 @@ class Trainer:
         os.makedirs(self.result_dir, exist_ok=True)
         self._initial_epoch = 0  # advanced by resume_latest()
 
-    def _typed(self, arr) -> torch.Tensor:
-        """A host batch array as a tensor: images in the params' dtype,
-        caption ids int64 (embedding indices), the one-hot targets as they
-        come (int32, as the JAX package feeds them)."""
+    def _typed(self, arr, stacked: bool = False) -> torch.Tensor:
+        """A host batch array (``stacked``: a (K, B, ...) stack of them) as a
+        tensor: images in the params' dtype, caption ids int64 (embedding
+        indices), the one-hot targets as they come (int32, as the JAX
+        package feeds them)."""
         t = torch.as_tensor(arr)
         if t.is_floating_point():
             return t.to(self.params["decoder"]["embedding"].dtype)
-        return t.long() if t.dim() == 2 else t
+        return t.long() if t.dim() == 2 + stacked else t
 
     def _place(self, arr):
         """A training batch array on the device, or on a mesh its rows split
@@ -160,6 +165,16 @@ class Trainer:
         if self.mesh is not None:
             return global_batch_from_local(self.mesh, self._typed(arr))
         return self._typed(arr).to(self.device)
+
+    def _place_stacked(self, arr):
+        """A (K, B, ...) stack of training batches: on the device, or on a
+        mesh of several slots or processes its batch axis (1) split over the
+        data slots (with ``multihost``, this process's rows of K global
+        batches)."""
+        t = self._typed(arr, stacked=True)
+        if self.mesh is not None and not one_device_mesh(self.mesh):
+            return global_stacked_batch_from_local(self.mesh, t)
+        return t.to(self.device)
 
     def _place_eval(self, arr):
         """A validation batch array: on a mesh the eval step splits it (it
@@ -196,7 +211,8 @@ class Trainer:
         if training:
             self.params, self.opt_state = run_stepped_steps(
                 batches, steps, self._place, self._train_step, self.generator,
-                self.params, self.opt_state, record)
+                self.params, self.opt_state, record, self._steps_per_call, self._multi_step,
+                self._place_stacked)
         else:
             for _ in range(steps):
                 (cap_in, imgs), y = next(batches)

@@ -110,8 +110,6 @@ def test_evaluate_metrics_equal_jax_cli(corpus, tmp_path, monkeypatch, model_typ
 
 @pytest.mark.parametrize("argv, exc, match", [
     (["train", "--num-devices", "3"], ValueError, "not divisible by the mesh"),
-    (["train", "--steps-per-call", "2"], NotImplementedError, "K-steps-a-call"),
-    (["finetune-lrp", "--steps-per-call", "4"], NotImplementedError, "K-steps-a-call"),
     (["evaluate", "--weights", "orbax_ckpt_dir"], ValueError, "save_params_npz"),
     (["train", "--set", "no_such_field=1"], SystemExit, "no_such_field"),
 ])

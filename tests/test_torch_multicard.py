@@ -33,7 +33,11 @@ two cards, so here and on a one-card machine):
   ``ValueError`` before the group is joined, so before any NCCL call;
 * two such agents, each seeing only its own card (``CUDA_VISIBLE_DEVICES``
   a rank): both ranks at cuda:0 of distinct cards, accepted (a card is
-  known by its UUID), the steps as above.
+  known by its UUID), the steps as above;
+* the Trainer's K-step call (``steps_per_call`` 4) in NCCL groups of 2 and
+  4 ranks, one a card, its sharded steps chained, against K chained
+  one-device steps (losses at rel 1e-5, the update within chip_smoke's
+  TOL_MESH_GRAD by the 2-norm), the ranks' params bit for bit.
 
 Nothing here imports JAX: ``pytest --noconftest -m cuda`` runs it on a
 machine without JAX.
@@ -224,16 +228,16 @@ def test_exported_over_two_cards(tmp_path):
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _group(tmp_path, n, nodes=1, cards=None):
+def _group(tmp_path, n, nodes=1, cards=None, steps="train,train,finetune"):
     """``n`` ranks a node of ``torch_parallel_worker.py --rank`` at the
-    small size under ``torchrun``: two train steps and a fine-tune step,
-    rank 0 against one device. -> (agents' logs, return codes, each rank's
-    results)."""
+    small size under ``torchrun``: ``steps`` (two train steps and a
+    fine-tune step), rank 0 against one device. -> (agents' logs, return
+    codes, each rank's results)."""
     sys.path.insert(0, HERE)
     import torch_parallel_worker as worker
 
     prefix = str(tmp_path / "rank")
-    done = worker.finish(worker.launch(n, ["--rank", prefix, "--steps", "train,train,finetune"],
+    done = worker.finish(worker.launch(n, ["--rank", prefix, "--steps", steps],
                                        cards=cards, nodes=nodes, cwd=tmp_path), timeout=300)
     logs, rcs = [d[0] for d in done], [d[1] for d in done]
     ranks = [worker.load_rank(f"{prefix}{r}.npz") for r in range(n * nodes)
@@ -257,6 +261,34 @@ def test_nccl_group_one_process_a_block_of_cards(tmp_path, ranks, cards_a_rank):
         for r, z in enumerate(got):
             assert z[f"{k}_loss"] == ref[f"{k}_loss"] and z[f"{k}_acc"] == ref[f"{k}_ref_acc"]
             assert z[f"{k}_digest"] == ref[f"{k}_digest"], (k, r)
+
+
+# chip_smoke.TOL_MESH_GRAD: the sharded gradient's distance from one
+# device's by the 2-norm, here held on the update of K steps
+TOL_MESH_GRAD = 4.5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_nccl_group_k_steps_a_call(tmp_path, ranks):
+    """The Trainer's K-step call (``steps_per_call`` 4) in NCCL groups of
+    one process a card: the K sharded steps chained (a group of several
+    processes does not capture: ``train.step.one_device_mesh``); against K
+    chained one-device steps on rank 0: the losses at rel 1e-5, the K
+    steps' update within TOL_MESH_GRAD by the 2-norm; the ranks' params bit
+    for bit; each rank's launches K x one step's at its rows."""
+    if torch.cuda.device_count() < ranks:
+        pytest.skip(f"needs {ranks} cards")
+    logs, rcs, got = _group(tmp_path, ranks, cards=ranks, steps="train,multi")
+    assert rcs == [0] and len(got) == ranks, logs
+    ref = got[0]
+    assert ref["1_loss_rel"] <= 1e-5, ref["1_loss_rel"]
+    assert ref["1_grad_dist"] <= TOL_MESH_GRAD, ref["1_grad_dist"]
+    for z in got:
+        assert z["1_captures"] == -1
+        assert z["1_launches"] == {"lrp_linear": 0, "lstm_gates": 4 * 7, "conv3x3_fused": 0,
+                                   "lrp_a1b0_fused": 0}
+        assert z["1_digest"] == ref["1_digest"] and z["1_acc"] == ref["1_ref_acc"]
 
 
 @pytest.mark.cuda

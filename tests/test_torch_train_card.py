@@ -16,6 +16,18 @@ same on the CPU.
   and the kernels' launches as the code derives them.
 * The loss and gradients with dropout, at the same tolerances: one set of
   masks drawn on the CPU and given to both sides.
+* K steps a call (``make_multi_train_step``, ``make_multi_lrp_finetune_step``:
+  each step the replay of one captured CUDA graph) against K chained eager
+  steps from generators of one seed: losses, params and moments bit for bit
+  (the replayed step is the eager step's arithmetic, Adam's scalars read
+  from the card; ``optimizer._over``), the launches K x one step's, one
+  capture; a call after the learning rate and the count moved, and one
+  after other weights were loaded, as eager steps from there; the
+  fine-tune's quantile score captured. These run with cuDNN's
+  deterministic algorithms: with its default ones two eager steps on one
+  input already differ in the last bits of the weight gradients
+  (chip_smoke.py phase 6c logs the spread), so nothing could be held bit
+  for bit.
 
 Nothing here imports JAX: ``pytest --noconftest -m cuda`` runs it on a
 machine without JAX.
@@ -32,7 +44,7 @@ from lrp_imagecaptioning_torch.models.captioner import build_captioner  # noqa: 
 from lrp_imagecaptioning_torch.models.vgg import vgg_layers  # noqa: E402
 from lrp_imagecaptioning_torch.ops import kernels  # noqa: E402
 from lrp_imagecaptioning_torch.train import lrp_finetune, step  # noqa: E402
-from lrp_imagecaptioning_torch.train.optimizer import make_optimizer  # noqa: E402
+from lrp_imagecaptioning_torch.train.optimizer import make_optimizer, set_learning_rate  # noqa: E402
 from lrp_imagecaptioning_torch.weights import tree_leaves, tree_to  # noqa: E402
 
 CFG = FlickrConfig(embedding_dim=16, hidden_dim=16, layer_name="block2_conv1",
@@ -185,3 +197,97 @@ class TestTrainingOnCard:
         assert torch.equal(w1 != 1.0, w0 != 1.0)
         assert _rel(w1 - 1.0, w0 - 1.0) <= 1e-3
         assert abs(l1.item() - l0.item()) <= 1e-5 * abs(l0.item())
+
+    def _multi(self, path, dev, opt, drop_rate=0.5, mode="mean"):
+        """(single step, K-step call) of ``path`` at ``drop_rate``."""
+        cap = build_captioner("adaptiveattention", CFG.replace(drop_rate=drop_rate), VOCAB)
+        stop = np.zeros(VOCAB + 1, bool)
+        stop[5] = True
+        if path == "train":
+            return cap, step.make_train_step(cap, opt), step.make_multi_train_step(cap, opt)
+        return cap, lrp_finetune.make_lrp_finetune_step(cap, opt, stop, 1, 2, mode), \
+            lrp_finetune.make_multi_lrp_finetune_step(cap, opt, stop, 1, 2, mode)
+
+    @staticmethod
+    def _stacks(seed, K, dev):
+        batches = [_batch(seed + k, dev) for k in range(K)]
+        return [torch.stack(x) for x in zip(*batches)]
+
+    @staticmethod
+    def _chain(single, params, state, stacks, gen):
+        losses = []
+        for k in range(stacks[0].shape[0]):
+            params, state, m = single(params, state, *(x[k] for x in stacks), gen)
+            losses.append(m["loss"])
+        return params, state, torch.stack(losses)
+
+    @staticmethod
+    def _same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    @pytest.fixture
+    def deterministic(self, monkeypatch):
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    @pytest.mark.parametrize("path, K", [("train", 4), ("finetune", 2)])
+    def test_graphed_k_steps_equal_chained_eager_steps(self, path, K, deterministic):
+        opt = make_optimizer("adaptiveattention", 1e-3)
+        cap, single, multi = self._multi(path, "cuda", opt)
+        params = cap.init_params(seed=0, device="cuda")
+        stacks = self._stacks(10, K, "cuda")
+        want_p, want_s, want_l = self._chain(single, params, opt.init(params), stacks,
+                                             torch.Generator(device="cuda").manual_seed(3))
+        multi(params, opt.init(params), *stacks, torch.Generator(device="cuda").manual_seed(9))
+        kernels.reset_launches()
+        got_p, got_s, m = multi(params, opt.init(params), *stacks,
+                                torch.Generator(device="cuda").manual_seed(3))
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        convs = sum(op[0] == "conv" for op in vgg_layers(CFG.layer_name)) - 1
+        one = ({"lrp_linear": 0, "lstm_gates": T, "conv3x3_fused": 0} if path == "train" else
+               {"lrp_linear": T + 3, "lstm_gates": 3 * T, "conv3x3_fused": 2 * convs * B})
+        assert launches == {**{k: K * v for k, v in one.items()}, "lrp_a1b0_fused": 0}
+        assert multi.graph.captures == 1 and got_s["count"] == want_s["count"] == K
+        assert torch.equal(m["loss"], want_l)
+        assert self._same(got_p, want_p) and self._same(got_s["nu"], want_s["nu"])
+
+    def test_graphed_calls_follow_the_rate_the_count_and_loaded_weights(self, deterministic):
+        """A second call after ``set_learning_rate`` reads the new rate and the
+        advanced count's bias corrections (no constants baked into the
+        graph); a third on other weights (a checkpoint loaded) copies them in
+        without a new capture."""
+        opt = make_optimizer("adaptiveattention", 1e-3)
+        cap, single, multi = self._multi("train", "cuda", opt)
+        params = cap.init_params(seed=0, device="cuda")
+        a, b = self._stacks(20, 2, "cuda"), self._stacks(30, 2, "cuda")
+        gen_g, gen_e = (torch.Generator(device="cuda").manual_seed(4) for _ in range(2))
+        p1, s1, _ = multi(params, opt.init(params), *a, gen_g)
+        e1, t1, _ = self._chain(single, params, opt.init(params), a, gen_e)
+        assert self._same(p1, e1)
+        p2, s2, m2 = multi(p1, set_learning_rate(s1, 2.5e-4), *b, gen_g)
+        e2, t2, l2 = self._chain(single, e1, set_learning_rate(t1, 2.5e-4), b, gen_e)
+        assert s2["count"] == t2["count"] == 4 and torch.equal(m2["loss"], l2)
+        assert self._same(p2, e2) and self._same(s2["mu"], t2["mu"])
+        other = cap.init_params(seed=1, device="cuda")
+        p3, _, _ = multi(other, opt.init(other), *a, gen_g)
+        e3, _, _ = self._chain(single, other, opt.init(other), a, gen_e)
+        assert self._same(p3, e3) and multi.graph.captures == 1
+
+    def test_quantile_score_captures(self, deterministic):
+        """``lrp_weights``' quantile score (``torch.quantile``) has no host
+        sync: a graph of it replays the eager result, and a fine-tune call
+        in mode 'quantile' equals its chained eager steps."""
+        from lrp_imagecaptioning_torch.graphs import capture
+
+        hp = torch.randn(6, 5, 4, device="cuda")
+        static = hp.clone()
+        graph, out = capture(lambda: lrp_finetune._score(static, "quantile"))
+        static.copy_(torch.randn(6, 5, 4, device="cuda"))
+        graph.replay()
+        assert torch.equal(out, lrp_finetune._score(static, "quantile"))
+        opt = make_optimizer("adaptiveattention", 1e-3)
+        cap, single, multi = self._multi("finetune", "cuda", opt, drop_rate=0.0, mode="quantile")
+        params = cap.init_params(seed=0, device="cuda")
+        stacks = self._stacks(40, 2, "cuda")
+        got_p, _, m = multi(params, opt.init(params), *stacks, None)
+        want_p, _, want_l = self._chain(single, params, opt.init(params), stacks, None)
+        assert torch.equal(m["loss"], want_l) and self._same(got_p, want_p)

@@ -191,12 +191,10 @@ def test_trainer_resume_continues_the_numbering(runs, model_type):
 
 @pytest.mark.parametrize("kw, exc, match", [
     ({"mesh": "batch + 1 cpu slots"}, ValueError, "not divisible by the mesh"),
-    ({"multihost": True}, ValueError, "requires a mesh"),
-    ({"steps_per_call": 4}, NotImplementedError, "K-steps-a-call")])
+    ({"multihost": True}, ValueError, "requires a mesh")])
 def test_trainer_rejects_unported_options(runs, kw, exc, match):
-    """The JAX trainer's errors (a batch that does not divide over the
-    mesh's data slots, multihost without a mesh) and the port's one
-    departure (no K-steps-a-call variants)."""
+    """The JAX trainer's errors: a batch that does not divide over the
+    mesh's data slots, multihost without a mesh."""
     from lrp_imagecaptioning_torch.parallel import make_mesh
 
     t1 = runs["adaptiveattention"]["torch"]["trainer"]

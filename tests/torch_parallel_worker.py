@@ -2,6 +2,7 @@
 """The port's several-process runs: one launcher and one rank.
 
     python tests/torch_parallel_worker.py RANK WORLD PORT OUT.npz
+    python tests/torch_parallel_worker.py --stacked RANK WORLD PORT OUT.npz
     python tests/torch_parallel_worker.py --claims OUT
     python tests/torch_parallel_worker.py --rank OUT [--size small|full]
         [--backend nccl|gloo] [--steps train,finetune] [--reps N]
@@ -13,7 +14,9 @@ seeded global batch (``shard_global_batch``) and runs two sharded train
 steps with dropout drawn for the global batch from one seeded generator.
 Writes its losses and final params to OUT. ``run(None, ...)`` computes the
 same in this process on the whole batch, without a group: the reference
-``tests/test_torch_parallel.py`` holds the processes to.
+``tests/test_torch_parallel.py`` holds the processes to. ``--stacked`` does
+the same for one K-step call over stacks of K global batches, each process
+stacking its own rows (``run_stacked``; ``tests/test_torch_multi_step.py``).
 
 ``--claims`` and ``--rank`` are ranks of a group that ``launch`` starts
 under ``torchrun`` (``torch.distributed.run``), which sets ``RANK``,
@@ -55,16 +58,17 @@ from lrp_imagecaptioning_torch.weights import tree_leaves  # noqa: E402
 GLOBAL_BATCH, VOCAB, STEPS = 8, 32, 2
 CFG = dict(embedding_dim=16, hidden_dim=16, layer_name="block2_conv1", img_feature_length=16,
            img_feature_dim=128, sentence_length=6, batch_size=GLOBAL_BATCH, drop_rate=0.5)
+MULTI_K = 4   # --rank's "multi": steps a call (the Trainer's steps_per_call)
 # --rank's sizes: (FlickrConfig's fields, vocabulary, image side). "full" is
 # FlickrConfig's VGG16 at full width: E = H = 512, T = 21, global batch 32
 SIZES = {"small": (CFG, VOCAB, 8), "full": ({}, 7003, 224)}
 SOS, EOS = 1, 2   # 1-based token ids
 
 
-def global_batch(batch=GLOBAL_BATCH, side=8, steps=7, vocab=VOCAB):
-    """(images, captions in, one-hot labels) from seed 0; a caption of row 1
+def global_batch(batch=GLOBAL_BATCH, side=8, steps=7, vocab=VOCAB, seed=0):
+    """(images, captions in, one-hot labels) from ``seed``; a caption of row 1
     ends three steps early (its last label rows are zero)."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     images = rng.normal(size=(batch, side, side, 3)).astype(np.float32)
     caps = rng.integers(0, vocab, size=(batch, steps)).astype(np.int64)
     y = np.zeros((batch, steps, vocab), np.float32)
@@ -95,6 +99,43 @@ def run(rank, world, port):
         params, state, m = step(params, state, *batch, gen)
         losses.append(float(m["loss"]))
     return np.asarray(losses), torch.cat([p.reshape(-1) for p in tree_leaves(params)]).numpy()
+
+
+def run_stacked(rank, world, port, K=2):
+    """One K-step call of the sharded train step (``--steps-per-call``) over
+    K global batches (seeds 0..K-1), as process ``rank`` of ``world``, each
+    process stacking its own rows (``global_stacked_batch_from_local``), or
+    (rank None) alone on the whole stacks, where the K chained sharded steps
+    run beside. -> {losses, params (flat), layout [axis, global rows,
+    offset], rows: this process's image stack; alone also stack: the whole
+    image stack, chained_losses}."""
+    from lrp_imagecaptioning_torch.parallel import global_stacked_batch_from_local
+    from lrp_imagecaptioning_torch.train.step import make_sharded_multi_train_step
+
+    torch.set_num_threads(1)
+    if rank is None:
+        mesh, rows = make_mesh(devices=["cpu"]), slice(None)
+    else:
+        initialize_distributed(f"localhost:{port}", world, rank, backend="gloo")
+        mesh, rows = make_multihost_mesh(devices=["cpu"]), process_batch_slice(GLOBAL_BATCH)
+    cap = build_captioner("adaptiveattention", FlickrConfig(**CFG), VOCAB)
+    opt = make_optimizer("adaptiveattention", 1e-3)
+    multi, place = make_sharded_multi_train_step(cap, opt, mesh)
+    params0, state0 = place(*(lambda p: (p, opt.init(p)))(cap.init_params(0, "cpu")))
+    stacks = [np.stack(a) for a in zip(*(global_batch(seed=k) for k in range(K)))]
+    local = [global_stacked_batch_from_local(mesh, a[:, rows], global_batch=GLOBAL_BATCH)
+             for a in stacks]
+    params, _, m = multi(params0, state0, *local, torch.Generator().manual_seed(5))
+    out = {"losses": m["loss"].numpy(), "params": flat(params), "rows": local[0].shards[0].numpy(),
+           "layout": np.asarray([local[0].axis, local[0].global_rows, local[0].offset])}
+    if rank is None:
+        step, _ = make_sharded_train_step(cap, opt, mesh)
+        gen, losses, p, s = torch.Generator().manual_seed(5), [], params0, state0
+        for k in range(K):
+            p, s, m = step(p, s, *(a[k] for a in stacks), gen)
+            losses.append(float(m["loss"]))
+        out.update(stack=stacks[0], chained_losses=np.asarray(losses))
+    return out
 
 
 # -- the launcher -------------------------------------------------------------------------
@@ -275,6 +316,44 @@ def against(got, ref, lr) -> dict:
             "apart": float(np.mean(diff > lr / 2)), "largest": float(diff.max())}
 
 
+def update_dists(params0, got, ref, lr) -> dict:
+    """Two K-step calls' params ``got`` and ``ref`` from ``params0``, by
+    their updates (params - params0), in float64: the 2-norm of the
+    distance over the reference update's, whole (``dist``) and the largest
+    of a leaf (``leaf_dist``, ``leaf_dists``'); and the share of params
+    apart by over lr / 2 (``apart``: Adam's early steps move a param by
+    about lr, so one whose gradient takes the other sign lies ~2 lr away)."""
+    base = [x.double() for x in tree_leaves(params0)]
+    update = [x.double() - b for x, b in zip(tree_leaves(got), base)]
+    ref_update = [x.double() - b for x, b in zip(tree_leaves(ref), base)]
+    diff = torch.cat([(u - r).abs().reshape(-1) for u, r in zip(update, ref_update)])
+    whole = math.sqrt(sum(float(r.norm()) ** 2 for r in ref_update))
+    return {"dist": float(diff.norm()) / max(whole, 1e-30),
+            "leaf_dist": leaf_dists(update, ref_update)[0],
+            "apart": float((diff > lr / 2).double().mean())}
+
+
+def against_multi(params0, got, ref, lr) -> dict:
+    """A K-step call's ``got`` = (params, metrics) against K chained
+    one-device steps' ``ref`` from ``params0``: the losses' largest relative
+    distance, the first step's reference accuracy, the K steps' update
+    (params - params0) by ``leaf_dists`` (in ``grad_dist`` / ``leaf_dist``),
+    and the params: the share apart by over lr / 2 and the largest
+    distance."""
+    (p, m), (rp, rm) = got, ref
+    base = [x.float() for x in tree_leaves(params0)]
+    update = [x.float() - b for x, b in zip(tree_leaves(p), base)]
+    ref_update = [x.float().to(b.device) - b for x, b in zip(tree_leaves(rp), base)]
+    grad_dist, leaf_dist = leaf_dists(update, ref_update)
+    diff = np.abs(flat(p) - flat(rp))
+    losses, ref_losses = m["loss"].cpu().double(), rm["loss"].cpu().double()
+    return {"ref_loss": float(rm["loss"][0]), "ref_acc": float(rm["accuracy"][0]),
+            "ref_losses": ref_losses.numpy(),
+            "loss_rel": float(((losses - ref_losses).abs() / ref_losses.abs()).max()),
+            "grad_dist": grad_dist, "leaf_dist": leaf_dist,
+            "apart": float(np.mean(diff > lr / 2)), "largest": float(diff.max())}
+
+
 def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> int:
     """One rank of a group that ``launch`` started: joins it
     (``initialize_distributed(auto=True)``) and builds a Trainer
@@ -288,7 +367,13 @@ def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> 
     together), again with a recording optimizer on the same dropout (the
     all-reduced gradient), and ``reps`` times more timed; rank 0 also runs
     the one-device step on its first card at the global batch from the same
-    params and dropout (``against``). Writes
+    params and dropout (``against``). ``multi`` is the Trainer's K-step call
+    (``steps_per_call`` MULTI_K: in a 1-rank group the one-device call,
+    its step captured and replayed, in a group of several the sharded steps
+    chained: ``train.step.one_device_mesh``) over K seeded global
+    batches, after one call that captures, against K chained one-device
+    steps on rank 0 (``against_multi``), both with cuDNN's deterministic
+    algorithms. Writes
     ``OUT<RANK>.npz``; where the group refuses this process's cards, the
     error and whether the group was joined (the rank ends with 0, so that
     ``torchrun`` stops no rank before it has written its error)."""
@@ -315,7 +400,8 @@ def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> 
         fields, vocab, side = SIZES[size]
         cfg = FlickrConfig(**fields)
         t = Trainer("adaptiveattention", cfg, caption_dataset(cfg, vocab), label=f"rank{rank}",
-                    seed=0, eval_metrics=False, mesh=mesh, multihost=True)
+                    seed=0, eval_metrics=False, mesh=mesh, multihost=True,
+                    steps_per_call=MULTI_K)
         assert t.provider.vocab_size == vocab, t.provider.vocab_size
         whole = [torch.from_numpy(a) for a in global_batch(cfg.batch_size, side,
                                                            cfg.sentence_length + 1, vocab)]
@@ -333,19 +419,22 @@ def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> 
         got = {"mesh": json.dumps([[str(d) for d in row] for row in mesh.devices]),
                "steps": json.dumps(list(steps))}
 
-        def timed(step, dropout):
+        def timed(step, dropout, inputs=None):
             dist.barrier()
             for d in mesh.slots:
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)
             t0 = time.perf_counter()
-            result = step(params, state, *batch, dropout)
+            result = step(params, state, *(batch if inputs is None else inputs), dropout)
             host = time.perf_counter() - t0
             for d in mesh.slots:
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)
             return result, (time.perf_counter() - t0) * 1e3, host * 1e3
 
+        stacks = [np.stack(a) for a in zip(*(global_batch(cfg.batch_size, side,
+                                                         cfg.sentence_length + 1, vocab, seed=j)
+                                             for j in range(MULTI_K)))]
         for k, name in enumerate(steps):
             drawn = gen.get_state()
 
@@ -354,6 +443,41 @@ def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> 
                 g.set_state(drawn)
                 return g
 
+            if name == "multi":
+                # cuDNN's deterministic algorithms for the K-step call and its
+                # reference: with the default ones two eager chains on one
+                # input already part in the weight gradients' last bits,
+                # which K Adam steps amplify (chip_smoke.py 6c)
+                torch.backends.cudnn.deterministic = True
+                local = [t._place_stacked(a[:, rows]) for a in stacks]
+                t._multi_step(params, state, *local, torch.Generator(device=dev).manual_seed(99))
+                kernels.reset_launches()
+                (new_params, new_state, m), ms, host = timed(t._multi_step, gen, local)
+                launches = {w.__name__: w.launches for w in kernels.KERNELS}
+                graph = getattr(t._multi_step, "graph", None)   # none where steps chain
+                got.update({f"{k}_loss": float(m["loss"][0]), f"{k}_acc": float(m["accuracy"][0]),
+                            f"{k}_losses": m["loss"].cpu().numpy(), f"{k}_ms": ms,
+                            f"{k}_host_ms": host, f"{k}_launches": json.dumps(launches),
+                            f"{k}_captures": -1 if graph is None else graph.captures,
+                            f"{k}_digest": hashlib.sha256(flat(new_params).tobytes()).hexdigest()})
+                if rank == 0:
+                    from lrp_imagecaptioning_torch.train.step import chain_steps
+
+                    ref_params, _, ref_m = chain_steps(
+                        single["train"](t.optimizer), params, state,
+                        [t._typed(a, stacked=True).to(dev) for a in stacks], again())
+                    got.update({f"{k}_{key}": v for key, v in against_multi(
+                        params, (new_params, m), (ref_params, ref_m),
+                        t.optimizer.learning_rate).items()})
+                    del ref_params
+                # the replays rewrite the runner's state, which new_params is:
+                # the same inputs and draws give it again
+                times = [timed(t._multi_step, again(), local)[1:] for _ in range(reps)]
+                got.update({f"{k}_reps_ms": np.asarray([w for w, _ in times]),
+                            f"{k}_reps_host_ms": np.asarray([h for _, h in times])})
+                torch.backends.cudnn.deterministic = False
+                params, state = new_params, new_state
+                continue
             kernels.reset_launches()
             (new_params, new_state, m), ms, host = timed(counted[name], gen)
             launches = {w.__name__: w.launches for w in kernels.KERNELS}
@@ -405,6 +529,11 @@ if __name__ == "__main__":
         ap.add_argument("--reps", type=int, default=0)
         a = ap.parse_args()
         sys.exit(rank_worker(a.out, a.size, a.backend, a.steps.split(","), a.reps))
+    if sys.argv[1] == "--stacked":
+        rank, world, port, out = int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+        np.savez(out, **run_stacked(rank, world, port))
+        torch.distributed.destroy_process_group()
+        sys.exit(0)
     rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     losses, flat_params = run(rank, world, port)
     np.savez(out, losses=losses, params=flat_params)
