@@ -448,7 +448,7 @@ def k3_layers(cfg):
     if cfg.img_encoder.startswith("vgg"):
         from lrp_imagecaptioning_torch.models.vgg import vgg_layers
 
-        for op in vgg_layers(cfg.layer_name, cfg.img_encoder):
+        for op in vgg_layers(cfg.img_encoder, cfg.layer_name):
             if op[0] == "pool":
                 size //= 2
             elif op[1] != "block1_conv1":   # the signed input layer takes the plain rule
@@ -1142,7 +1142,7 @@ def expected_launches(path, cfg):
     steps = cfg.sentence_length + 1
     if path == "train":
         return {"lrp_linear": 0, "lstm_gates": steps, "conv3x3_fused": 0, "lrp_a1b0_fused": 0}
-    convs = sum(op[0] == "conv" for op in vgg_layers(cfg.layer_name, cfg.img_encoder)) - 1
+    convs = sum(op[0] == "conv" for op in vgg_layers(cfg.img_encoder, cfg.layer_name)) - 1
     return {"lrp_linear": steps + (5 if path == "aoa_finetune" else 3), "lstm_gates": 3 * steps,
             "conv3x3_fused": 2 * convs * cfg.batch_size, "lrp_a1b0_fused": 0}
 
@@ -1491,7 +1491,7 @@ def phase_finetune_cpu(dev, failures, batch_seed=6, mask_seed=7):
         out = []
         for mk in (None, m):
             loss, _, grads = value_and_grad(lambda q: (dual_loss(
-                cap.forward_train(q, images, captions_in, None, mk), w, y), None), p)
+                cap.forward_train(q, images, captions_in, None, masks=mk), w, y), None), p)
             out += [float(loss), [g.cpu().double() for g in tree_leaves(grads)]]
         return (*out, w.cpu().double())
 
@@ -2096,17 +2096,17 @@ def walk_vs_cpu(ex, cap, params, image, tokens, failures, label, words, check_to
             vgg, until, arch = run.params["vgg"], cfg.layer_name, cfg.img_encoder
             g = math.isqrt(seed.shape[2])
             seed64 = f64(seed).reshape(n, g, g, -1)
-            top, acts = vgg_apply_with_acts(vgg, img, until, arch)
+            top, acts = vgg_apply_with_acts(vgg, img, arch, until)
             if ex.method == "deep_lift":
-                top_ref, acts_ref = vgg_apply_with_acts(vgg, reference_image(img, 0.0), until,
-                                                        arch)
-                own = _deeplift_backward(p64["vgg"], seed64, vgg_layers(until, arch),
+                top_ref, acts_ref = vgg_apply_with_acts(vgg, reference_image(img, 0.0), arch,
+                                                        until)
+                own = _deeplift_backward(p64["vgg"], seed64, vgg_layers(arch, until),
                                          [f64(a) for a in acts], [f64(a) for a in acts_ref],
                                          f64(top), f64(top_ref), True)
                 out[f"maps_{name}_walk_l2"] = l2(maps[0], own)
             else:
                 own = cnn_lrp._backward(p64["vgg"], [f64(a) for a in acts], torch.relu(seed64),
-                                        until, cnn_lrp.conv_rule, arch)
+                                        arch, until, cnn_lrp.conv_rule)
                 out[f"maps_{name}_walk"] = rel_err(f64(maps[0]), own)[1]
     out["cpu_s"] = time.perf_counter() - t0
     gates = [("feat", "_vs_f64", F64_RATIO["r_feat"], TOL_WALK),
@@ -2531,7 +2531,7 @@ def phase_gridtd_train(dev, failures, mask_seed=9):
         res = []
         for mk in (None, m):
             loss, _, grads = value_and_grad(
-                lambda q: (cap.loss(q, images, captions_in, y, None, mk), None), p)
+                lambda q: (cap.loss(q, images, captions_in, y, None, masks=mk), None), p)
             res += [float(loss), [g.cpu().double() for g in tree_leaves(grads)]]
         return res
 
@@ -2578,7 +2578,7 @@ def phase_evaluate_finetune(dev, failures, report, cfg, trainer):
     from lrp_imagecaptioning_torch.train.lrp_finetune import LRPFinetuner
 
     ckpt = latest_checkpoint(trainer.result_dir)
-    params, _ = restore_checkpoint(ckpt, dev)
+    params, _ = restore_checkpoint(ckpt, device=dev)
     inf = BeamSearchInference(trainer.captioner, params, trainer.provider, beam_size=BEAM,
                               max_caption_length=cfg.sentence_length, device=dev)
     inf.predict_batch(seeded_images([f"warm_{i}" for i in range(B_TRAIN)]))
@@ -2619,7 +2619,7 @@ def phase_evaluate_finetune(dev, failures, report, cfg, trainer):
         f"{bare if bare is None else f'{bare:.1f}'} ms); {ft}; launches {ft_launches}")
     if ft_launches != want:
         failures.append(f"9d: the fine-tune launched {ft_launches}, {want} expected")
-    return launches, out, restore_checkpoint(ckpt, dev)[0]
+    return launches, out, restore_checkpoint(ckpt, device=dev)[0]
 
 
 def importlib_has(name: str) -> bool:
@@ -3005,7 +3005,7 @@ def phase_cli(dev, failures, render):
                        rare_words_handling="nothing")
     provider = DatasetProvider(Flickr30kDataset(cfg), cfg)
     cap = build_captioner("adaptiveattention", cfg, provider.vocab_size)
-    params = cap.init_params(0, "cpu")
+    params = cap.init_params(0, device="cpu")
     params["decoder"]["output"]["bias"][provider.caption_preprocessor.EOS_TOKEN_LABEL_ENCODED
                                         - 1] = -30.0
     save_params_npz("mini.npz", params)
@@ -3301,7 +3301,7 @@ def train_grad_vs_cpu(cap, params, dev, failures, label, mask_seed=13):
 
     def run(p, images, captions_in, y, m):
         loss, _, grads = value_and_grad(
-            lambda q: (cap.loss(q, images, captions_in, y, None, m), None), p)
+            lambda q: (cap.loss(q, images, captions_in, y, None, masks=m), None), p)
         return float(loss), [g.cpu().double() for g in tree_leaves(grads)]
 
     runs = {"card": run(params, *batch, masks.to(dev))}
@@ -4913,6 +4913,135 @@ def phase_scale_out(dev, failures, detail, artifact):
     return launches, summary, rep
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the JAX package's call forms, through the package's exports
+# ---------------------------------------------------------------------------
+
+API_WORDS = T               # the word-batched call's seeds: one caption's words
+
+
+def phase_api(dev, failures):
+    """15: the calls a script written for the JAX package makes, with only
+    the package renamed, at full width: ``vgg_lrp_alpha_beta`` with alpha,
+    beta, bias, arch and until positional (K3 on W+ and W-: 48 launches,
+    as phase 13's alpha2beta1 names), ``vgg_lrp_preset_a_wordbatched`` with
+    arch, until, compute_dtype and storage_dtype positional (K4: 12), and
+    ``init_vgg_params(gen, "vgg19")`` / ``vgg_apply(p, x, "vgg19")`` (VGG19's
+    15 convs up to block5_conv3, no kernel), the Explainer built with the
+    JAX package's positional arguments. K3's and K4's walks are held to
+    their plain versions on the card: the f64 walk (the plain rule, cuDNN)
+    and the bf16 walk with K4's plain version. Returns (launches, report)."""
+    from lrp_imagecaptioning_torch import Explainer, FlickrConfig, build_captioner
+    from lrp_imagecaptioning_torch.explain import cnn_lrp
+    from lrp_imagecaptioning_torch.explain.analyzers import vgg_lrp_alpha_beta
+    from lrp_imagecaptioning_torch.models import init_vgg_params, vgg_apply, vgg_layers
+    from lrp_imagecaptioning_torch.ops import kernels
+    from lrp_imagecaptioning_torch.weights import tree_to
+
+    rep, launches = {}, {}
+    none = dict.fromkeys(counts(), 0)
+    until = "block5_conv3"
+
+    # 15a: alpha2beta1, every argument positional, on phase 13's inputs
+    params = analyzer_model(dev)
+    images, seeds = analyzer_inputs(dev, B_MAIN, 31)
+    def call():
+        return vgg_lrp_alpha_beta(params, images, seeds, 2.0, 1.0, True, "vgg16", until)
+
+    with torch.no_grad():
+        call()
+        out, ms, counted = counted_run(call)
+        ref = vgg_lrp_alpha_beta(tree_to(params, dtype=torch.float64), images[:1].double(),
+                                 seeds[:1].double(), 2.0, 1.0, True, "vgg16", until)
+    want = dict(none, conv3x3_fused=2 * 2 * CONVS)
+    dist = map_dist(out[:1].double(), ref)
+    floor = ANALYZER_FLOOR["lrp.alpha_2_beta_1"]
+    rep["alpha_beta"] = dict(ms=ms, img_per_s=B_MAIN / ms * 1e3, launches=counted, expected=want,
+                             image0_vs_plain_f64=dist, floor=floor)
+    launches["api_alpha_beta"] = counted
+    log(f"  15a vgg_lrp_alpha_beta(params, images, seeds, 2.0, 1.0, True, 'vgg16', '{until}'), "
+        f"batch {B_MAIN}: {ms:.1f} ms; launches {counted}; image 0 vs the plain rule in f64: "
+        f"{dist:.3e} (floor {floor:.1e})")
+    if counted != want:
+        failures.append(f"15a alpha2beta1: launches {counted}, {want} derived")
+    if dist > floor or tuple(out.shape) != tuple(images.shape):
+        failures.append(f"15a alpha2beta1: {tuple(out.shape)}, {dist:.3e} from f64 (floor "
+                        f"{floor:.1e})")
+    del out, ref
+
+    # 15b: PresetA word-batched in bf16 storage on K4, arch .. storage_dtype positional
+    image, wseeds = analyzer_inputs(dev, 1, 33, words=API_WORDS)
+    wseeds = wseeds[0]
+    def call():
+        return cnn_lrp.vgg_lrp_preset_a_wordbatched(params, image, wseeds, "vgg16", until, None,
+                                                    torch.bfloat16)
+
+    with torch.no_grad():
+        call()
+        out, ms, counted = counted_run(call)
+        p16 = tree_to(params, dtype=torch.bfloat16)
+        _, inputs = cnn_lrp.vgg_apply_with_acts(p16, image.to(torch.bfloat16), "vgg16", until)
+        kernels.reset_launches()
+        plain = cnn_lrp._backward(p16, inputs, wseeds.to(torch.bfloat16), "vgg16", until,
+                                  kernels.lrp_a1b0_fused_plain).float()
+        plain_launches = counts()
+        f64 = cnn_lrp.vgg_lrp_preset_a_wordbatched(tree_to(params, dtype=torch.float64),
+                                                   image.double(), wseeds.double(), "vgg16",
+                                                   until)
+    want = dict(none, lrp_a1b0_fused=CONVS)
+    k4_d, plain_d = rel_err(out.double(), f64)[1], rel_err(plain.double(), f64)[1]
+    direct = rel_err(out, plain)[1]
+    rep["wordbatched_bf16"] = dict(ms=ms, maps_per_s=API_WORDS / ms * 1e3, launches=counted,
+                                   expected=want, vs_f64=k4_d, plain_vs_f64=plain_d,
+                                   vs_plain=direct)
+    launches["api_wordbatched_bf16"] = counted
+    log(f"  15b vgg_lrp_preset_a_wordbatched(params, image, seeds, 'vgg16', '{until}', None, "
+        f"torch.bfloat16), {API_WORDS} words: {ms:.1f} ms; launches {counted}; from f64: K4 "
+        f"{k4_d:.3e}, the plain version {plain_d:.3e}; K4 vs plain {direct:.3e}")
+    if counted != want or plain_launches != none:
+        failures.append(f"15b wordbatched bf16: launches {counted} ({want} derived), the plain "
+                        f"walk's {plain_launches}")
+    if not bool(torch.isfinite(out).all()) or k4_d > BF16_CPU_RATIO * plain_d:
+        failures.append(f"15b wordbatched bf16: K4 {k4_d:.3e} from f64, the plain version "
+                        f"{plain_d:.3e}")
+    del out, plain, f64, inputs
+
+    # 15c: VGG19 from the JAX forms, against the keyword forms, bit for bit
+    gen = torch.Generator().manual_seed(19)
+    p19 = tree_to(init_vgg_params(gen, "vgg19"), dev)
+    kw19 = tree_to(init_vgg_params(torch.Generator().manual_seed(19), arch="vgg19",
+                                   until=until), dev)
+    same_init = all(torch.equal(p19[k][n], kw19[k][n]) for k in p19 for n in ("kernel", "bias"))
+    x = images[:2]
+    with torch.no_grad():
+        feats, ms, counted = counted_run(lambda: vgg_apply(p19, x, "vgg19"))
+        kw_feats = vgg_apply(p19, x, arch="vgg19", until=until)
+    convs = sum(op[0] == "conv" for op in vgg_layers("vgg19"))
+    rep["vgg19"] = dict(ms=ms, convs=convs, launches=counted, same_init=same_init,
+                        bitwise=bool(torch.equal(feats, kw_feats)), shape=tuple(feats.shape))
+    log(f"  15c vgg_apply(init_vgg_params(gen, 'vgg19'), x, 'vgg19'): {convs} convs, features "
+        f"{tuple(feats.shape)} in {ms:.1f} ms, the keyword form's bit for bit "
+        f"{rep['vgg19']['bitwise']}, the same init {same_init}; launches {counted}")
+    if convs != 15 or not same_init or not rep["vgg19"]["bitwise"] or counted != none \
+            or tuple(feats.shape) != (2, IMAGE // 16, IMAGE // 16, 512):
+        failures.append(f"15c vgg19: {rep['vgg19']}")
+
+    # 15d: the package's exports, the Explainer with JAX's positional arguments
+    cfg = FlickrConfig()
+    cap = build_captioner("adaptiveattention", cfg, VOCAB)
+    ex = Explainer(cap, cap.init_params(0, device=dev), CaptionPP(), "lrp", BEAM, T,
+                   torch.bfloat16, BUCKETS, None, False, device=dev)
+    got = (ex.method, ex._beam_size, ex._max_len, ex._storage_dtype, ex._buckets, ex._mesh,
+           ex._shard_words)
+    rep["explainer"] = [str(v) for v in got]
+    log(f"  15d Explainer(cap, params, pp, 'lrp', {BEAM}, {T}, torch.bfloat16, {BUCKETS}, None, "
+        f"False): method, beam, max_len, storage, buckets, mesh, shard_words {rep['explainer']}")
+    if got != ("lrp", BEAM, T, torch.bfloat16, tuple(w for w in BUCKETS if w < T), None, False):
+        failures.append(f"15d Explainer: {rep['explainer']}")
+    del ex, cap
+    return launches, rep
+
+
 CARD_TESTS = ["tests/test_torch_kernels.py", "tests/test_torch_graphs.py",
               "tests/test_torch_train_card.py", "tests/test_torch_explainer_card.py",
               "tests/test_torch_trainer_card.py", "tests/test_torch_encoders_card.py",
@@ -5004,6 +5133,8 @@ def main(argv=None) -> int:
               (f"phase 14: scale-out at full width on a {SLOTS}-slot mesh on the card: the "
                "sharded train and fine-tune steps, the word-sharded and mesh Explainer, the mesh "
                "CaptionService, exported serving over two slots, process groups", "scale_out"),
+              ("phase 15: the JAX package's call forms through the package exports, full "
+               "width: alpha2beta1 on K3, word-batched bf16 on K4, VGG19", "api"),
               ("phase 5: card tests", "card_tests")]
     summary = built = handoff = None
     launches = {}   # path -> {kernel: launches in its counted pass}
@@ -5145,6 +5276,11 @@ def main(argv=None) -> int:
                 for path, by_kernel in mesh_summaries.items():
                     for name, s_ in by_kernel.items():
                         summary.setdefault(name, {})[path] = s_
+            elif key == "api":
+                gc.collect()
+                torch.cuda.empty_cache()
+                api_launches, report["api"] = phase_api(dev, failures)
+                explainer_launches.update(api_launches)
             elif key == "card_tests":
                 built = None
                 report["card_tests"] = phase_card_tests(failures)
@@ -5157,7 +5293,8 @@ def main(argv=None) -> int:
         except Exception:  # noqa: BLE001 — a phase that raises is recorded as failed
             traceback.print_exc()
             failures.append(f"{title} raised")
-        log(f"  ({time.perf_counter() - t0:.1f} s; {host_gib()})")
+        report.setdefault("phase_seconds", {})[key] = time.perf_counter() - t0
+        log(f"  ({report['phase_seconds'][key]:.1f} s; {host_gib()})")
     report["seconds"] = time.perf_counter() - t_start
     shutil.rmtree(os.path.join(HERE, "build", "phase12"), ignore_errors=True)   # 12d's artifact
 

@@ -126,7 +126,7 @@ def _add_common(p):
 def _load_params(captioner, args):
     """--weights, else the captioner's random init from seed 0."""
     if not args.weights:
-        return captioner.init_params(0, args.device)
+        return captioner.init_params(0, device=args.device)
     from .train.trainer import load_weights_file
 
     return load_weights_file(args.weights, captioner, args.device)[0]

@@ -11,8 +11,8 @@ Every reference registry name is covered:
 * utility: ``input``, ``random`` (misc.py:33-64);
 * gradient family: ``gradient``, ``gradient.baseline`` (the same map here:
   autograd is the built-in gradient), ``input_t_gradient``, ``deconvnet``,
-  ``guided_backprop``, ``integrated_gradients``, ``smoothgrad``, each a thin
-  adapter over ``cnn_gradient.gradient_maps`` (one image per seed);
+  ``guided_backprop``, ``integrated_gradients``, ``smoothgrad``: the
+  ``cnn_gradient.vgg_*`` adapters over ``gradient_maps`` (one image per seed);
 * relevance family: ``lrp.z``, ``lrp.z_IB``, ``lrp.epsilon``,
   ``lrp.epsilon_IB``, ``lrp.w_square``, ``lrp.flat``, ``lrp.alpha_beta``,
   ``lrp.alpha_2_beta_1(_IB)``, ``lrp.alpha_1_beta_0(_IB)``, ``lrp.z_plus``,
@@ -41,10 +41,10 @@ import functools
 
 import torch
 
-from ..models.vgg import vgg_apply
-from ..ops.lrp_conv import lrp_conv_flat, lrp_conv_wsquare
+from ..ops.lrp_conv import check_alpha_beta, lrp_conv_flat, lrp_conv_wsquare
 from .cnn_deeplift import vgg_deeplift
-from .cnn_gradient import gradient_maps
+from .cnn_gradient import (normal_like, vgg_deconvnet, vgg_gradient, vgg_guided_backprop,
+                           vgg_input_times_gradient, vgg_integrated_gradients, vgg_smoothgrad)
 from .cnn_lrp import (alpha_beta_rules, vgg_deep_taylor, vgg_deep_taylor_bounded,
                       vgg_lrp_epsilon, vgg_lrp_preset_a, vgg_lrp_preset_a_flat,
                       vgg_lrp_preset_b, vgg_lrp_preset_b_flat, vgg_lrp_walk)
@@ -56,12 +56,13 @@ _K_EPSILON = 1e-7
 
 
 def vgg_lrp_alpha_beta(params, image: torch.Tensor, relevance_seed: torch.Tensor, alpha: float,
-                       beta: float, bias: bool = True, until: str = "block5_conv3",
-                       arch: str = "vgg16") -> torch.Tensor:
+                       beta: float, bias: bool = True, arch: str = "vgg16",
+                       until: str = "block5_conv3") -> torch.Tensor:
     """LRPAlphaBeta at any (alpha, beta), alpha - beta = 1, on every conv
     (relevance_analyzer.py:528-560); the ``*_IB`` names pass bias=False."""
+    check_alpha_beta(alpha, beta)
     rule, input_rule = alpha_beta_rules(alpha, beta, bias)
-    return vgg_lrp_walk(params, image, relevance_seed, rule, until, arch, input_rule)
+    return vgg_lrp_walk(params, image, relevance_seed, rule, arch, until, input_rule)
 
 
 def _analyzer_input(params, image, relevance_seed, **kw):
@@ -69,53 +70,11 @@ def _analyzer_input(params, image, relevance_seed, **kw):
     return image
 
 
-def _draw(shape, like: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
-
-
 def _analyzer_random(params, image, relevance_seed, generator=None, stddev: float = 1.0,
                      noise=None, **kw):
     """Input-shaped Gaussian noise (misc.py:41-52); ``noise`` a standard
     normal draw of the image's shape."""
-    return stddev * (_draw(image.shape, image, generator) if noise is None else noise)
-
-
-def _vgg_encode(params, until: str, arch: str):
-    def encode(x, relu_fn):
-        return vgg_apply(params, x, until, relu_fn=relu_fn, arch=arch)
-
-    return encode
-
-
-def _gradient(method: str):
-    """A gradient method of ``gradient_maps``, each image with its own seed."""
-    def analyze(params, image, relevance_seed, until="block5_conv3", arch="vgg16"):
-        return gradient_maps(method, _vgg_encode(params, until, arch), image, relevance_seed)
-
-    return analyze
-
-
-def _integrated_gradients(params, image, relevance_seed, until="block5_conv3", arch="vgg16",
-                          steps: int = 16, baseline=None):
-    """The mean gradient at the midpoints of ``steps`` segments of the
-    straight path from ``baseline`` (0 by default) to the image, times
-    (image - baseline); a baseline shifts the encoder's input."""
-    encode = _vgg_encode(params, until, arch)
-    if baseline is None:
-        return gradient_maps("integrated_gradients", encode, image, relevance_seed, steps=steps)
-    base = torch.as_tensor(baseline, dtype=image.dtype, device=image.device).expand(image.shape)
-    return gradient_maps("integrated_gradients", lambda x, relu_fn: encode(x + base, relu_fn),
-                         image - base, relevance_seed, steps=steps)
-
-
-def _smoothgrad(params, image, relevance_seed, generator=None, until="block5_conv3",
-                arch="vgg16", n: int = 16, noise_scale: float = 16.0, noise=None):
-    """The gradient averaged over ``n`` noisy copies of each image;
-    ``noise`` (B, n, H, W, 3) standard normal draws, else drawn."""
-    if noise is None:
-        noise = _draw((image.shape[0], n, *image.shape[1:]), image, generator)
-    return gradient_maps("smoothgrad", _vgg_encode(params, until, arch), image, relevance_seed,
-                         noise=noise, noise_scale=noise_scale)
+    return stddev * (normal_like(image.shape, image, generator) if noise is None else noise)
 
 
 def _eps_rule(bias: bool):
@@ -130,8 +89,8 @@ def _one_rule(conv_rule):
     def rule(r, x, kernel, bias):
         return conv_rule(r, x, kernel)
 
-    def analyze(params, image, relevance_seed, until="block5_conv3", arch="vgg16"):
-        return vgg_lrp_walk(params, image, relevance_seed, rule, until, arch, input_rule=rule)
+    def analyze(params, image, relevance_seed, arch="vgg16", until="block5_conv3"):
+        return vgg_lrp_walk(params, image, relevance_seed, rule, arch, until, input_rule=rule)
 
     return analyze
 
@@ -148,13 +107,13 @@ _REGISTRY = {
     "input": _analyzer_input,
     "random": _analyzer_random,
     # gradient based
-    "gradient": _gradient("gradient"),
-    "gradient.baseline": _gradient("gradient"),
-    "input_t_gradient": _gradient("input_times_gradient"),
-    "deconvnet": _gradient("deconvnet"),
-    "guided_backprop": _gradient("guided_backprop"),
-    "integrated_gradients": _integrated_gradients,
-    "smoothgrad": _smoothgrad,
+    "gradient": vgg_gradient,
+    "gradient.baseline": vgg_gradient,
+    "input_t_gradient": vgg_input_times_gradient,
+    "deconvnet": vgg_deconvnet,
+    "guided_backprop": vgg_guided_backprop,
+    "integrated_gradients": vgg_integrated_gradients,
+    "smoothgrad": vgg_smoothgrad,
     # relevance based: lrp.z is LRPEpsilon at K.epsilon() (relevance_analyzer.py:438-450)
     "lrp.z": _eps_rule(bias=True),
     "lrp.z_IB": _eps_rule(bias=False),
@@ -229,12 +188,12 @@ def augment_reduce(analyze_fn, image, relevance_seed, augment_fn, n: int, reduce
 
 
 def gaussian_smoother(analyze_fn, image, relevance_seed, generator=None,
-                      noise_scale: float = 1.0, n: int = 16, noise=None):
+                      noise_scale: float = 1.0, n: int = 16, *, noise=None):
     """GaussianSmoother (SmoothGrad over any analyzer): the mean of the
     analyses of ``image + noise_scale * N(0, 1)`` over ``n`` draws, drawn
     from ``generator`` or given as ``noise`` (n, *image.shape)."""
     if noise is None:
-        noise = _draw((n, *image.shape), image, generator)
+        noise = normal_like((n, *image.shape), image, generator)
 
     def aug(img, i):
         return img + noise_scale * noise[i]

@@ -122,7 +122,7 @@ def grad_word_aoa(params, consts, caches, words_0based: torch.Tensor,
     with torch.enable_grad():
         feat = consts.feat_grid[b_idx].detach().requires_grad_(True)
         c = aoa.prepare_consts(params, feat)
-        state = aoa.init_state(R, H, dev, feat.dtype)
+        state = aoa.init_state(R, H, feat.dtype, device=dev)
         picked = torch.zeros(R, device=dev, dtype=feat.dtype)
         for i in range(T):
             state, cache = aoa.step(params, c, state, inputs[i])

@@ -61,7 +61,7 @@ def _deeplift_backward(params, relevance_seed, ops, inputs, inputs_ref, out, out
         active = (y > 0).to(r.dtype)      # relu'(conv(x) + b) at the actual input
 
         def vjp(cot):
-            return conv2d_input_vjp(kernel, cot * active)
+            return conv2d_input_vjp(None, kernel, cot * active)
 
         dx = x - x_ref
         # LinearRule: R / Δy -> the unit's VJP -> x Δx (deeplift.py:98-109)
@@ -79,32 +79,32 @@ def reference_image(image: torch.Tensor, reference_inputs) -> torch.Tensor:
                            device=image.device).expand(image.shape).contiguous()
 
 
-def _forwards(params, image, until, reference_inputs, arch="vgg16"):
-    out, inputs = vgg_apply_with_acts(params, image, until, arch)
+def _forwards(params, image, arch, until, reference_inputs):
+    out, inputs = vgg_apply_with_acts(params, image, arch, until)
     out_ref, inputs_ref = vgg_apply_with_acts(params, reference_image(image, reference_inputs),
-                                              until, arch)
+                                              arch, until)
     return out, inputs, out_ref, inputs_ref
 
 
-def vgg_deeplift(params, image: torch.Tensor, relevance_seed: torch.Tensor,
+def vgg_deeplift(params, image: torch.Tensor, relevance_seed: torch.Tensor, arch: str = "vgg16",
                  until: str = "block5_conv3", reference_inputs=0.0,
-                 approximate_gradient: bool = True, arch: str = "vgg16") -> torch.Tensor:
+                 approximate_gradient: bool = True) -> torch.Tensor:
     """DeepLIFT-rescale attribution, seeded at the tapped feature grid.
 
     image: (1 or B, H, W, 3) preprocessed; relevance_seed: (B, h, w, C) at
     ``until``; reference_inputs: a scalar or an image of ``image``'s shape.
     Returns the input-space attribution (B, H, W, 3)."""
-    out, inputs, out_ref, inputs_ref = _forwards(params, image, until, reference_inputs, arch)
-    return _deeplift_backward(params, relevance_seed, vgg_layers(until, arch), inputs,
+    out, inputs, out_ref, inputs_ref = _forwards(params, image, arch, until, reference_inputs)
+    return _deeplift_backward(params, relevance_seed, vgg_layers(arch, until), inputs,
                               inputs_ref, out, out_ref, approximate_gradient)
 
 
-def vgg_deeplift_standalone(params, image: torch.Tensor, until: str = "block5_conv3",
-                            reference_inputs=0.0, approximate_gradient: bool = True,
-                            arch: str = "vgg16"):
+def vgg_deeplift_standalone(params, image: torch.Tensor, arch: str = "vgg16",
+                            until: str = "block5_conv3", reference_inputs=0.0,
+                            approximate_gradient: bool = True):
     """The reference's standalone head: seed = features - reference features
     (``_head_mapping``, deeplift.py:217-218), one pair of forwards shared by
     the seed and the backward walk."""
-    out, inputs, out_ref, inputs_ref = _forwards(params, image, until, reference_inputs, arch)
-    return _deeplift_backward(params, out - out_ref, vgg_layers(until, arch), inputs, inputs_ref,
+    out, inputs, out_ref, inputs_ref = _forwards(params, image, arch, until, reference_inputs)
+    return _deeplift_backward(params, out - out_ref, vgg_layers(arch, until), inputs, inputs_ref,
                               out, out_ref, approximate_gradient)

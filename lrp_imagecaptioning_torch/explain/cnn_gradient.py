@@ -18,6 +18,11 @@ returns (W, H, W, 3).
   the CAM, the ReLU of the gradient-mean-weighted feature map,
   ``pyramid_expand``-ed and normalised (``grad_cam``).
 
+The JAX package's ``vgg_*`` functions (one seed per image, the VGG
+encoders) are thin adapters over ``gradient_maps`` with its signatures;
+``vgg_smoothgrad`` takes a ``torch.Generator`` (or ready ``noise``) where
+the JAX package takes a PRNG key.
+
 Each pass (the image, an IG step, a SmoothGrad sample) is one forward and
 the W words' VJPs in one batched backward (``input_gradients``), under
 autograd on cuDNN's convs: the LRP kernels (K3, K4) have no gradient and
@@ -31,6 +36,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..models.vgg import vgg_apply
 
 
 class GuidedReLU(torch.autograd.Function):
@@ -200,7 +206,10 @@ def grad_cam(feat_grid_hw: torch.Tensor, grads_hw: torch.Tensor, upscale: int = 
     are the gradient's means, the weighted feature sum is pyramid-expanded,
     ReLU'd and normalised by its max |.|.
 
-    feat_grid_hw (h, w, D); grads_hw (W, h, w, D) -> (W, h * upscale, w * upscale)."""
+    feat_grid_hw (h, w, D); grads_hw (W, h, w, D) -> (W, h * upscale, w * upscale),
+    or one seed's grads_hw (h, w, D) -> (h * upscale, w * upscale)."""
+    if grads_hw.dim() == 3:
+        return grad_cam(feat_grid_hw, grads_hw[None], upscale)[0]
     weights = grads_hw.mean(dim=(1, 2))                                    # (W, D)
     cam = torch.einsum("hwd,nd->nhw", feat_grid_hw, weights)
     cam = torch.relu(pyramid_expand(cam, upscale=upscale, sigma=20.0))
@@ -223,3 +232,71 @@ def gradcam_weight(image, seeds, feat_grid_hw):
     g = seeds.shape[1]
     cam = grad_cam(feat_grid_hw, seeds, upscale=max(H // g, 1))
     return resize_bilinear(cam, (H, Wd))[:, :, :, None]
+
+
+def normal_like(shape, like: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """Standard normal draws of ``shape`` in ``like``'s dtype and device."""
+    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def vgg_encoder(params, arch: str = "vgg16", until: str = "block5_conv3"):
+    """``encode(x, relu_fn)`` of ``gradient_maps`` over a VGG encoder."""
+    def encode(x, relu_fn):
+        return vgg_apply(params, x, arch, until, relu_fn=relu_fn)
+
+    return encode
+
+
+def vgg_gradient(params, image, relevance_seed, arch="vgg16", until="block5_conv3"):
+    """d(sum(features * seed))/d(image), the 'replace'-mode Gradient analyzer:
+    image (B, H, W, 3), relevance_seed (B, h, w, C) -> (B, H, W, 3)."""
+    return gradient_maps("gradient", vgg_encoder(params, arch, until), image, relevance_seed)
+
+
+def vgg_input_times_gradient(params, image, relevance_seed, arch="vgg16", until="block5_conv3"):
+    return gradient_maps("input_times_gradient", vgg_encoder(params, arch, until), image,
+                         relevance_seed)
+
+
+def vgg_guided_backprop(params, image, relevance_seed, arch="vgg16", until="block5_conv3"):
+    return gradient_maps("guided_backprop", vgg_encoder(params, arch, until), image,
+                         relevance_seed)
+
+
+def vgg_deconvnet(params, image, relevance_seed, arch="vgg16", until="block5_conv3"):
+    """Deconvnet: ReLU on the backward signal (gradient_based.py:171-216)."""
+    return gradient_maps("deconvnet", vgg_encoder(params, arch, until), image, relevance_seed)
+
+
+def vgg_integrated_gradients(params, image, relevance_seed, arch="vgg16", until="block5_conv3",
+                             steps: int = 16, baseline=None):
+    """The mean gradient at the midpoints of ``steps`` segments of the
+    straight path from ``baseline`` (0 by default) to the image, times
+    (image - baseline); a baseline shifts the encoder's input."""
+    encode = vgg_encoder(params, arch, until)
+    if baseline is None:
+        return gradient_maps("integrated_gradients", encode, image, relevance_seed, steps=steps)
+    base = torch.as_tensor(baseline, dtype=image.dtype, device=image.device).expand(image.shape)
+    return gradient_maps("integrated_gradients", lambda x, relu_fn: encode(x + base, relu_fn),
+                         image - base, relevance_seed, steps=steps)
+
+
+def vgg_smoothgrad(params, image, relevance_seed, generator=None, arch="vgg16",
+                   until="block5_conv3", n: int = 16, noise_scale: float = 16.0, *, noise=None):
+    """The gradient averaged over ``n`` noisy copies of each image;
+    ``noise`` (B, n, H, W, 3) standard normal draws, else drawn from
+    ``generator``."""
+    if noise is None:
+        noise = normal_like((image.shape[0], n, *image.shape[1:]), image, generator)
+    return gradient_maps("smoothgrad", vgg_encoder(params, arch, until), image, relevance_seed,
+                         noise=noise, noise_scale=noise_scale)
+
+
+def vgg_guided_gradcam(params, image, relevance_seed, feat_grid_hw, arch="vgg16",
+                       until="block5_conv3"):
+    """Guided-GradCAM (explainers.py:925-935): the guided-backprop map times
+    the CAM of the first seed, ``grad_cam``'s (h * 16, w * 16) map (the
+    image's size at the reference's 14x14 grid of 224x224 images)."""
+    guided = vgg_guided_backprop(params, image, relevance_seed, arch, until)
+    cam = grad_cam(feat_grid_hw, relevance_seed[0])
+    return guided * cam[None, :, :, None]

@@ -50,8 +50,8 @@ def conv_rule(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, bias, stri
         kp = (kernel * (kernel >= 0)).contiguous()
         kn = (kernel * (kernel < 0)).contiguous() if beta else None
         return lrp_conv_alpha_beta_split(r.contiguous(), x, kp, kn, bias, alpha, beta)
-    return lrp_conv_alpha_beta(r, x, kernel, bias, input_nonneg, stride, padding, alpha=alpha,
-                               beta=beta, factor=factor, compute_dtype=compute_dtype)
+    return lrp_conv_alpha_beta(r, x, kernel, bias, alpha, beta, stride, padding, factor,
+                               compute_dtype, input_nonneg=input_nonneg)
 
 
 def _a1b0_image(r, x, kernel, bias):
@@ -72,14 +72,14 @@ def alpha_beta_rules(alpha: float, beta: float, bias: bool = True, compute_dtype
     return rule, input_rule
 
 
-def _backward(params, inputs, r: torch.Tensor, until: str, rule, arch: str = "vgg16",
-              input_rule=None, stats: dict | None = None):
-    """Walk vgg_layers(until, arch) in reverse: ``rule(r, x, kernel, bias)`` on
+def _backward(params, inputs, r: torch.Tensor, arch: str, until: str, rule, input_rule=None,
+              stats: dict | None = None):
+    """Walk vgg_layers(arch, until) in reverse: ``rule(r, x, kernel, bias)`` on
     the post-ReLU convs (``conv_rule`` in f32), ``input_rule`` on the image
     layer (default the alpha1beta0 split rule: x is signed), WTA on the
     pools. ``stats``, a dict, gets each op's relevance after it, in backward
     order: sum, min, max and the count of non-finite values."""
-    ops = vgg_layers(until, arch)
+    ops = vgg_layers(arch, until)
     for idx, (op, x) in enumerate(zip(reversed(ops), reversed(inputs))):
         if op[0] == "pool":
             r = lrp_maxpool_wta(r, x)
@@ -94,12 +94,12 @@ def _backward(params, inputs, r: torch.Tensor, until: str, rule, arch: str = "vg
 
 
 def vgg_lrp_walk(params, image: torch.Tensor, relevance_seed: torch.Tensor, rule,
-                 until: str = "block5_conv3", arch: str = "vgg16", input_rule=None):
+                 arch: str = "vgg16", until: str = "block5_conv3", input_rule=None):
     """One forward, then ``rule`` (and ``input_rule``) walked back from the
     seed: the single-rule analyzers (LRPZ, LRPWSquare, LRPFlat, LRPAlphaBeta,
     ...: each sets one rule for the whole model, relevance_analyzer.py:428-692)."""
-    _, inputs = vgg_apply_with_acts(params, image, until, arch)
-    return _backward(params, inputs, relevance_seed, until, rule, arch, input_rule)
+    _, inputs = vgg_apply_with_acts(params, image, arch, until)
+    return _backward(params, inputs, relevance_seed, arch, until, rule, input_rule)
 
 
 def _flat_image(r, x, kernel, bias):
@@ -107,64 +107,64 @@ def _flat_image(r, x, kernel, bias):
 
 
 def vgg_lrp_preset_a(params, image: torch.Tensor, relevance_seed: torch.Tensor,
-                     until: str = "block5_conv3", arch: str = "vgg16") -> torch.Tensor:
+                     arch: str = "vgg16", until: str = "block5_conv3") -> torch.Tensor:
     """LRPSequentialPresetA, one seed per image, f32.
 
     image: (B, H, W, 3) preprocessed; relevance_seed: (B, h, w, C) at
     ``until``. Returns the input-space relevance (B, H, W, 3)."""
-    return vgg_lrp_walk(params, image, relevance_seed, conv_rule, until, arch)
+    return vgg_lrp_walk(params, image, relevance_seed, conv_rule, arch, until)
 
 
 def vgg_lrp_preset_b(params, image: torch.Tensor, relevance_seed: torch.Tensor,
-                     until: str = "block5_conv3", arch: str = "vgg16") -> torch.Tensor:
+                     arch: str = "vgg16", until: str = "block5_conv3") -> torch.Tensor:
     """LRPSequentialPresetB: alpha2beta1 on every conv (relevance_analyzer.py:724-748);
     the post-ReLU convs take K3 twice over (W+ and W-) in f32."""
     rule, input_rule = alpha_beta_rules(2.0, 1.0)
-    return vgg_lrp_walk(params, image, relevance_seed, rule, until, arch, input_rule)
+    return vgg_lrp_walk(params, image, relevance_seed, rule, arch, until, input_rule)
 
 
 def vgg_lrp_epsilon(params, image: torch.Tensor, relevance_seed: torch.Tensor,
-                    until: str = "block5_conv3", arch: str = "vgg16", eps: float = 0.01,
+                    arch: str = "vgg16", until: str = "block5_conv3", eps: float = 0.01,
                     bias: bool = True) -> torch.Tensor:
     """The EpsilonRule on every conv (LRPEpsilon), the image layer included."""
     def rule(r, x, kernel, b):
         return lrp_conv_epsilon(r, x, kernel, b if bias else None, eps=eps)
 
-    return vgg_lrp_walk(params, image, relevance_seed, rule, until, arch, input_rule=rule)
+    return vgg_lrp_walk(params, image, relevance_seed, rule, arch, until, input_rule=rule)
 
 
 def vgg_lrp_preset_a_debug(params, image: torch.Tensor, relevance_seed: torch.Tensor,
-                           until: str = "block5_conv3", arch: str = "vgg16"):
+                           arch: str = "vgg16", until: str = "block5_conv3"):
     """PresetA with per-op relevance diagnostics, iNNvestigate's
     reverse_check_finite / reverse_check_min_max_values (base.py:753-802):
     returns (relevance, stats), stats[op_name] = {sum, min, max,
     nonfinite_count} (0-d tensors) of the relevance after reversing that op,
     in backward order. The relevance is ``vgg_lrp_preset_a``'s."""
-    _, inputs = vgg_apply_with_acts(params, image, until, arch)
+    _, inputs = vgg_apply_with_acts(params, image, arch, until)
     stats = {}
-    r = _backward(params, inputs, relevance_seed, until, conv_rule, arch, stats=stats)
+    r = _backward(params, inputs, relevance_seed, arch, until, conv_rule, stats=stats)
     return r, stats
 
 
 def vgg_lrp_preset_a_flat(params, image: torch.Tensor, relevance_seed: torch.Tensor,
-                          until: str = "block5_conv3", arch: str = "vgg16") -> torch.Tensor:
+                          arch: str = "vgg16", until: str = "block5_conv3") -> torch.Tensor:
     """LRPSequentialPresetAFlat: PresetA with the FlatRule on the image layer
     (relevance_analyzer.py:755-762)."""
-    return vgg_lrp_walk(params, image, relevance_seed, conv_rule, until, arch,
+    return vgg_lrp_walk(params, image, relevance_seed, conv_rule, arch, until,
                         input_rule=_flat_image)
 
 
 def vgg_lrp_preset_b_flat(params, image: torch.Tensor, relevance_seed: torch.Tensor,
-                          until: str = "block5_conv3", arch: str = "vgg16") -> torch.Tensor:
+                          arch: str = "vgg16", until: str = "block5_conv3") -> torch.Tensor:
     """LRPSequentialPresetBFlat (relevance_analyzer.py:765-770)."""
     rule, _ = alpha_beta_rules(2.0, 1.0)
-    return vgg_lrp_walk(params, image, relevance_seed, rule, until, arch, input_rule=_flat_image)
+    return vgg_lrp_walk(params, image, relevance_seed, rule, arch, until, input_rule=_flat_image)
 
 
 def vgg_lrp_preset_a_wordbatched(params, image: torch.Tensor, relevance_seeds: torch.Tensor,
-                                 until: str = "block5_conv3",
-                                 storage_dtype: torch.dtype | None = None,
-                                 arch: str = "vgg16", compute_dtype=None) -> torch.Tensor:
+                                 arch: str = "vgg16", until: str = "block5_conv3",
+                                 compute_dtype=None, storage_dtype: torch.dtype | None = None,
+                                 lane_pack: bool = True) -> torch.Tensor:
     """Per-word LRP with the forward pass shared across words.
 
     image: (1, H, W, 3); relevance_seeds: (W, h, w, C) — one seed per caption
@@ -176,21 +176,24 @@ def vgg_lrp_preset_a_wordbatched(params, image: torch.Tensor, relevance_seeds: t
     ``storage_dtype=torch.bfloat16`` holds params, activations and
     relevances in bf16: the forward runs once in bf16, the post-ReLU convs
     take ``lrp_a1b0_fused`` and the result comes back in f32
-    (``compute_dtype`` is then not read, as in the JAX package)."""
+    (``compute_dtype`` is then not read, as in the JAX package).
+
+    ``lane_pack`` is accepted and read by nothing: the JAX package's TPU
+    channel packing gives the same result either way."""
     if storage_dtype is None:
-        _, inputs = vgg_apply_with_acts(params, image, until, arch)
+        _, inputs = vgg_apply_with_acts(params, image, arch, until)
         if compute_dtype is None:
-            return _backward(params, inputs, relevance_seeds, until, conv_rule, arch)
+            return _backward(params, inputs, relevance_seeds, arch, until, conv_rule)
         rule, input_rule = alpha_beta_rules(1.0, 0.0, compute_dtype=compute_dtype)
-        return _backward(params, inputs, relevance_seeds, until, rule, arch, input_rule)
+        return _backward(params, inputs, relevance_seeds, arch, until, rule, input_rule)
     params = tree_to(params, dtype=storage_dtype)
-    _, inputs = vgg_apply_with_acts(params, image.to(storage_dtype), until, arch)
-    r = _backward(params, inputs, relevance_seeds.to(storage_dtype), until, lrp_a1b0_fused, arch)
+    _, inputs = vgg_apply_with_acts(params, image.to(storage_dtype), arch, until)
+    r = _backward(params, inputs, relevance_seeds.to(storage_dtype), arch, until, lrp_a1b0_fused)
     return r.float()
 
 
 def vgg_lrp_preset_a_imgword_batched(params, images: torch.Tensor, relevance_seeds: torch.Tensor,
-                                     until: str = "block5_conv3", arch: str = "vgg16",
+                                     arch: str = "vgg16", until: str = "block5_conv3",
                                      compute_dtype=None,
                                      storage_dtype: torch.dtype | None = None) -> torch.Tensor:
     """PresetA over B images and their words: images (B, H, W, 3),
@@ -203,21 +206,20 @@ def vgg_lrp_preset_a_imgword_batched(params, images: torch.Tensor, relevance_see
     if storage_dtype is not None:
         params = tree_to(params, dtype=storage_dtype)
     return torch.stack([vgg_lrp_preset_a_wordbatched(params, images[b:b + 1], relevance_seeds[b],
-                                                     until, storage_dtype, arch, compute_dtype)
+                                                     arch, until, compute_dtype, storage_dtype)
                         for b in range(images.shape[0])])
 
 
-def vgg_lrp_per_image(params, images: torch.Tensor, r_feat: torch.Tensor,
+def vgg_lrp_per_image(params, images: torch.Tensor, r_feat: torch.Tensor, arch: str = "vgg16",
                       until: str = "block5_conv3",
-                      storage_dtype: torch.dtype | None = None,
-                      arch: str = "vgg16") -> torch.Tensor:
+                      storage_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``vgg_lrp_preset_a_imgword_batched`` from the decoder's relevance:
     images (B, H, W, 3), r_feat (B, Tw, L, D) the feature-grid relevance of
     Tw words an image (L = h * w, a square grid) -> heatmaps (B, Tw, H, W, 3)."""
     B, Tw, L, D = r_feat.shape
     g = math.isqrt(L)
-    return vgg_lrp_preset_a_imgword_batched(params, images, r_feat.reshape(B, Tw, g, g, D), until,
-                                            arch, storage_dtype=storage_dtype)
+    return vgg_lrp_preset_a_imgword_batched(params, images, r_feat.reshape(B, Tw, g, g, D), arch,
+                                            until, storage_dtype=storage_dtype)
 
 
 def _upsample_window(w: torch.Tensor, window: int = 2) -> torch.Tensor:
@@ -228,7 +230,7 @@ def _upsample_window(w: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 
 def vgg_lrp_preset_a_wordbatched_fused(params, image: torch.Tensor, relevance_seeds: torch.Tensor,
-                                       until: str = "block5_conv3", arch: str = "vgg16",
+                                       arch: str = "vgg16", until: str = "block5_conv3",
                                        storage_dtype: torch.dtype | None = None) -> torch.Tensor:
     """PresetA word-batched with the per-word elementwise chain folded into
     word-independent factors (the JAX package's second implementation of the
@@ -250,8 +252,8 @@ def vgg_lrp_preset_a_wordbatched_fused(params, image: torch.Tensor, relevance_se
         params = tree_to(params, dtype=storage_dtype)
         image = image.to(storage_dtype)
         relevance_seeds = relevance_seeds.to(storage_dtype)
-    ops = vgg_layers(until, arch)
-    _, inputs = vgg_apply_with_acts(params, image, until, arch)
+    ops = vgg_layers(arch, until)
+    _, inputs = vgg_apply_with_acts(params, image, arch, until)
     w = relevance_seeds
     m = torch.ones((1, *relevance_seeds.shape[1:]), dtype=w.dtype, device=w.device)
     for idx, (op, x) in enumerate(zip(reversed(ops), reversed(inputs))):
@@ -264,7 +266,7 @@ def vgg_lrp_preset_a_wordbatched_fused(params, image: torch.Tensor, relevance_se
         if idx != len(ops) - 1:
             # z = conv(x, W+) + the full bias, the activator's with x >= 0
             a = safe_divide(m, conv2d(x, kp) + p["bias"])
-            w = conv2d_input_vjp(kp, w * a, x.shape)
+            w = conv2d_input_vjp(x.shape, kp, w * a)
             m = x
         else:
             kn = p["kernel"] * (p["kernel"] < 0)
@@ -273,12 +275,12 @@ def vgg_lrp_preset_a_wordbatched_fused(params, image: torch.Tensor, relevance_se
             xp, xn = torch.clamp(x, min=0), torch.clamp(x, max=0)
             z = conv2d(xp, kp) + bp + conv2d(xn, kn) + bn
             s = safe_divide(m * w, z)
-            w = xp * conv2d_input_vjp(kp, s, x.shape) + xn * conv2d_input_vjp(kn, s, x.shape)
+            w = xp * conv2d_input_vjp(x.shape, kp, s) + xn * conv2d_input_vjp(x.shape, kn, s)
     return w.float()
 
 
-def vgg_deep_taylor(params, image: torch.Tensor, relevance_seeds: torch.Tensor,
-                    until: str = "block5_conv3", arch: str = "vgg16") -> torch.Tensor:
+def vgg_deep_taylor(params, image: torch.Tensor, relevance_seed: torch.Tensor,
+                    arch: str = "vgg16", until: str = "block5_conv3") -> torch.Tensor:
     """DeepTaylor decomposition (reference: innvestigate/analyzer/deeptaylor.py:38-153).
 
     Rule wiring per the reference's conditional mappings: kernel layers with
@@ -290,20 +292,20 @@ def vgg_deep_taylor(params, image: torch.Tensor, relevance_seeds: torch.Tensor,
     so only positive relevance enters (deeptaylor.py:144-153); with a seeded
     walk that is a ReLU on the seed.
 
-    image: (1 or B, H, W, 3); relevance_seeds: (B, h, w, C), one seed per
+    image: (1 or B, H, W, 3); relevance_seed: (B, h, w, C), one seed per
     image or, against a single image, one per word (the words as the batch,
     the forward run once). Returns (B, H, W, 3)."""
-    return vgg_lrp_walk(params, image, torch.relu(relevance_seeds), conv_rule, until, arch)
+    return vgg_lrp_walk(params, image, torch.relu(relevance_seed), conv_rule, arch, until)
 
 
 def vgg_deep_taylor_bounded(params, image: torch.Tensor, relevance_seed: torch.Tensor,
-                            low: float, high: float, until: str = "block5_conv3",
-                            arch: str = "vgg16") -> torch.Tensor:
+                            low: float, high: float, arch: str = "vgg16",
+                            until: str = "block5_conv3") -> torch.Tensor:
     """BoundedDeepTaylor: DeepTaylor with the zB (bounded) rule on the image
     layer (deeptaylor.py:157-200); ``low`` / ``high`` are the input's value
     range and are required (deeptaylor.py:170-173)."""
     def bounded(r, x, kernel, bias):
         return lrp_conv_bounded(r, x, kernel, low=low, high=high)
 
-    return vgg_lrp_walk(params, image, torch.relu(relevance_seed), conv_rule, until, arch,
+    return vgg_lrp_walk(params, image, torch.relu(relevance_seed), conv_rule, arch, until,
                         input_rule=bounded)

@@ -99,7 +99,7 @@ def render_explanation(explanation, raw_rgb_224: np.ndarray, save_folder: str,
 
 
 def explain_image_file(captioner, params, caption_pp, img_path: str, out_dir: str,
-                       method: str = "lrp", beam_size: int = 3, device="cuda"):
+                       method: str = "lrp", beam_size: int = 3, *, device="cuda"):
     """Explain one image file end to end and render its grids
     (explain_image.py:152-200, analyze_img)."""
     pp = ImagePreprocessor(encoder=captioner.cfg.img_encoder,
@@ -119,7 +119,7 @@ def explain_image_file(captioner, params, caption_pp, img_path: str, out_dir: st
 
 
 def process_beam_search(captioner, params, provider, out_dir: str, method: str = "lrp",
-                        beam_size: int = 3, num_images: int = 1, device="cuda"):
+                        beam_size: int = 3, num_images: int = 1, *, device="cuda"):
     """Reference process_beam_search: explain the first test images and write
     their figure grids (explainers.py:191-256)."""
     gen = provider.test_set(include_datum=True)
@@ -146,7 +146,7 @@ def process_beam_search(captioner, params, provider, out_dir: str, method: str =
 
 def explain_flickr30k_model(config, dataset, weights_path: str, model_type: str,
                             method: str = "lrp", out_dir: str | None = None, num_images: int = 1,
-                            device="cuda"):
+                            *, device="cuda"):
     """explain_flickr30Kmodel equivalent (explain_image.py:321-345)."""
     return _explain_dataset_model(config, dataset, weights_path, model_type, method, out_dir,
                                   num_images, device)
@@ -154,7 +154,7 @@ def explain_flickr30k_model(config, dataset, weights_path: str, model_type: str,
 
 def explain_coco_model(config, dataset, weights_path: str, model_type: str,
                        method: str = "lrp", out_dir: str | None = None, num_images: int = 1,
-                       device="cuda"):
+                       *, device="cuda"):
     """explain_COCOmodel equivalent (explain_image.py:348-371)."""
     return _explain_dataset_model(config, dataset, weights_path, model_type, method, out_dir,
                                   num_images, device)

@@ -143,7 +143,7 @@ class Explainer:
 
     def __init__(self, captioner, params, caption_pp, method: str = "lrp", beam_size: int = 3,
                  max_len: int | None = None, storage_dtype=None, word_buckets=(4, 8, 12, 16),
-                 batch_size: int = 32, mesh=None, shard_words: bool = False, device="cuda"):
+                 mesh=None, shard_words: bool = False, *, batch_size: int = 32, device="cuda"):
         """``storage_dtype=torch.bfloat16`` holds the CNN LRP's params,
         activations and relevances in bf16 (bench's throughput mode; method
         ``lrp`` on VGG only: the other methods' and encoders' CNN side runs
@@ -256,7 +256,7 @@ class Explainer:
         enc, until = cfg.img_encoder, cfg.layer_name
         vgg = (self.params if params is None else params)["vgg"]
         if self.method == "lrp" and enc in ("vgg16", "vgg19"):
-            return vgg_lrp_per_image(vgg, images, r_feat, until, self._storage_dtype, enc)
+            return vgg_lrp_per_image(vgg, images, r_feat, enc, until, self._storage_dtype)
         B, W, L, D = r_feat.shape
         g = math.isqrt(L)
         seeds = r_feat.reshape(B, W, g, g, D)
@@ -267,7 +267,7 @@ class Explainer:
                 maps.append(self._gradient(image, s, feat_grid[b].reshape(g, g, D), params))
             elif enc in ("vgg16", "vgg19"):
                 walk = vgg_deep_taylor if self.method == "deep_taylor" else vgg_deeplift
-                maps.append(walk(vgg, image, s, until, arch=enc))
+                maps.append(walk(vgg, image, s, enc, until))
             elif enc.startswith("resnet"):
                 maps.append(_RESNET_WALKS[self.method](vgg, image, s, depth=enc))
             else:
@@ -283,8 +283,8 @@ class Explainer:
         if cfg.img_encoder in ("vgg16", "vgg19"):
             # f32 whatever cfg.compute_dtype, as the reference's VGG functions
             def encode(x, relu_fn):
-                return vgg_apply(params["vgg"], x, cfg.layer_name, relu_fn=relu_fn,
-                                 arch=cfg.img_encoder)
+                return vgg_apply(params["vgg"], x, cfg.img_encoder, cfg.layer_name,
+                                 relu_fn=relu_fn)
 
             noise = (self._smoothgrad_noise_on(seeds.shape[0], image)
                      if self.method == "smoothgrad" else None)

@@ -110,7 +110,7 @@ def _backward(params, cache, relevance_seed, until="mixed10"):
         x = cache[name]["in"]
         if kind == "max":
             return lrp_maxpool_overlapping_wta(r, x, w, s)
-        return lrp_avgpool(r, x, w, s, p)
+        return lrp_avgpool(r, x, w, s, padding=p)
 
     return _walk_backward(relevance_seed, until, conv_rev, pool_rev)
 

@@ -57,12 +57,12 @@ def _patch_correlate(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
                       for i in range(3) for j in range(3)], dim=0)
 
 
-def init_pattern_stats(params, until: str = "block5_conv3", arch: str = "vgg16"):
+def init_pattern_stats(params, arch: str = "vgg16", until: str = "block5_conv3"):
     """Zeroed running sums, one entry per conv (the ``RunningMeans`` state,
     pattern.py:246-266), in the params' dtype (f32 sums, as in the JAX
     package) on their device."""
     stats = {}
-    for op in vgg_layers(until, arch):
+    for op in vgg_layers(arch, until):
         if op[0] != "conv":
             continue
         _, name, cin, cout = op
@@ -79,7 +79,7 @@ def init_pattern_stats(params, until: str = "block5_conv3", arch: str = "vgg16")
 
 
 def update_pattern_stats(stats, params, images: torch.Tensor, pattern_type: str = "linear",
-                         until: str = "block5_conv3", arch: str = "vgg16"):
+                         arch: str = "vgg16", until: str = "block5_conv3"):
     """One batch of images (B, H, W, 3) added into the running sums
     (``LinearPattern.get_stats_from_batch``, pattern.py:232-275); returns
     the new stats."""
@@ -87,7 +87,7 @@ def update_pattern_stats(stats, params, images: torch.Tensor, pattern_type: str 
         raise ValueError(f"pattern_type must be one of {PATTERN_TYPES}")
     new = dict(stats)
     x = images
-    for op in vgg_layers(until, arch):
+    for op in vgg_layers(arch, until):
         if op[0] != "conv":
             x = maxpool2d(x)
             continue
@@ -119,11 +119,11 @@ def _safe_divide_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a / (b + (b == 0).to(b.dtype))
 
 
-def compute_patterns(stats, params, until: str = "block5_conv3", arch: str = "vgg16"):
+def compute_patterns(stats, params, arch: str = "vgg16", until: str = "block5_conv3"):
     """The sums turned into each conv's pattern A, shaped as its kernel
     (``LinearPattern.compute_pattern``, pattern.py:277-305)."""
     patterns = {}
-    for op in vgg_layers(until, arch):
+    for op in vgg_layers(arch, until):
         if op[0] != "conv":
             continue
         name, kernel = op[1], params[op[1]]["kernel"]
@@ -139,22 +139,22 @@ def compute_patterns(stats, params, until: str = "block5_conv3", arch: str = "vg
 
 
 def compute_vgg_patterns(params, image_batches, pattern_type: str = "linear",
-                         until: str = "block5_conv3", arch: str = "vgg16"):
+                         arch: str = "vgg16", until: str = "block5_conv3"):
     """Stream ``image_batches`` (an iterable of (B, H, W, 3) arrays or
     tensors) -> {layer name: pattern} (``PatternComputer.compute``,
     pattern.py:452-524). Each batch goes to the params' device."""
-    stats = init_pattern_stats(params, until, arch)
+    stats = init_pattern_stats(params, arch, until)
     like = next(iter(stats.values()))["cnt"]
     with torch.no_grad():
         for images in image_batches:
             images = torch.as_tensor(images, dtype=like.dtype, device=like.device)
-            stats = update_pattern_stats(stats, params, images, pattern_type, until, arch)
-        return compute_patterns(stats, params, until, arch)
+            stats = update_pattern_stats(stats, params, images, pattern_type, arch, until)
+        return compute_patterns(stats, params, arch, until)
 
 
-def _pattern_backward(params, patterns, image, relevance_seed, until, arch, attribution: bool):
-    ops = vgg_layers(until, arch)
-    _, inputs = vgg_apply_with_acts(params, image, until, arch)
+def _pattern_backward(params, patterns, image, relevance_seed, arch, until, attribution: bool):
+    ops = vgg_layers(arch, until)
+    _, inputs = vgg_apply_with_acts(params, image, arch, until)
     r = relevance_seed
     for op, x in zip(reversed(ops), reversed(inputs)):
         if op[0] != "conv":
@@ -164,20 +164,20 @@ def _pattern_backward(params, patterns, image, relevance_seed, until, arch, attr
         pre = conv2d(x, p["kernel"]) + p["bias"]
         r = r * (pre > 0).to(r.dtype)         # the ReLU's gradient at the actual input
         back = patterns[op[1]] * p["kernel"] if attribution else patterns[op[1]]
-        r = conv2d_input_vjp(back, r, x.shape)
+        r = conv2d_input_vjp(x.shape, back, r)
     return r
 
 
 def vgg_patternnet(params, patterns, image: torch.Tensor, relevance_seed: torch.Tensor,
-                   until: str = "block5_conv3", arch: str = "vgg16") -> torch.Tensor:
+                   arch: str = "vgg16", until: str = "block5_conv3") -> torch.Tensor:
     """PatternNet: the gradient with each kernel replaced by its pattern
     (pattern_based.py:105-126). image (B, H, W, 3), relevance_seed (B, h, w,
     C) -> (B, H, W, 3)."""
-    return _pattern_backward(params, patterns, image, relevance_seed, until, arch, False)
+    return _pattern_backward(params, patterns, image, relevance_seed, arch, until, False)
 
 
 def vgg_pattern_attribution(params, patterns, image: torch.Tensor, relevance_seed: torch.Tensor,
-                            until: str = "block5_conv3", arch: str = "vgg16") -> torch.Tensor:
+                            arch: str = "vgg16", until: str = "block5_conv3") -> torch.Tensor:
     """PatternAttribution: each kernel replaced by pattern * weight
     (pattern_based.py:274-280)."""
-    return _pattern_backward(params, patterns, image, relevance_seed, until, arch, True)
+    return _pattern_backward(params, patterns, image, relevance_seed, arch, until, True)

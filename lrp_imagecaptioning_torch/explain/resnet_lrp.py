@@ -26,20 +26,20 @@ import torch
 from ..models.resnet import BN_EPS, _stages, bn, conv, stem_pad
 from ..ops.lrp_conv import (deeplift_conv_linear, deeplift_relu_rescale, lrp_conv_wsquare,
                             lrp_maxpool_overlapping_wta, maxpool2d)
-from ..ops.lrp_core import safe_divide, sign_stabilizer
+from ..ops.lrp_core import EPS_KERAS, safe_divide, sign_stabilizer
 from .cnn_deeplift import reference_image
 from .cnn_lrp import conv_rule
 
 
-def lrp_bn(r, x, y, mean, beta):
+def lrp_bn(r, x, y, mean, beta, eps=EPS_KERAS):
     """BatchNormalizationReverseLayer.apply (relevance_analyzer.py:239-256):
-    x the BN's input, y its output."""
-    return safe_divide(x * (y - beta) * r, sign_stabilizer((x - mean) * y))
+    x the BN's input, y its output; ``eps`` the stabilizer and SafeDivide's."""
+    return safe_divide(x * (y - beta) * r, sign_stabilizer((x - mean) * y, eps), eps)
 
 
-def lrp_add(r, xs):
+def lrp_add(r, xs, eps=EPS_KERAS):
     """AddReverseLayer.apply: the relevance split in proportion to the summands."""
-    s = safe_divide(r, sign_stabilizer(sum(xs)))
+    s = safe_divide(r, sign_stabilizer(sum(xs), eps), eps)
     return [x * s for x in xs]
 
 

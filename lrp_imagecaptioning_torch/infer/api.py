@@ -27,7 +27,7 @@ class BasicInference:
     lie on ``device`` (default ``"cuda"``; it raises without a card)."""
 
     def __init__(self, captioner, params, dataset_provider, test_dataset_provider=None,
-                 metrics=None, max_caption_length: int = 20, device="cuda"):
+                 metrics=None, max_caption_length: int = 20, *, device="cuda"):
         self.captioner = captioner
         self.params = params
         self.device = resolve_device(device)

@@ -68,7 +68,7 @@ def beam_search(captioner, params, feat_grid: torch.Tensor, sos_id_1based: int,
     consts_k = type(consts)(*(x[:, None].expand(B, K, *x.shape[1:]).reshape(B * K, *x.shape[1:])
                               for x in consts))
 
-    state = dec.init_state(B * K, H, dev)
+    state = dec.init_state(B * K, H, device=dev)
     tokens = torch.full((B, K), sos_id_1based - 1, dtype=torch.long, device=dev)
     scores = torch.full((B, K), NEG_INF, device=dev)
     scores[:, 0] = 0.0

@@ -209,14 +209,14 @@ class ExportedCaptioner:
     replays from a CUDA graph (captured at its first call), so calls must
     not overlap: ``ExportedService`` serializes them."""
 
-    def __init__(self, out_dir: str, devices=None, device="cuda"):
+    def __init__(self, out_dir: str, devices=None, *, device="cuda"):
         self.device = resolve_device(device)
         with open(os.path.join(out_dir, _META)) as f:
             self.meta = json.load(f)
         self._word_of = {int(i): w for i, w in self.meta["word_of"].items()}
         self._B = self.meta["batch_size"]
         slot_devices = _serving_devices(devices, self.device)
-        params = load_params_npz(os.path.join(out_dir, _PARAMS), slot_devices[0])
+        params = load_params_npz(os.path.join(out_dir, _PARAMS), device=slot_devices[0])
         programs = {None: torch.export.load(os.path.join(out_dir, _DECODE))}
         for w in self.meta["buckets"]:
             programs[w] = torch.export.load(os.path.join(out_dir, _explain_file(w)))
@@ -327,7 +327,7 @@ class ExportedService:
     from an artifact with no model, config or tokenizer code in the process
     (``cli serve --exported DIR``). Device work runs under one lock."""
 
-    def __init__(self, out_dir: str, warmup: bool = True, devices=None, device="cuda"):
+    def __init__(self, out_dir: str, warmup: bool = True, devices=None, *, device="cuda"):
         self._ec = ExportedCaptioner(out_dir, devices=devices, device=device)
         self.meta = self._ec.meta
         self._device_lock = threading.Lock()

@@ -21,7 +21,7 @@ def greedy_decode(captioner, params, feat_grid: torch.Tensor, sos_id_1based: int
     consts = captioner.prepare_consts(params, feat_grid)
     B = feat_grid.shape[0]
     emb = params["decoder"]["embedding"]
-    state = dec.init_state(B, captioner.cfg.hidden_dim, feat_grid.device, feat_grid.dtype)
+    state = dec.init_state(B, captioner.cfg.hidden_dim, feat_grid.dtype, device=feat_grid.device)
     token0 = torch.full((B,), sos_id_1based - 1, dtype=torch.long, device=feat_grid.device)
     done = torch.zeros(B, dtype=torch.bool, device=feat_grid.device)
     tokens, logits = [], []
@@ -32,3 +32,11 @@ def greedy_decode(captioner, params, feat_grid: torch.Tensor, sos_id_1based: int
         done = done | (token0 + 1 == eos_id_1based)
         logits.append(cache.logits)
     return torch.stack(tokens, dim=1), torch.stack(logits, dim=1)
+
+
+def greedy_decode_jit(captioner, params, feat_grid: torch.Tensor, sos_id: int, eos_id: int,
+                      max_len: int = 20):
+    """The JAX package's jitted entry point: here ``greedy_decode`` itself
+    (the port compiles nothing ahead; on a card the Explainer and the
+    pipeline replay their searches from CUDA graphs)."""
+    return greedy_decode(captioner, params, feat_grid, sos_id, eos_id, max_len)

@@ -61,7 +61,7 @@ class CaptionService:
     def __init__(self, captioner, params, caption_pp, batch_size: int = 8,
                  beam_size: int = 3, max_len: int | None = None,
                  compute_dtype=None, storage_dtype=None, mesh=None,
-                 shard_words: bool = False, split_buckets: bool = False, device="cuda"):
+                 shard_words: bool = False, split_buckets: bool = False, *, device="cuda"):
         """``split_buckets``: explain requests dispatch per caption-length
         bucket at halving-ladder sub-batch sizes instead of one padded batch
         at the longest caption's bucket (``Explainer.analyze_many``'s

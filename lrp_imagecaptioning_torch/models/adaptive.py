@@ -125,15 +125,15 @@ def prepare_consts(params, feat_grid: torch.Tensor) -> AdaptiveConsts:
 
 
 def step(params, consts: AdaptiveConsts, state: LSTMState, token_emb: torch.Tensor,
-         masks: DropoutMasks | None = None):
+         lstm_masks: DropoutMasks | None = None):
     """One decoder step; returns (new_state, AdaptiveStepCache).
-    ``masks`` (training) turns on Keras-style LSTM dropout and the masks on
+    ``lstm_masks`` (training) turns on Keras-style LSTM dropout and the masks on
     h + c_hat and on the logits; ``consts`` then holds the dropped features."""
     a = params["attn"]
     h_prev, c_prev = state
     x_t = torch.cat([token_emb, consts.global_feat], dim=-1)           # (B, 2E)
     new_state, lstm_cache = lstm_step(params["lstm"], x_t, state,
-                                      None if masks is None else masks.lstm)
+                                      None if lstm_masks is None else lstm_masks.lstm)
     h = new_state.h
     ht_proj = h @ a["Wg"]                                               # (B, H)
     att_pre = torch.tanh(ht_proj[:, None, :] + consts.v_proj)           # (B, L, H)
@@ -144,10 +144,10 @@ def step(params, consts: AdaptiveConsts, state: LSTMState, token_emb: torch.Tens
     beta = torch.softmax(torch.cat([att_logits, z_s], dim=-1), dim=-1)[:, -1:]
     context = torch.einsum("bl,blh->bh", attention, consts.v_feat)
     c_hat = beta * st + (1.0 - beta) * context
-    if masks is None:
+    if lstm_masks is None:
         logits = dense(params["output"], h + c_hat)
     else:
-        logits = dense(params["output"], (h + c_hat) * masks.out) * masks.logit
+        logits = dense(params["output"], (h + c_hat) * lstm_masks.out) * lstm_masks.logit
     cache = AdaptiveStepCache(
         x_t=x_t, h_prev=h_prev, h=h, c_prev=c_prev, c=new_state.c, z_pre=lstm_cache.z_pre,
         attention=attention, st=st, beta=beta, context=context, c_hat=c_hat, logits=logits,
@@ -155,14 +155,14 @@ def step(params, consts: AdaptiveConsts, state: LSTMState, token_emb: torch.Tens
     return new_state, cache
 
 
-def init_state(batch: int, hidden: int, device=None, dtype=torch.float32) -> LSTMState:
+def init_state(batch: int, hidden: int, dtype=torch.float32, *, device=None) -> LSTMState:
     zeros = torch.zeros((batch, hidden), device=device, dtype=dtype)
     return LSTMState(zeros, zeros.clone())
 
 
 def forward_train(params, feat_grid: torch.Tensor, captions_in: torch.Tensor, cfg,
                   generator: torch.Generator | None = None, drop_rate: float = 0.0,
-                  masks: DropoutMasks | None = None) -> torch.Tensor:
+                  *, masks: DropoutMasks | None = None) -> torch.Tensor:
     """Teacher forcing: (B, L, D) features + (B, T) 0-based ids -> (B, T, V) logits.
 
     Dropout, as the reference training graph places it: on the image
@@ -179,7 +179,7 @@ def forward_train(params, feat_grid: torch.Tensor, captions_in: torch.Tensor, cf
         consts = consts._replace(v_feat=v_feat, global_feat=consts.global_feat * masks.global_feat,
                                  v_proj=v_feat @ params["attn"]["Wv"])
     embs = params["embedding"][captions_in]                             # (B, T, E)
-    state = init_state(B, cfg.hidden_dim, embs.device, embs.dtype)
+    state = init_state(B, cfg.hidden_dim, embs.dtype, device=embs.device)
     logits = []
     for t in range(T):
         state, cache = step(params, consts, state, embs[:, t], masks)
@@ -195,7 +195,7 @@ def forward_cached_from_inputs(params, consts: AdaptiveConsts, input_tokens_0bas
     caption[i-1]-1. Returns an AdaptiveStepCache of (T, B, ...) tensors."""
     B, T = input_tokens_0based.shape
     embs = params["embedding"][input_tokens_0based]                     # (B, T, E)
-    state = init_state(B, hidden_dim, embs.device, embs.dtype)
+    state = init_state(B, hidden_dim, embs.dtype, device=embs.device)
     caches = []
     for t in range(T):
         state, cache = step(params, consts, state, embs[:, t])

@@ -165,38 +165,38 @@ def _with_features(params, consts: AOAConsts, v_feat) -> AOAConsts:
 
 
 def step(params, consts: AOAConsts, state: LSTMState, token_emb: torch.Tensor,
-         masks: AOADropoutMasks | None = None):
-    """One decoder step; returns (new_state, AOAStepCache). ``masks``
+         lstm_masks: AOADropoutMasks | None = None):
+    """One decoder step; returns (new_state, AOAStepCache). ``lstm_masks``
     (training) turns on the LSTM's dropout and the masks on ctx + h and on
     the logits; ``consts`` then holds the dropped features."""
     h_prev, c_prev = state
     x_t = torch.cat([token_emb, consts.global_feat], dim=-1)
     new_state, lstm_cache = lstm_step(params["lstm"], x_t, state,
-                                      None if masks is None else masks.lstm)
+                                      None if lstm_masks is None else lstm_masks.lstm)
     h = new_state.h
     q = dense(params["q_proj"], h)                                      # (B, H)
     hat, attn = _multi_head(q[:, None, :], consts.k_proj, consts.v_proj)
     hat, attention = hat[:, 0], attn[:, 0]
     gate, proj = _glu(params["glu"], q, hat)
     context = gate * proj
-    if masks is None:
+    if lstm_masks is None:
         logits = dense(params["output"], context + h)
     else:
-        logits = dense(params["output"], (context + h) * masks.out) * masks.logit
+        logits = dense(params["output"], (context + h) * lstm_masks.out) * lstm_masks.logit
     cache = AOAStepCache(x_t=x_t, h_prev=h_prev, c_prev=c_prev, h=h, c=new_state.c,
                          z_pre=lstm_cache.z_pre, q=q, attention=attention, hat=hat, gate=gate,
                          proj_pre=proj, context=context, logits=logits)
     return new_state, cache
 
 
-def init_state(batch: int, hidden: int, device=None, dtype=torch.float32) -> LSTMState:
+def init_state(batch: int, hidden: int, dtype=torch.float32, *, device=None) -> LSTMState:
     zeros = torch.zeros((batch, hidden), device=device, dtype=dtype)
     return LSTMState(zeros, zeros.clone())
 
 
 def forward_train(params, feat_grid: torch.Tensor, captions_in: torch.Tensor, cfg,
                   generator: torch.Generator | None = None, drop_rate: float = 0.0,
-                  masks: AOADropoutMasks | None = None) -> torch.Tensor:
+                  *, masks: AOADropoutMasks | None = None) -> torch.Tensor:
     """Teacher forcing: (B, L, D) features + (B, T) 0-based ids -> (B, T, V)
     logits. Dropout on the features (K, V and g recomputed from the dropped
     ones), the LSTM's input and state (per-sequence masks), ctx + h and the
@@ -209,7 +209,7 @@ def forward_train(params, feat_grid: torch.Tensor, captions_in: torch.Tensor, cf
     if masks is not None:
         consts = _with_features(params, consts, consts.v_feat * masks.v_feat)
     embs = params["embedding"][captions_in]
-    state = init_state(B, cfg.hidden_dim, embs.device, embs.dtype)
+    state = init_state(B, cfg.hidden_dim, embs.dtype, device=embs.device)
     logits = []
     for t in range(T):
         state, cache = step(params, consts, state, embs[:, t], masks)
@@ -223,7 +223,7 @@ def forward_cached_from_inputs(params, consts: AOAConsts, input_tokens_0based: t
     kept: an AOAStepCache of (T, B, ...) tensors."""
     B, T = input_tokens_0based.shape
     embs = params["embedding"][input_tokens_0based]
-    state = init_state(B, hidden_dim, embs.device, embs.dtype)
+    state = init_state(B, hidden_dim, embs.dtype, device=embs.device)
     caches = []
     for t in range(T):
         state, cache = step(params, consts, state, embs[:, t])

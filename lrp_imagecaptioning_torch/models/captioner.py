@@ -9,15 +9,17 @@ and, for grid-TD with ``loss_mode='keras_categorical'``,
 
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..data.images import ENCODERS
 from ..runtime import resolve_device
-from ..weights import tree_to
+from ..weights import tree_map, tree_to
 from . import adaptive, aoa, gridtd, inception, resnet, vgg
 
 
@@ -73,18 +75,31 @@ class Captioner:
     vocab_size: int
     decoder: Any               # module: adaptive | gridtd | aoa
 
-    def init_params(self, seed: int = 0, device="cuda", vocab_words=None,
-                    word_vector_path: str | None = None):
-        """Random params from ``seed`` (a ``torch.Generator`` on the CPU), with
-        the JAX package's shapes and init laws, moved to ``device``.
+    def init_params(self, seed: int = 0, vocab_words=None, word_vector_path: str | None = None,
+                    encoder_params=None, *, device="cuda"):
+        """Random params from ``seed`` (a ``torch.Generator`` on the CPU, where
+        the JAX package takes a PRNG key), with the JAX package's shapes and
+        init laws, moved to ``device``.
 
-        ``vocab_words`` (model-id order) and ``cfg.pretrained_word_vector``
-        ('glove' | 'fasttext') seed the embedding table from the vector file
-        ``word_vector_path`` (reference _build_word_embedding, model.py:80-93);
-        its other rows are drawn from the same generator."""
+        ``vocab_words`` (a list of words in model-id order) and
+        ``cfg.pretrained_word_vector`` ('glove' | 'fasttext') seed the
+        embedding table from the vector file ``word_vector_path`` (reference
+        _build_word_embedding, model.py:80-93); its other rows are drawn from
+        the same generator. ``encoder_params`` (tensors or arrays) is taken as
+        the encoder's tree instead of a fresh init; the decoder's draw then
+        starts the generator's stream."""
+        if vocab_words is not None and not isinstance(vocab_words, (list, tuple)):
+            raise TypeError("vocab_words must be a list or tuple of words, got "
+                            f"{type(vocab_words).__name__} (device is keyword-only: "
+                            "init_params(seed, device=...))")
+        gen = torch.Generator().manual_seed(operator.index(seed))
         dev = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
-        params = {"vgg": self.init_encoder_params(gen),
+        if encoder_params is None:
+            enc = self.init_encoder_params(gen)
+        else:
+            enc = tree_map(lambda a: a if isinstance(a, torch.Tensor)
+                           else torch.as_tensor(np.asarray(a)), encoder_params)
+        params = {"vgg": enc,
                   "decoder": self.decoder.init_params(gen, self.vocab_size, self.cfg)}
         if self.cfg.pretrained_word_vector and vocab_words is not None:
             from .word_vectors import init_embedding
@@ -98,9 +113,9 @@ class Captioner:
         """The encoder's params on the CPU from ``gen``."""
         enc = self.cfg.img_encoder
         if enc in ("vgg16", "vgg19"):
-            return vgg.init_vgg_params(gen, self.cfg.layer_name, enc)
+            return vgg.init_vgg_params(gen, enc, self.cfg.layer_name)
         if enc in ("resnet50", "resnet101"):
-            return resnet.init_resnet50_params(gen, enc)
+            return resnet.init_resnet50_params(gen, depth=enc)
         return inception.init_inception_v3_params(gen)
 
     def _cfg_compute_dtype(self):
@@ -122,8 +137,8 @@ class Captioner:
             compute_dtype = self._cfg_compute_dtype()
         enc = self.cfg.img_encoder
         if enc in ("vgg16", "vgg19"):
-            feats = vgg.vgg_apply(params["vgg"], images, self.cfg.layer_name, compute_dtype,
-                                  relu_fn, enc)
+            feats = vgg.vgg_apply(params["vgg"], images, enc, self.cfg.layer_name, compute_dtype,
+                                  relu_fn)
         elif enc == "inception_v3":
             feats = inception.inception_v3_apply(params["vgg"], images, compute_dtype,
                                                  self.cfg.layer_name, relu_fn)
@@ -150,7 +165,7 @@ class Captioner:
         return consts, caches
 
     def forward_train(self, params, images: torch.Tensor, captions_in: torch.Tensor,
-                      generator: torch.Generator | None = None,
+                      generator: torch.Generator | None = None, *,
                       masks=None) -> torch.Tensor:
         """Teacher-forced logits (B, T, V). Dropout at ``cfg.drop_rate`` when a
         ``generator`` (or ready ``masks``: the decoder's ``DropoutMasks``,
@@ -163,15 +178,15 @@ class Captioner:
             feat_grid = self.encode(params, images)
         drop = self.cfg.drop_rate if generator is not None else 0.0
         return self.decoder.forward_train(params["decoder"], feat_grid, captions_in, self.cfg,
-                                          generator, drop, masks)
+                                          generator, drop, masks=masks)
 
     def loss_fn(self) -> Callable:
         if self.cfg.loss_mode == "keras_categorical" and self.model_type == "gridTD":
             return keras_categorical_ce
         return masked_ce_from_logits
 
-    def loss(self, params, images, captions_in, y_onehot, generator=None, masks=None):
-        logits = self.forward_train(params, images, captions_in, generator, masks)
+    def loss(self, params, images, captions_in, y_onehot, generator=None, *, masks=None):
+        logits = self.forward_train(params, images, captions_in, generator, masks=masks)
         return self.loss_fn()(logits, y_onehot)
 
 

@@ -46,12 +46,12 @@ def orthogonal(gen: torch.Generator, shape) -> torch.Tensor:
     return (q if rows >= cols else q.T).contiguous()
 
 
-def lstm_init(gen: torch.Generator, in_dim: int, hidden: int):
-    """glorot_uniform kernel, orthogonal recurrent, zeros(+forget 1) bias."""
-    b = torch.zeros(4 * hidden)
+def lstm_init(gen: torch.Generator, in_dim: int, hidden: int, dtype=torch.float32):
+    """glorot_uniform kernel, orthogonal recurrent, zeros(+forget 1) bias, in ``dtype``."""
+    b = torch.zeros(4 * hidden, dtype=dtype)
     b[hidden:2 * hidden] = 1.0
-    return {"wi": glorot_uniform(gen, (in_dim, 4 * hidden)),
-            "wh": orthogonal(gen, (hidden, 4 * hidden)),
+    return {"wi": glorot_uniform(gen, (in_dim, 4 * hidden)).to(dtype),
+            "wh": orthogonal(gen, (hidden, 4 * hidden)).to(dtype),
             "b": b}
 
 
@@ -91,14 +91,15 @@ def lstm_dropout_masks(gen: torch.Generator, in_dim: int, hidden: int, rate: flo
     return bernoulli_keep(gen, keep, (*lead, in_dim)), bernoulli_keep(gen, keep, (*lead, hidden))
 
 
-def dense_init(gen: torch.Generator, in_dim: int, out_dim: int):
-    return {"kernel": glorot_uniform(gen, (in_dim, out_dim)), "bias": torch.zeros(out_dim)}
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype=torch.float32):
+    return {"kernel": glorot_uniform(gen, (in_dim, out_dim)).to(dtype),
+            "bias": torch.zeros(out_dim, dtype=dtype)}
 
 
 def dense(params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["kernel"] + params["bias"]
 
 
-def attn_weight_init(gen: torch.Generator, shape) -> torch.Tensor:
-    """glorot_uniform, the attention wrapper's weight initializer."""
-    return glorot_uniform(gen, shape)
+def attn_weight_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    """glorot_uniform, the attention wrapper's weight initializer, in ``dtype``."""
+    return glorot_uniform(gen, shape).to(dtype)

@@ -142,12 +142,12 @@ def prepare_consts(params, feat_grid: torch.Tensor) -> GridTDConsts:
 
 
 def step(params, consts: GridTDConsts, state: GridTDState, token_emb: torch.Tensor,
-         masks: GridTDDropoutMasks | None = None):
-    """One decoder step; returns (new_state, GridTDStepCache). ``masks``
+         lstm_masks: GridTDDropoutMasks | None = None):
+    """One decoder step; returns (new_state, GridTDStepCache). ``lstm_masks``
     (training) turns on Keras-style dropout in both LSTMs and the masks on
     h2 + c_hat and on the logits; ``consts`` then holds the dropped features."""
     a = params["attn"]
-    td_masks, lang_masks = (None, None) if masks is None else masks.lstm
+    td_masks, lang_masks = (None, None) if lstm_masks is None else lstm_masks.lstm
     h1, c1, h2, c2 = state
     x1_t = torch.cat([h2, consts.global_feat, token_emb], dim=-1)
     td_state, td_cache = lstm_step(params["td_lstm"], x1_t, LSTMState(h1, c1), td_masks)
@@ -164,10 +164,10 @@ def step(params, consts: GridTDConsts, state: GridTDState, token_emb: torch.Tens
     x2_t = torch.cat([c_hat, h1_new], dim=-1)
     lang_state, lang_cache = lstm_step(params["lang_lstm"], x2_t, LSTMState(h2, c2), lang_masks)
     h2_new, c2_new = lang_state
-    if masks is None:
+    if lstm_masks is None:
         logits = dense(params["output"], h2_new + c_hat)
     else:
-        logits = dense(params["output"], (h2_new + c_hat) * masks.out) * masks.logit
+        logits = dense(params["output"], (h2_new + c_hat) * lstm_masks.out) * lstm_masks.logit
     cache = GridTDStepCache(
         x1_t=x1_t, x2_t=x2_t, h1_prev=h1, c1_prev=c1, h2_prev=h2, c2_prev=c2,
         h1=h1_new, c1=c1_new, h2=h2_new, c2=c2_new,
@@ -177,14 +177,14 @@ def step(params, consts: GridTDConsts, state: GridTDState, token_emb: torch.Tens
     return GridTDState(h1_new, c1_new, h2_new, c2_new), cache
 
 
-def init_state(batch: int, hidden: int, device=None, dtype=torch.float32) -> GridTDState:
+def init_state(batch: int, hidden: int, dtype=torch.float32, *, device=None) -> GridTDState:
     return GridTDState(*(torch.zeros((batch, hidden), device=device, dtype=dtype)
                          for _ in range(4)))
 
 
 def forward_train(params, feat_grid: torch.Tensor, captions_in: torch.Tensor, cfg,
                   generator: torch.Generator | None = None, drop_rate: float = 0.0,
-                  masks: GridTDDropoutMasks | None = None) -> torch.Tensor:
+                  *, masks: GridTDDropoutMasks | None = None) -> torch.Tensor:
     """Teacher forcing: (B, L, D) features + (B, T) 0-based ids -> (B, T, V)
     logits (model.py:630-660).
 
@@ -204,7 +204,7 @@ def forward_train(params, feat_grid: torch.Tensor, captions_in: torch.Tensor, cf
         consts = consts._replace(v_feat=v_feat, global_feat=consts.global_feat * masks.global_feat,
                                  v_proj=v_feat @ params["attn"]["W_va"])
     embs = params["embedding"][captions_in]                             # (B, T, E)
-    state = init_state(B, cfg.hidden_dim, embs.device, embs.dtype)
+    state = init_state(B, cfg.hidden_dim, embs.dtype, device=embs.device)
     logits = []
     for t in range(T):
         state, cache = step(params, consts, state, embs[:, t], masks)
@@ -218,7 +218,7 @@ def forward_cached_from_inputs(params, consts: GridTDConsts, input_tokens_0based
     cache: a GridTDStepCache of (T, B, ...) tensors."""
     B, T = input_tokens_0based.shape
     embs = params["embedding"][input_tokens_0based]                 # (B, T, E)
-    state = init_state(B, hidden_dim, embs.device, embs.dtype)
+    state = init_state(B, hidden_dim, embs.dtype, device=embs.device)
     caches = []
     for t in range(T):
         state, cache = step(params, consts, state, embs[:, t])

@@ -130,11 +130,12 @@ def _channels():
 
 
 CONV_DIMS, CHANNELS = _channels()
+MIXED10_CHANNELS = CHANNELS["mixed10"]  # 2048
 
 
-def init_inception_v3_params(gen: torch.Generator):
+def init_inception_v3_params(gen: torch.Generator, dtype=torch.float32):
     """He-normal conv kernels and the identity BatchNorm, the JAX package's
-    init laws, on the CPU."""
+    init laws, on the CPU, in ``dtype``."""
     params = {}
     for op in SPEC:
         if op[0] != "conv":
@@ -142,9 +143,11 @@ def init_inception_v3_params(gen: torch.Generator):
         name, (kh, kw) = op[1], op[4]
         cin, cout = CONV_DIMS[name]
         std = math.sqrt(2.0 / (kh * kw * cin))
-        params[name] = {"kernel": torch.randn((kh, kw, cin, cout), generator=gen) * std,
-                        "bn_gamma": torch.ones(cout), "bn_beta": torch.zeros(cout),
-                        "bn_mean": torch.zeros(cout), "bn_var": torch.ones(cout)}
+        params[name] = {"kernel": (torch.randn((kh, kw, cin, cout), generator=gen) * std).to(dtype),
+                        "bn_gamma": torch.ones(cout, dtype=dtype),
+                        "bn_beta": torch.zeros(cout, dtype=dtype),
+                        "bn_mean": torch.zeros(cout, dtype=dtype),
+                        "bn_var": torch.ones(cout, dtype=dtype)}
     return params
 
 
@@ -156,7 +159,7 @@ def bn(pn, z: torch.Tensor) -> torch.Tensor:
 
 def pool(t: torch.Tensor, kind: str, w: int, s: int, p: str) -> torch.Tensor:
     """A pool of SPEC (its max pools are all VALID)."""
-    return maxpool2d(t, w, s) if kind == "max" else avgpool2d(t, w, s, p)
+    return maxpool2d(t, w, s) if kind == "max" else avgpool2d(t, w, s, padding=p)
 
 
 def inception_v3_apply(params, x: torch.Tensor, compute_dtype=None, until: str = "mixed10",

@@ -56,16 +56,20 @@ def conv_names(depth: str = "resnet50"):
     return out
 
 
-def init_resnet50_params(gen: torch.Generator, depth: str = "resnet50"):
+def init_resnet50_params(gen: torch.Generator, dtype=torch.float32, depth: str = "resnet50"):
     """He-normal conv kernels and the identity BatchNorm (gamma 1, beta 0,
-    mean 0, variance 1), the JAX package's init laws, on the CPU."""
+    mean 0, variance 1), the JAX package's init laws, on the CPU, in ``dtype``."""
+    if depth not in ("resnet50", "resnet101"):
+        raise ValueError(f"depth must be 'resnet50' or 'resnet101', got {depth!r}")
     params = {}
     for conv_name, bn_name, kshape, _ in conv_names(depth):
         std = math.sqrt(2.0 / (kshape[0] * kshape[1] * kshape[2]))
-        params[conv_name] = {"kernel": torch.randn(kshape, generator=gen) * std}
+        params[conv_name] = {"kernel": (torch.randn(kshape, generator=gen) * std).to(dtype)}
         cout = kshape[-1]
-        params[bn_name] = {"gamma": torch.ones(cout), "beta": torch.zeros(cout),
-                           "moving_mean": torch.zeros(cout), "moving_var": torch.ones(cout)}
+        params[bn_name] = {"gamma": torch.ones(cout, dtype=dtype),
+                           "beta": torch.zeros(cout, dtype=dtype),
+                           "moving_mean": torch.zeros(cout, dtype=dtype),
+                           "moving_var": torch.ones(cout, dtype=dtype)}
     return params
 
 

@@ -36,7 +36,10 @@ class WordVector:
         self._dim = embedding_dim
 
     def vectorize_words(self, generator: torch.Generator | None = None) -> torch.Tensor:
-        """The (V, E) table, f32 on the CPU."""
+        """The (V, E) table, f32 on the CPU; ``generator`` (a torch.Generator,
+        where the JAX package takes a PRNG key) draws the uncovered rows."""
+        if generator is not None and not isinstance(generator, torch.Generator):
+            raise TypeError(f"generator must be a torch.Generator, got {type(generator).__name__}")
         vectors = self._load_vectors()
         if generator is None:
             generator = torch.Generator().manual_seed(0)

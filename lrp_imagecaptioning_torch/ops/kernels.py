@@ -108,9 +108,16 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """epsilon-LRP (eps = 1e-7) through ``z = x @ w``: r, z (..., Dout);
-    x (..., Din); w (Din, Dout). Leading dims flatten into the kernel's M rows."""
+def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+               eps: float = EPS_KERAS) -> torch.Tensor:
+    """epsilon-LRP through ``z = x @ w``: r, z (..., Dout); x (..., Din); w
+    (Din, Dout). Leading dims flatten into the kernel's M rows. The kernel
+    holds ``eps`` at 1e-7: on the card another value raises ``ValueError``
+    (the CPU's plain version takes any)."""
+    if eps != EPS_KERAS:
+        if x.device.type == "cpu":
+            return lrp_linear_plain(r, x, z, w, eps)
+        raise ValueError(f"lrp_linear: the kernel's eps is {EPS_KERAS}, got {eps}")
     if _exporting():
         return torch.ops.lrpic.lrp_linear(r, x, z, w)
     return _lrp_linear(r, x, z, w)
@@ -399,7 +406,7 @@ def lrp_a1b0_fused_plain(r, x, kernel, bias, eps: float = EPS_KERAS):
     kp, z = _positive_z(x, kernel, bias)
     zf = z.float()
     s = (r.float() / (zf + (zf == 0).float() * eps)).to(r.dtype)
-    return (x.float() * conv2d_input_vjp(kp.float(), s.float())).to(r.dtype)
+    return (x.float() * conv2d_input_vjp(None, kp.float(), s.float())).to(r.dtype)
 
 
 def lrp_a1b0_fused(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,

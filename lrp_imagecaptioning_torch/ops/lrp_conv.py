@@ -30,6 +30,8 @@ each conv, divide and WTA split rounds to bf16, as the JAX package's ops do.
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 import torch.nn.functional as F
 
@@ -82,6 +84,15 @@ def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
     return t.to(compute_dtype).float()
 
 
+def check_alpha_beta(alpha, beta) -> None:
+    """Raise ``TypeError`` unless alpha and beta are numbers (not a bool, a
+    string or a tensor): they follow the bias in the JAX package's order."""
+    for name, v in (("alpha", alpha), ("beta", beta)):
+        if isinstance(v, bool) or not isinstance(v, numbers.Real):
+            raise TypeError(f"{name} must be a real number, got {v!r} (the order is "
+                            "(r, x, kernel, bias, alpha, beta, stride, padding, ...))")
+
+
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
            padding: str = "SAME", compute_dtype=None) -> torch.Tensor:
     """NHWC input, HWIO kernel -> NHWC output. ``compute_dtype``
@@ -93,14 +104,18 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
     return _nhwc(F.conv2d(_nchw(x), _oihw(kernel), stride=stride, padding=pad))
 
 
-def conv2d_input_vjp(kernel: torch.Tensor, cotangent: torch.Tensor, x_shape=None,
-                     stride: int = 1, padding: str = "SAME", compute_dtype=None) -> torch.Tensor:
+def conv2d_input_vjp(x_shape, kernel: torch.Tensor, cotangent: torch.Tensor, stride: int = 1,
+                     padding: str = "SAME", compute_dtype=None) -> torch.Tensor:
     """Gradient of ``conv2d(x, kernel, stride, padding)`` wrt its input x for
     ``cotangent`` (the transposed conv), NHWC. ``x_shape`` (its batch is not
-    read) gives x's height and width; it defaults to the cotangent's, which
-    a stride-1 SAME conv keeps. ``compute_dtype`` rounds both operands to
-    it, sums in f32 and rounds the result to it once, returned in f32: the
-    JAX package's VJP of a conv in that dtype."""
+    read) gives x's height and width; None takes the cotangent's, which a
+    stride-1 SAME conv keeps. ``compute_dtype`` rounds both operands to it,
+    sums in f32 and rounds the result to it once, returned in f32: the JAX
+    package's VJP of a conv in that dtype."""
+    if isinstance(x_shape, torch.Tensor) or not isinstance(cotangent, torch.Tensor):
+        raise TypeError("conv2d_input_vjp(x_shape, kernel, cotangent, ...): x_shape is a "
+                        f"shape, cotangent a tensor; got {type(x_shape).__name__}, "
+                        f"{type(cotangent).__name__}")
     kh, kw = kernel.shape[:2]
     if x_shape is None:
         if stride != 1 or padding != "SAME":
@@ -125,14 +140,13 @@ def lrp_conv_epsilon(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
     if bias is not None:
         z = z + bias
     s = r / sign_stabilizer(z, eps)
-    return x * conv2d_input_vjp(kernel, s, x.shape, stride, padding)
+    return x * conv2d_input_vjp(x.shape, kernel, s, stride, padding)
 
 
 def lrp_conv_alpha_beta(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
-                        bias: torch.Tensor | None, input_nonneg: bool = False,
-                        stride: int = 1, padding: str = "SAME", *, alpha: float = 1.0,
-                        beta: float = 0.0, factor: float = EPS_KERAS,
-                        compute_dtype=None) -> torch.Tensor:
+                        bias: torch.Tensor | None, alpha: float = 1.0, beta: float = 0.0,
+                        stride: int = 1, padding: str = "SAME", factor: float = EPS_KERAS,
+                        compute_dtype=None, *, input_nonneg: bool = False) -> torch.Tensor:
     """AlphaBetaRule (alpha - beta = 1): the activator pairs (x+, W+, b+) with
     (x-, W-, b-), the inhibitor (x+, W-, b-) with (x-, W+, b+); the result is
     ``alpha * activator - beta * inhibitor``, the inhibitor skipped where
@@ -144,6 +158,7 @@ def lrp_conv_alpha_beta(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
     terms. ``compute_dtype=torch.bfloat16`` runs the convs on bf16 operands
     with f32 sums (``conv2d``); the divides and re-weights stay f32.
     """
+    check_alpha_beta(alpha, beta)
     kp = kernel * (kernel >= 0)
     kn = kernel * (kernel < 0)
     bp = bn = None
@@ -166,9 +181,9 @@ def lrp_conv_alpha_beta(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
         elif b2 is not None:
             z = z + b2
         s = safe_divide(r, z, factor)
-        out = xp * conv2d_input_vjp(k1, s, x.shape, stride, padding, compute_dtype)
+        out = xp * conv2d_input_vjp(x.shape, k1, s, stride, padding, compute_dtype)
         if xn is not None:
-            out = out + xn * conv2d_input_vjp(k2, s, x.shape, stride, padding, compute_dtype)
+            out = out + xn * conv2d_input_vjp(x.shape, k2, s, stride, padding, compute_dtype)
         return out
 
     activator = term(kp, bp, kn, bn)
@@ -181,7 +196,7 @@ def lrp_conv_zplus(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
                    bias: torch.Tensor | None = None, stride: int = 1,
                    padding: str = "SAME") -> torch.Tensor:
     """ZPlusRule == AlphaBetaRule(alpha=1, beta=0) (relevance_rule.py:445-462)."""
-    return lrp_conv_alpha_beta(r, x, kernel, bias, False, stride, padding)
+    return lrp_conv_alpha_beta(r, x, kernel, bias, 1.0, 0.0, stride, padding)
 
 
 def lrp_conv_flat(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
@@ -190,7 +205,7 @@ def lrp_conv_flat(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, stride
     of ones, so the relevance spreads evenly over the receptive field."""
     k1 = torch.ones_like(kernel)
     z = conv2d(torch.ones_like(x[:1]), k1, stride, padding)
-    return conv2d_input_vjp(k1, safe_divide(r, z, factor), x.shape, stride, padding)
+    return conv2d_input_vjp(x.shape, k1, safe_divide(r, z, factor), stride, padding)
 
 
 def lrp_conv_bounded(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, low: float,
@@ -207,9 +222,9 @@ def lrp_conv_bounded(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, low
     z = conv2d(x, kernel, stride, padding) - conv2d(lo, kp, stride, padding) \
         - conv2d(hi, kn, stride, padding)
     s = safe_divide(r, z, factor)
-    c = conv2d_input_vjp(kernel, s, x.shape, stride, padding)
-    cp = conv2d_input_vjp(kp, s, x.shape, stride, padding)
-    cn = conv2d_input_vjp(kn, s, x.shape, stride, padding)
+    c = conv2d_input_vjp(x.shape, kernel, s, stride, padding)
+    cp = conv2d_input_vjp(x.shape, kp, s, stride, padding)
+    cn = conv2d_input_vjp(x.shape, kn, s, stride, padding)
     return x * c - lo * cp - hi * cn
 
 
@@ -220,36 +235,37 @@ def lrp_conv_wsquare(r: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, str
     shape is read)."""
     k2 = kernel * kernel
     z = conv2d(torch.ones_like(x[:1]), k2, stride, padding)
-    return conv2d_input_vjp(k2, safe_divide(r, z, factor), x.shape, stride, padding)
+    return conv2d_input_vjp(x.shape, k2, safe_divide(r, z, factor), stride, padding)
 
 
 def deeplift_conv_linear(r: torch.Tensor, x: torch.Tensor, x_ref: torch.Tensor,
                          z: torch.Tensor, z_ref: torch.Tensor, kernel: torch.Tensor,
                          stride: int = 1, padding: str = "SAME",
-                         approximate: bool = True) -> torch.Tensor:
+                         approximate: bool = True, factor: float = EPS_KERAS) -> torch.Tensor:
     """DeepLIFT LinearRule for a bias-free conv (deeplift.py:77-116): the
-    relevance over the output difference (SafeDivide), back through the
-    conv's transpose, times the input difference; where |Δx| < eps the plain
-    gradient takes over (``approximate``, the reference's default)."""
+    relevance over the output difference (SafeDivide by ``factor``), back
+    through the conv's transpose, times the input difference; where |Δx| <
+    ``factor`` the plain gradient takes over (``approximate``, the
+    reference's default)."""
     dx = x - x_ref
-    s = safe_divide(r, z - z_ref)
-    contrib = dx * conv2d_input_vjp(kernel, s, x.shape, stride, padding)
+    s = safe_divide(r, z - z_ref, factor)
+    contrib = dx * conv2d_input_vjp(x.shape, kernel, s, stride, padding)
     if not approximate:
         return contrib
-    grad = conv2d_input_vjp(kernel, r, x.shape, stride, padding)
-    return torch.where(dx.abs() < EPS_KERAS, grad, contrib)
+    grad = conv2d_input_vjp(x.shape, kernel, r, stride, padding)
+    return torch.where(dx.abs() < factor, grad, contrib)
 
 
 def deeplift_relu_rescale(r: torch.Tensor, x: torch.Tensor, x_ref: torch.Tensor,
-                          approximate: bool = True) -> torch.Tensor:
+                          approximate: bool = True, factor: float = EPS_KERAS) -> torch.Tensor:
     """DeepLIFT RescaleRule for a standalone ReLU (deeplift.py:44-73): the
-    relevance scaled by Δy/Δx, the ReLU's gradient where |Δx| < eps. The
-    other branch is the reference's unstabilised ``r Δy / (Δx + eps)``."""
+    relevance scaled by Δy/Δx, the ReLU's gradient where |Δx| < ``factor``.
+    The other branch is the reference's unstabilised ``r Δy / (Δx + factor)``."""
     dx = x - x_ref
     dy = torch.relu(x) - torch.relu(x_ref)
     if not approximate:
-        return r * dy / (dx + EPS_KERAS)
-    small = dx.abs() < EPS_KERAS
+        return r * dy / (dx + factor)
+    small = dx.abs() < factor
     resc = r * dy / torch.where(small, torch.ones_like(dx), dx)
     grad = torch.where(x > 0, r, torch.zeros_like(r))
     return torch.where(small, grad, resc)
@@ -262,25 +278,28 @@ def _windows(x: torch.Tensor, window: int) -> torch.Tensor:
     return x.reshape(B, H // window, window, W // window, window, C)
 
 
-def _tiles(x: torch.Tensor, window: int, stride: int | None) -> bool:
+def _tiles(x: torch.Tensor, window: int, stride: int) -> bool:
     """True where the pool's windows tile x exactly (window == stride)."""
-    return (stride is None or stride == window) and x.shape[1] % window == 0 \
+    return stride == window and x.shape[1] % window == 0 \
         and x.shape[2] % window == 0
 
 
-def maxpool2d(x: torch.Tensor, window: int = 2, stride: int | None = None) -> torch.Tensor:
-    """VALID max pool, NHWC; ``stride`` defaults to the window (every VGG
-    pool; every max pool of the ported encoders is VALID)."""
+def maxpool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """VALID max pool, NHWC (every max pool of the ported encoders is VALID)."""
     if _tiles(x, window, stride):
         return _windows(x, window).amax(dim=(2, 4))
-    return _nhwc(F.max_pool2d(_nchw(x), window, stride or window))
+    return _nhwc(F.max_pool2d(_nchw(x), window, stride))
 
 
-def lrp_maxpool_wta(r: torch.Tensor, x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """Winner-take-all relevance through a non-overlapping max pool.
+def lrp_maxpool_wta(r: torch.Tensor, x: torch.Tensor, window: int = 2,
+                    stride: int = 2) -> torch.Tensor:
+    """Winner-take-all relevance through a VALID max pool.
 
     Each output's relevance divides equally among the window entries equal
-    to the max: dx = [x == max] * (r / count)."""
+    to the max: dx = [x == max] * (r / count). Windows that do not tile x
+    (``stride != window``, or a remainder row) take the overlapping rule."""
+    if not _tiles(x, window, stride):
+        return lrp_maxpool_overlapping_wta(r, x, window, stride)
     xw = _windows(x, window)
     y = xw.amax(dim=(2, 4), keepdim=True)
     mask = (xw == y).to(r.dtype)
@@ -292,11 +311,20 @@ def lrp_maxpool_wta(r: torch.Tensor, x: torch.Tensor, window: int = 2) -> torch.
 
 
 def lrp_maxpool_overlapping_wta(r: torch.Tensor, x: torch.Tensor, window: int = 3,
-                                stride: int = 2) -> torch.Tensor:
-    """Winner-take-all relevance through an overlapping VALID max pool
-    (ResNet's stem, Inception's reductions): each output's relevance divides
-    equally among the window entries equal to the max, and an input sums
-    what every window covering it hands back. window x window strided taps."""
+                                stride: int = 2, padding: str = "VALID") -> torch.Tensor:
+    """Winner-take-all relevance through an overlapping max pool (ResNet's
+    stem, Inception's reductions): each output's relevance divides equally
+    among the window entries equal to the max, and an input sums what every
+    window covering it hands back. window x window strided taps. ``padding``
+    "SAME" pads x with -inf as TensorFlow pads it (the pads never win)."""
+    if padding == "SAME":
+        (t, b), (l, rt) = (_pads(x.shape[1], window, stride, padding),
+                           _pads(x.shape[2], window, stride, padding))
+        xp = F.pad(x, (0, 0, l, rt, t, b), value=float("-inf"))
+        out = lrp_maxpool_overlapping_wta(r, xp, window, stride)
+        return out[:, t:t + x.shape[1], l:l + x.shape[2]]
+    if padding != "VALID":
+        raise ValueError(f"padding {padding!r} not in ('SAME', 'VALID')")
     B, H, W, C = x.shape
     Ho, Wo = (H - window) // stride + 1, (W - window) // stride + 1
     y = maxpool2d(x, window, stride)
@@ -318,13 +346,12 @@ def lrp_maxpool_overlapping_wta(r: torch.Tensor, x: torch.Tensor, window: int = 
     return out
 
 
-def avgpool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
+def avgpool2d(x: torch.Tensor, window: int = 2, stride: int = 2, *,
               padding: str = "VALID") -> torch.Tensor:
     """Average pool, NHWC, each output over its in-image taps only (Keras's
     SAME average pool: ``count_include_pad=False``)."""
     if _tiles(x, window, stride) and padding == "VALID":
         return _windows(x, window).mean(dim=(2, 4))
-    stride = stride or window
     pad = _window_pads(x.shape, window, window, stride, padding)
     # an NCHW copy: on the card, avg_pool2d's backward over a channels-last
     # view (what _nchw gives) returns a wrong gradient
@@ -333,11 +360,10 @@ def avgpool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
 
 
 def avgpool2d_input_vjp(cotangent: torch.Tensor, x_shape, window: int = 2,
-                        stride: int | None = None, padding: str = "VALID") -> torch.Tensor:
+                        stride: int = 2, padding: str = "VALID") -> torch.Tensor:
     """Gradient of ``avgpool2d(x, window, stride, padding)`` wrt x for
     ``cotangent``: each output's share (cotangent / its in-image tap count)
     handed back to its taps, a depthwise transposed conv of ones."""
-    stride = stride or window
     C = cotangent.shape[-1]
     pad = _window_pads(x_shape, window, window, stride, padding)
     ones = torch.ones((1, 1, x_shape[1], x_shape[2]), dtype=cotangent.dtype,
@@ -349,10 +375,11 @@ def avgpool2d_input_vjp(cotangent: torch.Tensor, x_shape, window: int = 2,
         output_padding=_output_padding(x_shape, cotangent.shape, window, window, stride, pad)))
 
 
-def lrp_avgpool(r: torch.Tensor, x: torch.Tensor, window: int = 2, stride: int | None = None,
-                padding: str = "VALID") -> torch.Tensor:
+def lrp_avgpool(r: torch.Tensor, x: torch.Tensor, window: int = 2, stride: int = 2,
+                eps: float = EPS_KERAS, *, padding: str = "VALID") -> torch.Tensor:
     """AveragePoolingReverseLayer (relevance_analyzer.py:262-291): the pool
-    as a linear layer under the z-rule, x * pool^T(r / stab(z))."""
-    z = avgpool2d(x, window, stride, padding)
-    s = safe_divide(r, sign_stabilizer(z))
+    as a linear layer under the z-rule, x * pool^T(r / stab(z)), stab's
+    stabilizer ``eps``."""
+    z = avgpool2d(x, window, stride, padding=padding)
+    s = safe_divide(r, sign_stabilizer(z, eps))
     return x * avgpool2d_input_vjp(s, x.shape, window, stride, padding)

@@ -24,16 +24,19 @@ def safe_divide(a: torch.Tensor, b: torch.Tensor, factor: float = EPS_KERAS) -> 
     return a / (b + (b == 0).to(b.dtype) * factor)
 
 
-def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def lrp_linear(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+               eps: float = EPS_KERAS) -> torch.Tensor:
     """epsilon-LRP through ``z = x @ w (+ b)``.
 
     r, z: (..., Dout); x: (..., Din); w: (Din, Dout) -> relevance (..., Din).
-    The plain version of the ``lrp_linear`` kernel (ops/kernels.py).
+    The plain version of the ``lrp_linear`` kernel (ops/kernels.py), which
+    holds ``eps`` at 1e-7.
     """
-    s = r / sign_stabilizer(z)
+    s = r / sign_stabilizer(z, eps)
     return x * (s @ w.T)
 
 
-def lrp_identity(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def lrp_identity(r: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                 eps: float = EPS_KERAS) -> torch.Tensor:
     """lrp_linear with an identity weight: rel_j = x_j * r_j / stab(z_j)."""
-    return x * r / sign_stabilizer(z)
+    return x * r / sign_stabilizer(z, eps)

@@ -56,7 +56,7 @@ _joined_views: list | None = None
 
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None, process_id: int | None = None,
-                           auto: bool = False, backend: str | None = None) -> int:
+                           auto: bool = False, *, backend: str | None = None) -> int:
     """Join the process group, or skip joining; returns the process count.
 
     With no arguments in one process this joins nothing and returns 1 (a

@@ -80,7 +80,8 @@ def build(cfg=None, vocab_size: int = 7003, device="cuda", beam: int = BEAM, T: 
 
     def stage_cnn_lrp(params, images, r_feat):
         """Any number of words per image: r_feat (B, Tw, L, D)."""
-        return vgg_lrp_per_image(params["vgg"], images, r_feat, cfg.layer_name, storage_dtype)
+        return vgg_lrp_per_image(params["vgg"], images, r_feat, cfg.img_encoder, cfg.layer_name,
+                                 storage_dtype)
 
     @torch.no_grad()
     def caption_and_explain(params, images):

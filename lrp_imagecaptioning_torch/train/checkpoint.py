@@ -3,8 +3,9 @@
 ``params/...`` and ``opt_state/{count,learning_rate,mu/...,nu/...}``.
 
 Names encode the epoch and the monitored metric as the JAX package's do
-(``ckpt_{epoch:02d}_{metric:.4f}``); its orbax checkpoints need JAX to read
-and are not read here.
+(``ckpt_{epoch:02d}_{metric:.4f}``); its orbax checkpoints (directories)
+need JAX to read: ``restore_checkpoint`` refuses them. ``save_params_npz``
+/ ``load_params_npz`` are the flat format both packages read.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import re
 
 import numpy as np
 
-from ..weights import load_params_npz, save_params_npz
+from ..weights import check_tree_like, load_params_npz, save_params_npz, tree_like
 
 
 def ckpt_name(epoch: int, metric: float | None) -> str:
@@ -47,11 +48,32 @@ def latest_checkpoint(directory: str) -> str | None:
     return best
 
 
-def restore_checkpoint(path: str, device="cuda"):
-    """-> (params, opt_state or None), tensors on ``device``."""
-    state = load_params_npz(path, device)
-    opt_state = state.get("opt_state")
+def restore_checkpoint(path: str, params_template=None, opt_state_template=None, *,
+                       device=None):
+    """-> (params, opt_state or None). With ``params_template`` (and
+    ``opt_state_template``) the checkpoint's trees must match the templates'
+    (``ValueError`` otherwise) and each tensor lands on its template's device
+    in its dtype; without, on ``device`` (default "cuda"). A checkpoint
+    without optimizer state gives None for it, template or not."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory (an orbax checkpoint of the JAX package): "
+                         "write it there with save_params_npz and load the .npz")
+    for name, t in (("params_template", params_template),
+                    ("opt_state_template", opt_state_template)):
+        if t is not None and not isinstance(t, dict):
+            raise TypeError(f"{name} must be a params dict, got {type(t).__name__} "
+                            "(device is keyword-only: restore_checkpoint(path, device=...))")
+    if device is None:
+        device = "cpu" if params_template is not None else "cuda"
+    state = load_params_npz(path, device=device)
+    params, opt_state = state["params"], state.get("opt_state")
     if opt_state is not None:
         opt_state = dict(opt_state, count=int(opt_state["count"]),
                          learning_rate=float(opt_state["learning_rate"]))
-    return state["params"], opt_state
+    if params_template is not None:
+        check_tree_like(params, params_template, "params")
+        params = tree_like(params, params_template)
+    if opt_state is not None and opt_state_template is not None:
+        check_tree_like(opt_state, opt_state_template, "opt_state")
+        opt_state = tree_like(opt_state, opt_state_template)
+    return params, opt_state

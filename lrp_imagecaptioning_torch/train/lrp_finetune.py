@@ -26,6 +26,7 @@ the sharded train step's rules (``train/step.py``).
 from __future__ import annotations
 
 import math
+import numbers
 
 import numpy as np
 import torch
@@ -41,7 +42,8 @@ from .checkpoint import save_checkpoint
 from .optimizer import apply_updates, make_optimizer
 from .step import (chain_steps, drawn_masks, graph_body, mask_rows, metric_accumulator,
                    one_device_mesh, place_on_mesh, replicas, run_slots, run_stepped_steps,
-                   sharded_multi, sharded_step, sharded_value_and_grad, value_and_grad)
+                   sharded_multi, sharded_step, sharded_value_and_grad, undonated,
+                   value_and_grad)
 
 # NLTK english stop words, frozen so that no corpus download is needed
 STOP_WORDS = frozenset("""a about above after again against ain all am an and any are aren aren't as at be
@@ -133,8 +135,8 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
     seeds = r_feat.reshape(B, pos.shape[1], g, g, cfg.img_feature_dim)
     scores_w = torch.stack([
         _score(_project(vgg_lrp_preset_a_wordbatched(
-            params["vgg"], images[b:b + 1], seeds[b], cfg.layer_name,
-            arch=cfg.img_encoder).mean(dim=-1)), mode)
+            params["vgg"], images[b:b + 1], seeds[b], cfg.img_encoder,
+            cfg.layer_name).mean(dim=-1)), mode)
         for b in range(B)])                                             # (B, W)
     scores_w = torch.where(pos_valid, scores_w, torch.zeros_like(scores_w))
     # back onto the (B, T) timeline (positions are unique in a row)
@@ -151,14 +153,16 @@ def dual_loss(logits: torch.Tensor, lrp_weight: torch.Tensor, y_onehot: torch.Te
 
 
 def make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int, eos_1based: int,
-                           mode: str = "mean", max_words: int | None = None):
+                           mode: str = "mean", donate: bool = True,
+                           max_words: int | None = None):
     """-> step(params, opt_state, images, captions_in, y_onehot, generator,
     masks=None) -> (params, opt_state, metrics): predict -> LRP weights ->
     dual-loss gradient step (``masks``, the decoder's ``DropoutMasks``,
     replace the generator's draw). ``step.phases`` holds the three phases
     (``predict``, ``lrp_weights``, ``update``) for timing them apart;
     ``step.dual`` is the dual loss's (loss, metrics, grads) from given
-    masks, the body the K-step call captures."""
+    masks, the body the K-step call captures. ``donate``:
+    ``train.step.undonated``."""
     stop_cpu = torch.as_tensor(np.asarray(stop_table), dtype=torch.bool)
     stops = {}   # the stop table on each device, copied there once (no copy a step)
 
@@ -174,7 +178,7 @@ def make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int, eo
 
     def weighted(params, images, captions_in, y_onehot, w, generator, masks=None):
         def loss(p):
-            logits = captioner.forward_train(p, images, captions_in, generator, masks)
+            logits = captioner.forward_train(p, images, captions_in, generator, masks=masks)
             return dual_loss(logits, w, y_onehot), logits.detach()
 
         loss_value, logits, grads = value_and_grad(loss, params)
@@ -198,11 +202,11 @@ def make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int, eo
 
     step.phases = {"predict": predict, "lrp_weights": weights, "update": update}
     step.dual = dual
-    return step
+    return undonated(step, donate)
 
 
 def make_multi_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int,
-                                 eos_1based: int, mode: str = "mean",
+                                 eos_1based: int, mode: str = "mean", donate: bool = True,
                                  max_words: int | None = None):
     """K fine-tune steps a call over K stacked batches, the JAX package's
     ``make_multi_lrp_finetune_step``: ``multi(params, opt_state, images,
@@ -215,7 +219,7 @@ def make_multi_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: i
     from ..graphs import StepGraph
 
     single = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
-                                    mode, max_words)
+                                    mode, max_words=max_words)
     graph = StepGraph(graph_body(optimizer, single.dual), optimizer)
 
     def multi(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
@@ -227,7 +231,7 @@ def make_multi_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: i
         return graph(params, opt_state, stacks, masks)
 
     multi.graph = graph
-    return multi
+    return undonated(multi, donate)
 
 
 def sharded_finetune_grads(captioner, mesh, phases):
@@ -244,7 +248,8 @@ def sharded_finetune_grads(captioner, mesh, phases):
         def slot_loss(i, p):
             dev, y = mesh.slots[i], y_onehot.shards[i]
             m = None if masks is None else mask_rows(masks, images.rows[i], dev)
-            logits = captioner.forward_train(p, images.shards[i], captions_in.shards[i], None, m)
+            logits = captioner.forward_train(p, images.shards[i], captions_in.shards[i], None,
+                                             masks=m)
             return (dual_loss(logits, weights[i], y) * (y.shape[0] / B),
                     masked_accuracy_counts(logits.detach(), y))
 
@@ -255,7 +260,7 @@ def sharded_finetune_grads(captioner, mesh, phases):
 
 
 def make_sharded_lrp_finetune_step(captioner, optimizer, mesh, stop_table, sos_1based: int,
-                                   eos_1based: int, mode: str = "mean",
+                                   eos_1based: int, mode: str = "mean", donate: bool = True,
                                    max_words: int | None = None):
     """Data-parallel LRP-inference fine-tuning: ``step(params, opt_state,
     images, captions_in, y_onehot, generator, masks=None)`` as
@@ -266,22 +271,22 @@ def make_sharded_lrp_finetune_step(captioner, optimizer, mesh, stop_table, sos_1
     step does. The params and the state stay on
     the mesh's first slot (``train.step.place_on_mesh``)."""
     phases = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
-                                    mode, max_words).phases
-    return sharded_step(captioner, optimizer, mesh, sharded_finetune_grads(captioner, mesh,
-                                                                           phases))
+                                    mode, max_words=max_words).phases
+    return undonated(sharded_step(captioner, optimizer, mesh,
+                                  sharded_finetune_grads(captioner, mesh, phases)), donate)
 
 
 def make_sharded_multi_lrp_finetune_step(captioner, optimizer, mesh, stop_table,
                                          sos_1based: int, eos_1based: int, mode: str = "mean",
-                                         max_words: int | None = None):
+                                         donate: bool = True, max_words: int | None = None):
     """K sharded fine-tune steps a call over (K, B, ...) stacks split on the
     batch axis, the JAX package's ``make_sharded_multi_lrp_finetune_step``:
     the K ``make_sharded_lrp_finetune_step`` steps chained
     (``train.step.sharded_multi``)."""
     phases = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
-                                    mode, max_words).phases
-    return sharded_multi(captioner, optimizer, mesh, sharded_finetune_grads(captioner, mesh,
-                                                                            phases))
+                                    mode, max_words=max_words).phases
+    return undonated(sharded_multi(captioner, optimizer, mesh,
+                                   sharded_finetune_grads(captioner, mesh, phases)), donate)
 
 
 class LRPFinetuner:
@@ -299,9 +304,14 @@ class LRPFinetuner:
     ``((captions_in, images), y_onehot)`` numpy batches."""
 
     def __init__(self, captioner, params, provider, mode: str = "mean",
-                 learning_rate: float = 1e-6, seed: int = 0,
-                 max_explained_words: int | None = None, mesh=None, steps_per_call: int = 1,
-                 device="cuda"):
+                 learning_rate: float = 1e-6, seed: int = 0, steps_per_call: int = 1, mesh=None,
+                 max_explained_words: int | None = None, *, device="cuda"):
+        if isinstance(steps_per_call, bool) or not isinstance(steps_per_call, numbers.Integral):
+            raise TypeError(f"steps_per_call must be an int, got {steps_per_call!r}")
+        if max_explained_words is not None and (isinstance(max_explained_words, bool) or not
+                                                isinstance(max_explained_words, numbers.Integral)):
+            raise TypeError(f"max_explained_words must be an int or None, got "
+                            f"{max_explained_words!r}")
         self.captioner = captioner
         self.provider = provider
         self.mesh = mesh
@@ -312,7 +322,7 @@ class LRPFinetuner:
         self.optimizer = make_optimizer(captioner.model_type, learning_rate)
         self.opt_state = self.optimizer.init(params)
         step_args = (captioner, self.optimizer, stop_word_table(pp), pp.SOS_TOKEN_LABEL_ENCODED,
-                     pp.EOS_TOKEN_LABEL_ENCODED, mode, max_explained_words)
+                     pp.EOS_TOKEN_LABEL_ENCODED, mode, True, max_explained_words)
         self._steps_per_call = max(int(steps_per_call), 1)
         self._multi_step = None
         if mesh is None:
@@ -361,8 +371,8 @@ class LRPFinetuner:
         record, finalize = metric_accumulator()
         try:
             self.params, self.opt_state = run_stepped_steps(
-                batches, epoch_length, self._place, self._step, gen, self.params, self.opt_state,
-                record, self._steps_per_call, self._multi_step, self._place_stacked)
+                batches, epoch_length, self._steps_per_call, self._place, gen, self._multi_step,
+                self._step, self.params, self.opt_state, record, self._place_stacked)
         finally:
             batches.stop()   # each chunk starts its own producer thread
         metrics = finalize(epoch_length)

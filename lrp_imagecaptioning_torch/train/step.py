@@ -5,7 +5,10 @@ by autograd (through the ``lstm_gates`` kernel's Function on the card), the
 clipped Adam update.
 
 Params and optimizer state are plain dicts of tensors; a step returns new
-ones and leaves its arguments as they were.
+ones and leaves its arguments as they were. ``donate`` (the JAX package's
+buffer donation) is True by default: a K-step call on the card then returns
+its graph's own tensors, rewritten by its next call; ``donate=False``
+returns state that aliases no tensor of the caller's or of the runner's.
 
 K steps a call (``make_multi_train_step``, ``make_sharded_multi_train_step``;
 the JAX package's ``lax.scan`` over K stacked batches, ``--steps-per-call``)
@@ -60,7 +63,7 @@ import torch
 from ..models.captioner import keras_categorical_ce, masked_accuracy, masked_accuracy_counts
 from ..parallel.distributed import all_reduce_sum
 from ..parallel.mesh import Sharded, VocabSlices, as_sharded, as_stacked, place_params
-from ..weights import tree_leaves, tree_map, tree_unflatten
+from ..weights import check_tree_like, tree_leaves, tree_map, tree_unflatten
 from .optimizer import apply_updates
 
 
@@ -83,7 +86,7 @@ def train_grads(captioner):
 
     def grads(params, images, captions_in, y_onehot, masks, generator=None):
         def loss(p):
-            logits = captioner.forward_train(p, images, captions_in, generator, masks)
+            logits = captioner.forward_train(p, images, captions_in, generator, masks=masks)
             return loss_fn(logits, y_onehot), logits.detach()
 
         loss_value, logits, g = value_and_grad(loss, params)
@@ -92,12 +95,39 @@ def train_grads(captioner):
     return grads
 
 
-def make_train_step(captioner, optimizer):
+def undonated(step, donate: bool):
+    """``step`` itself, or with ``donate=False`` a step whose returned params
+    and optimizer state share no storage with its arguments (copies where
+    they would) nor with a graph runner's buffers (``always_copy``)."""
+    if donate:
+        return step
+    always_copy = hasattr(step, "graph")
+
+    def call(params, opt_state, *args, **kwargs):
+        held = {t.untyped_storage().data_ptr() for t in tree_leaves((params, opt_state))
+                if isinstance(t, torch.Tensor)}
+        new_params, new_state, metrics = step(params, opt_state, *args, **kwargs)
+
+        def own(t):
+            if isinstance(t, torch.Tensor) and (always_copy
+                                                or t.untyped_storage().data_ptr() in held):
+                return t.clone()
+            return t
+
+        return tree_map(own, new_params), tree_map(own, new_state), metrics
+
+    for k, v in vars(step).items():
+        setattr(call, k, v)
+    return call
+
+
+def make_train_step(captioner, optimizer, donate: bool = True):
     """-> step(params, opt_state, images, captions_in, y_onehot, generator,
     masks=None) -> (params, opt_state, metrics): loss -> grad -> optimizer
     update. ``generator`` (a ``torch.Generator`` on the params' device)
     draws the dropout masks; None runs without dropout; ``masks`` (the
-    decoder's ``DropoutMasks``) replace the draw."""
+    decoder's ``DropoutMasks``) replace the draw. ``donate``: the module's
+    docstring."""
     grads_of = train_grads(captioner)
 
     def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
@@ -105,7 +135,7 @@ def make_train_step(captioner, optimizer):
         updates, opt_state = optimizer.update(grads, opt_state, params)
         return apply_updates(params, updates), opt_state, dict(metrics, loss=loss)
 
-    return step
+    return undonated(step, donate)
 
 
 def graph_body(optimizer, grads_of):
@@ -143,7 +173,7 @@ def drawn_masks(captioner, params, batch: int, K: int, generator, masks=None):
     return None if masks[0] is None else list(masks)
 
 
-def make_multi_train_step(captioner, optimizer):
+def make_multi_train_step(captioner, optimizer, donate: bool = True):
     """K optimizer steps a call over K stacked batches, the JAX package's
     ``make_multi_train_step``: -> ``multi(params, opt_state, images (K, B,
     H, W, 3), captions_in (K, B, T), y_onehot (K, B, T, V), generator,
@@ -155,8 +185,8 @@ def make_multi_train_step(captioner, optimizer):
     host K replays instead of K Python steps. The dropout masks are drawn
     from ``generator`` step by step before the replays, in the single
     steps' order, or taken from ``masks`` (a list of K). The returned state
-    is the runner's own, rewritten by its next call. On the CPU the call is
-    the loop of single steps."""
+    is the runner's own, rewritten by its next call, unless ``donate`` is
+    False. On the CPU the call is the loop of single steps."""
     from ..graphs import StepGraph
 
     single = make_train_step(captioner, optimizer)
@@ -171,7 +201,7 @@ def make_multi_train_step(captioner, optimizer):
         return graph(params, opt_state, stacks, masks)
 
     multi.graph = graph
-    return multi
+    return undonated(multi, donate)
 
 
 def metric_accumulator(keys=("loss", "accuracy")):
@@ -191,33 +221,40 @@ def metric_accumulator(keys=("loss", "accuracy")):
     return record, finalize
 
 
-def run_stepped_steps(batches, steps, place, step_fn, generator, params, opt_state, record,
-                      K: int = 1, multi_fn=None, place_stacked=None):
-    """Pulls ``steps`` batches ``((captions_in, images), y_onehot)`` from
-    ``batches`` and runs them in order: ``multi_fn`` on stacks of ``K`` (the
-    JAX package's ``steps_per_call``), ``step_fn`` on the ragged tail and on
-    a K-group holding a batch of another size (a short epoch-tail batch
-    cannot stack with full ones). ``place(arr)`` moves a host array to the
-    device, ``place_stacked`` a (K, B, ...) stack (on a mesh it splits axis
-    1); ``generator`` draws every step's dropout; ``record(metrics)`` takes
-    each call's metrics, (K,)-stacked from ``multi_fn``. Returns the updated
-    (params, opt_state)."""
+def run_stepped_steps(generator, steps, K, place, dropout_gen, multi_fn, single_fn, params,
+                      opt_state, record, place_stacked=None):
+    """Pulls ``steps`` batches ``((captions_in, images), y_onehot)`` from the
+    batch iterator ``generator`` and runs them in order: ``multi_fn`` on
+    stacks of ``K`` (the JAX package's ``steps_per_call``), ``single_fn`` on
+    the ragged tail and on a K-group holding a batch of another size (a
+    short epoch-tail batch cannot stack with full ones). ``place(arr)``
+    moves a host array to the device, ``place_stacked`` a (K, B, ...) stack
+    (default ``place``; on a mesh it splits axis 1); ``dropout_gen``, a
+    ``torch.Generator`` (or None: no dropout), draws every step's dropout
+    where the JAX package's ``split_rng`` hands out keys; ``record(metrics)``
+    takes each call's metrics, (K,)-stacked from ``multi_fn``. Returns the
+    updated (params, opt_state)."""
+    if dropout_gen is not None and not isinstance(dropout_gen, torch.Generator):
+        raise TypeError("dropout_gen must be a torch.Generator or None, got "
+                        f"{type(dropout_gen).__name__}")
+    if place_stacked is None:
+        place_stacked = place
     done = 0
     while done < steps:
         if K > 1 and steps - done >= K:
-            group = [next(batches) for _ in range(K)]
+            group = [next(generator) for _ in range(K)]
             if len({b[0][1].shape[0] for b in group}) == 1:
                 stacked = [place_stacked(np.stack(a)) for a in (
                     [b[0][1] for b in group], [b[0][0] for b in group], [b[1] for b in group])]
-                params, opt_state, m = multi_fn(params, opt_state, *stacked, generator)
+                params, opt_state, m = multi_fn(params, opt_state, *stacked, dropout_gen)
                 record(m)
                 done += K
                 continue
         else:
-            group = [next(batches)]
+            group = [next(generator)]
         for (cap_in, imgs), y in group:
-            params, opt_state, m = step_fn(params, opt_state, place(imgs), place(cap_in),
-                                           place(y), generator)
+            params, opt_state, m = single_fn(params, opt_state, place(imgs), place(cap_in),
+                                             place(y), dropout_gen)
             record(m)
             done += 1
     return params, opt_state
@@ -347,12 +384,20 @@ def sharded_value_and_grad(mesh, reps, slot_loss):
     return loss, correct / valid.clamp(min=1), tree_unflatten(reps[0], leaves)
 
 
-def place_on_mesh(mesh, shard_vocab: bool = False):
+def place_on_mesh(mesh, shard_vocab: bool = False, params_template=None,
+                  opt_state_template=None):
     """-> ``place_state(params, opt_state)``: both where a sharded step keeps
     them (``parallel.place_params``: the mesh's first slot, with
     ``shard_vocab`` the vocabulary slices on the first row's model slots,
-    Adam's moments as their params); the other rows take replicas a step."""
+    Adam's moments as their params); the other rows take replicas a step.
+    The layout follows from the mesh; ``params_template`` /
+    ``opt_state_template`` (the JAX package's layout templates), where
+    given, must have the placed trees' structure (``ValueError``)."""
     def place_state(params, opt_state):
+        if params_template is not None:
+            check_tree_like(params, params_template, "params")
+        if opt_state_template is not None:
+            check_tree_like(opt_state, opt_state_template, "opt_state")
         return place_params(mesh, params, shard_vocab), dict(
             opt_state, mu=place_params(mesh, opt_state["mu"], shard_vocab),
             nu=place_params(mesh, opt_state["nu"], shard_vocab))
@@ -376,7 +421,7 @@ def vocab_sharded_forward(captioner, params, images, captions_in, masks, row):
         output={"kernel": torch.eye(H, device=dev), "bias": torch.zeros(H, device=dev)}))
     trunk_masks = None if masks is None else masks._replace(
         logit=torch.ones((images.shape[0], H), device=dev))
-    feats = captioner.forward_train(trunk, images, captions_in, None, trunk_masks)
+    feats = captioner.forward_train(trunk, images, captions_in, None, masks=trunk_masks)
     out, start = [], 0
     for k, b, d in zip(kernels, biases, row):
         logits = feats.to(d) @ k + b
@@ -444,7 +489,8 @@ def sharded_train_grads(captioner, mesh, shard_vocab: bool = False):
                                                captions_in.shards[i], m, mesh.devices[i])
                 loss, counts = vocab_sharded_loss(captioner, logits, y)
                 return loss * (y.shape[0] / B), counts
-            logits = captioner.forward_train(p, images.shards[i], captions_in.shards[i], None, m)
+            logits = captioner.forward_train(p, images.shards[i], captions_in.shards[i], None,
+                                             masks=m)
             return (loss_fn(logits, y) * (y.shape[0] / B),
                     masked_accuracy_counts(logits.detach(), y))
 
@@ -454,7 +500,8 @@ def sharded_train_grads(captioner, mesh, shard_vocab: bool = False):
     return grads
 
 
-def make_sharded_train_step(captioner, optimizer, mesh, shard_vocab: bool = False):
+def make_sharded_train_step(captioner, optimizer, mesh, shard_vocab: bool = False,
+                            params_template=None, donate: bool = True, opt_state_template=None):
     """Mesh-parallel train step: the batch split over the data slots, the
     params replicated. Returns ``(step, place_state)``: ``step(params,
     opt_state, images, captions_in, y_onehot, generator, masks=None)`` as
@@ -464,9 +511,12 @@ def make_sharded_train_step(captioner, optimizer, mesh, shard_vocab: bool = Fals
     draw. ``place_state(params, opt_state)`` moves the state where the step
     keeps it. ``shard_vocab`` splits the embedding and the output projection
     over the mesh's model axis (the module's docstring; ``place_state``
-    slices them, ``parallel.gather_params`` joins them again)."""
-    return sharded_step(captioner, optimizer, mesh, sharded_train_grads(
-        captioner, mesh, shard_vocab)), place_on_mesh(mesh, shard_vocab)
+    slices them, ``parallel.gather_params`` joins them again). ``donate``
+    and the templates: ``undonated`` and ``place_on_mesh``."""
+    step = sharded_step(captioner, optimizer, mesh, sharded_train_grads(captioner, mesh,
+                                                                        shard_vocab))
+    return undonated(step, donate), place_on_mesh(mesh, shard_vocab, params_template,
+                                                  opt_state_template)
 
 
 def sharded_step(captioner, optimizer, mesh, grads_of):
@@ -520,14 +570,18 @@ def _steps_of(stacked: Sharded, K: int) -> list:
             for k in range(K)]
 
 
-def make_sharded_multi_train_step(captioner, optimizer, mesh, shard_vocab: bool = False):
+def make_sharded_multi_train_step(captioner, optimizer, mesh, shard_vocab: bool = False,
+                                  params_template=None, donate: bool = True,
+                                  opt_state_template=None):
     """K sharded train steps a call over (K, B, ...) stacks whose batch axis
     is split over the data slots, the JAX package's
     ``make_sharded_multi_train_step``: the same as K chained sharded steps
     (``make_sharded_train_step``). Returns ``(multi, place_state)``;
     ``multi`` as ``sharded_multi``'s."""
-    return sharded_multi(captioner, optimizer, mesh, sharded_train_grads(
-        captioner, mesh, shard_vocab)), place_on_mesh(mesh, shard_vocab)
+    multi = sharded_multi(captioner, optimizer, mesh, sharded_train_grads(captioner, mesh,
+                                                                          shard_vocab))
+    return undonated(multi, donate), place_on_mesh(mesh, shard_vocab, params_template,
+                                                   opt_state_template)
 
 
 def make_sharded_eval_step(captioner, mesh):

@@ -71,8 +71,8 @@ def load_weights_file(path: str, captioner, device):
         with np.load(path) as f:    # the names only: the arrays load lazily
             is_checkpoint = any(k.startswith("params/") for k in f.files)
         if is_checkpoint:
-            return restore_checkpoint(path, device)
-        return load_params_npz(path, device), None
+            return restore_checkpoint(path, device=device)
+        return load_params_npz(path, device=device), None
     if path.endswith((".h5", ".hdf5")):
         from ..models.weights_io import load_reference_checkpoint_h5
 
@@ -89,7 +89,7 @@ class Trainer:
 
     def __init__(self, model_type: str, config, dataset, label: str = "run", mesh=None,
                  seed: int = 0, eval_metrics: bool = True, multihost: bool = False,
-                 steps_per_call: int = 1, device="cuda"):
+                 steps_per_call: int = 1, *, device="cuda"):
         if multihost and mesh is None:
             # each process would train on its own rows with no gradient sum
             raise ValueError("multihost=True requires a mesh (make_multihost_mesh)")
@@ -110,9 +110,8 @@ class Trainer:
         self.optimizer = make_optimizer(model_type, config.learning_rate)
         # vocabs[i] is the word for model id i (1-based token i + 1)
         self.params = self.captioner.init_params(
-            seed, self.device,
-            vocab_words=self.provider.vocabs if config.pretrained_word_vector else None,
-            word_vector_path=getattr(config, "word_vector_path", None))
+            seed, vocab_words=self.provider.vocabs if config.pretrained_word_vector else None,
+            word_vector_path=getattr(config, "word_vector_path", None), device=self.device)
         self.opt_state = self.optimizer.init(self.params)
         # every train step's dropout masks
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -210,8 +209,8 @@ class Trainer:
         record, finalize = metric_accumulator()
         if training:
             self.params, self.opt_state = run_stepped_steps(
-                batches, steps, self._place, self._train_step, self.generator,
-                self.params, self.opt_state, record, self._steps_per_call, self._multi_step,
+                batches, steps, self._steps_per_call, self._place, self.generator,
+                self._multi_step, self._train_step, self.params, self.opt_state, record,
                 self._place_stacked)
         else:
             for _ in range(steps):
@@ -301,7 +300,7 @@ MODELTYPE = ("adaptiveattention", "gridTD", "aoa")
 
 
 def main_attention(config, dataset, label: str, model_type: str, weights: str | None = None,
-                   device="cuda", **run_kw):
+                   *, device="cuda", **run_kw):
     """Reference entry point parity (train.py:679-682)."""
     if model_type not in MODELTYPE:
         raise ValueError(f"model_type must be one of {MODELTYPE}")

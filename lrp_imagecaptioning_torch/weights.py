@@ -42,6 +42,43 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def check_tree_like(tree, template, what: str = "tree") -> None:
+    """Raise ``ValueError`` unless ``tree`` has ``template``'s structure (the
+    same dict keys, list lengths and tensor shapes; other leaves as they are)."""
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            if not isinstance(a, dict) or set(a) != set(b):
+                raise ValueError(f"{what}{path}: keys {_keys(a)} != the template's {sorted(b)}")
+            for k in b:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(b, (list, tuple)):
+            if not isinstance(a, (list, tuple)) or len(a) != len(b):
+                raise ValueError(f"{what}{path}: not a sequence of the template's {len(b)}")
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}/#{i}")
+        elif hasattr(b, "shape") and tuple(getattr(a, "shape", ())) != tuple(b.shape):
+            raise ValueError(f"{what}{path}: shape {tuple(getattr(a, 'shape', ()))} != "
+                             f"the template's {tuple(b.shape)}")
+
+    walk(tree, template, "")
+
+
+def _keys(node):
+    return sorted(node) if isinstance(node, dict) else type(node).__name__
+
+
+def tree_like(tree, template):
+    """``tree``'s tensors on ``template``'s devices and in its dtypes (leaves
+    that are not tensors in the template stay as they are)."""
+    if isinstance(template, dict):
+        return {k: tree_like(tree[k], template[k]) for k in template}
+    if isinstance(template, (list, tuple)):
+        return type(template)(tree_like(a, b) for a, b in zip(tree, template))
+    if isinstance(template, torch.Tensor):
+        return torch.as_tensor(tree).to(device=template.device, dtype=template.dtype)
+    return tree
+
+
 def tree_leaves(tree) -> list:
     """The leaves of a nested dict/list/tuple, dict keys in sorted order (so
     that two dicts with the same keys line up, whatever their insertion order)."""
@@ -97,7 +134,7 @@ def opt_state_from_jax(count, mu, nu, learning_rate, device="cuda"):
             "learning_rate": float(np.asarray(learning_rate))}
 
 
-def save_params_npz(path: str, tree) -> None:
+def save_params_npz(path: str, params) -> None:
     """A nested dict/list/tuple of tensors or arrays -> flat ``.npz`` (the
     format ``load_params_npz`` and the JAX package read)."""
     flat = {}
@@ -120,11 +157,11 @@ def save_params_npz(path: str, tree) -> None:
         else:
             flat[prefix] = np.asarray(node)
 
-    walk("", tree)
+    walk("", params)
     np.savez(path, **flat)
 
 
-def load_params_npz(path: str, device="cuda"):
+def load_params_npz(path: str, *, device="cuda"):
     """Inverse of the JAX package's ``save_params_npz`` -> tree of tensors."""
     out: dict = {}
     with np.load(path) as f:

@@ -249,7 +249,7 @@ def phase9_spread(cs, dev, runs, n_images):
         os.chdir(work)
         try:
             _, _, (cfg, ds, trainer) = cs.phase_trainer(dev, [], {})
-            params = restore_checkpoint(latest_checkpoint(trainer.result_dir), dev)[0]
+            params = restore_checkpoint(latest_checkpoint(trainer.result_dir), device=dev)[0]
             cs.write_test_jpegs(ds)
             provider = DatasetProvider(ds, cfg)
             pp = provider.caption_preprocessor

@@ -42,18 +42,18 @@ def main(argv=None) -> int:
     ap.add_argument("--until", default="block4_conv3")
     args = ap.parse_args(argv)
     torch.set_num_threads(min(4, os.cpu_count() or 1))
-    p32 = init_vgg_params(torch.Generator().manual_seed(0), args.until)
+    p32 = init_vgg_params(torch.Generator().manual_seed(0), until=args.until)
     p64 = tree_to(p32, dtype=torch.float64)
-    ops = vgg_layers(args.until)
+    ops = vgg_layers(until=args.until)
     rng = np.random.default_rng(0)
     whole, own = [], []
     for i in range(args.images):
         img = torch.from_numpy(rng.normal(0, 60, (1, args.size, args.size, 3)).astype(np.float32))
-        top, acts = vgg_apply_with_acts(p32, img, args.until)
-        top_ref, acts_ref = vgg_apply_with_acts(p32, reference_image(img, 0.0), args.until)
+        top, acts = vgg_apply_with_acts(p32, img, until=args.until)
+        top_ref, acts_ref = vgg_apply_with_acts(p32, reference_image(img, 0.0), until=args.until)
         seed = torch.from_numpy(rng.normal(0, 1, top.shape).astype(np.float32))
-        m32 = vgg_deeplift(p32, img, seed, args.until)
-        m64 = vgg_deeplift(p64, img.double(), seed.double(), args.until)
+        m32 = vgg_deeplift(p32, img, seed, until=args.until)
+        m64 = vgg_deeplift(p64, img.double(), seed.double(), until=args.until)
         m64_own = _deeplift_backward(p64, seed.double(), ops, [a.double() for a in acts],
                                      [a.double() for a in acts_ref], top.double(),
                                      top_ref.double(), True)

@@ -157,8 +157,8 @@ def test_alpha_beta_general_matches_jax_f64(rng, alpha, beta, nonneg, bias):
     x, k, r = _rule_inputs(rng, nonneg)
     b = rng.normal(size=(3,)).astype(np.float32)
     t64 = lambda a: _t(a, torch.float64)  # noqa: E731
-    got = tconv.lrp_conv_alpha_beta(t64(r), t64(x), t64(k), t64(b) if bias else None, nonneg,
-                                    alpha=alpha, beta=beta, factor=1e-3).numpy()
+    got = tconv.lrp_conv_alpha_beta(t64(r), t64(x), t64(k), t64(b) if bias else None, alpha, beta,
+                                    factor=1e-3, input_nonneg=nonneg).numpy()
     ref = _jax64(lambda r_, x_, k_, b_: jconv.lrp_conv_alpha_beta(
         r_, x_, k_, b_ if bias else None, alpha=alpha, beta=beta, factor=1e-3,
         input_nonneg=nonneg), r, x, k, b)
@@ -185,7 +185,7 @@ def test_integrated_gradients_completeness_and_baseline(rng):
         _t(image), _t(seed))
 
     def f(img):
-        return float((vgg_apply(pt, img, UNTIL) * _t(seed)).sum())
+        return float((vgg_apply(pt, img, until=UNTIL) * _t(seed)).sum())
 
     target = f(_t(image)) - f(torch.zeros(image.shape))
     np.testing.assert_allclose(float(ig.sum()), target, rtol=0.05, atol=0.5)
@@ -216,12 +216,12 @@ def test_smoothgrad_zero_noise_is_gradient_and_matches_jax_draws(rng):
 def test_flat_input_presets_match_jax(rng):
     """PresetAFlat in f32; PresetBFlat (alpha2beta1) in f64."""
     pj, pt, image, seed = _setup(rng, size=8, until=UNTIL_POOL)
-    a = tcnn.vgg_lrp_preset_a_flat(pt, _t(image), _t(seed), UNTIL_POOL).numpy()
+    a = tcnn.vgg_lrp_preset_a_flat(pt, _t(image), _t(seed), until=UNTIL_POOL).numpy()
     ref_a = jcnn.vgg_lrp_preset_a_flat(pj, jnp.asarray(image), jnp.asarray(seed), "vgg16",
                                        UNTIL_POOL)
     assert a.shape == image.shape and _rel(a, ref_a) <= MAP_RTOL
     b = tcnn.vgg_lrp_preset_b_flat(tree_to(pt, dtype=torch.float64), _t(image, torch.float64),
-                                   _t(seed, torch.float64), UNTIL_POOL).numpy()
+                                   _t(seed, torch.float64), until=UNTIL_POOL).numpy()
     ref_b = _jax64(lambda p, x, s: jcnn.vgg_lrp_preset_b_flat(p, x, s, "vgg16", UNTIL_POOL),
                    image, seed, params=pj)
     assert _rel(b, ref_b) <= F64_RTOL
@@ -239,7 +239,7 @@ def test_preset_a_bf16_modes_close_to_f32_as_jax(rng):
                     ({"storage_dtype": jnp.bfloat16}, {"storage_dtype": torch.bfloat16})):
         ref = np.asarray(jcnn.vgg_lrp_preset_a_wordbatched(
             pj, jnp.asarray(image), jnp.asarray(seeds), "vgg16", UNTIL, **kw))
-        got = tcnn.vgg_lrp_preset_a_wordbatched(pt, _t(image), _t(seeds), UNTIL, **tkw)
+        got = tcnn.vgg_lrp_preset_a_wordbatched(pt, _t(image), _t(seeds), until=UNTIL, **tkw)
         assert got.dtype == torch.float32
         assert _rel(got.numpy(), f32) <= max(BF16_RATIO * _rel(ref, f32), 1e-3), kw
         assert _rel(got.numpy(), f32) < 0.05
@@ -247,8 +247,8 @@ def test_preset_a_bf16_modes_close_to_f32_as_jax(rng):
 
 def test_preset_a_debug_stats_match_jax(rng):
     pj, pt, image, seed = _setup(rng, size=8, until=UNTIL_POOL)
-    rel, stats = tcnn.vgg_lrp_preset_a_debug(pt, _t(image), _t(seed), UNTIL_POOL)
-    plain = tcnn.vgg_lrp_preset_a(pt, _t(image), _t(seed), UNTIL_POOL)
+    rel, stats = tcnn.vgg_lrp_preset_a_debug(pt, _t(image), _t(seed), until=UNTIL_POOL)
+    plain = tcnn.vgg_lrp_preset_a(pt, _t(image), _t(seed), until=UNTIL_POOL)
     np.testing.assert_array_equal(rel.numpy(), plain.numpy())
     _, ref = jcnn.vgg_lrp_preset_a_debug(pj, jnp.asarray(image), jnp.asarray(seed), "vgg16",
                                          UNTIL_POOL)
@@ -282,8 +282,8 @@ def test_alpha_beta_nonneg_flag_exact(rng, alpha, beta):
     b = rng.normal(size=(8,)).astype(np.float32)
     r = rng.normal(size=(2, 8, 8, 8)).astype(np.float32)
     kw = dict(alpha=alpha, beta=beta)
-    full = tconv.lrp_conv_alpha_beta(_t(r), _t(x), _t(k), _t(b), False, **kw)
-    fast = tconv.lrp_conv_alpha_beta(_t(r), _t(x), _t(k), _t(b), True, **kw)
+    full = tconv.lrp_conv_alpha_beta(_t(r), _t(x), _t(k), _t(b), input_nonneg=False, **kw)
+    fast = tconv.lrp_conv_alpha_beta(_t(r), _t(x), _t(k), _t(b), input_nonneg=True, **kw)
     np.testing.assert_array_equal(full.numpy(), fast.numpy())
     # no bias: z sums terms of one sign, so f32 holds to f64 closely
     routed = tcnn.conv_rule(_t(r), _t(x), _t(k), None, **kw).numpy()
@@ -300,8 +300,9 @@ def test_preset_a_wordbatched_fused_matches_direct_and_jax(rng):
         image = (rng.normal(size=(1, 16, 16, 3)) * 40).astype(np.float32)
         g, ch = (16, 64) if until == UNTIL else (8, 128)
         seeds = rng.normal(size=(3, g, g, ch)).astype(np.float32)
-        direct = tcnn.vgg_lrp_preset_a_wordbatched(pt, _t(image), _t(seeds), until).numpy()
-        fused = tcnn.vgg_lrp_preset_a_wordbatched_fused(pt, _t(image), _t(seeds), until).numpy()
+        direct = tcnn.vgg_lrp_preset_a_wordbatched(pt, _t(image), _t(seeds), until=until).numpy()
+        fused = tcnn.vgg_lrp_preset_a_wordbatched_fused(pt, _t(image), _t(seeds), "vgg16",
+                                                        until).numpy()
         np.testing.assert_allclose(fused, direct, rtol=2e-4, atol=1e-6 * np.abs(direct).max(),
                                    err_msg=until)
         ref = jcnn.vgg_lrp_preset_a_wordbatched_fused(pj, jnp.asarray(image), jnp.asarray(seeds),
@@ -316,7 +317,7 @@ def test_preset_a_wordbatched_matches_jax_lane_packed_or_not(rng):
     image = (rng.normal(size=(1, 16, 16, 3)) * 40).astype(np.float32)
     for W in (5, 1):
         seeds = rng.normal(size=(W, 8, 8, 128)).astype(np.float32)
-        got = tcnn.vgg_lrp_preset_a_wordbatched(pt, _t(image), _t(seeds), UNTIL_POOL).numpy()
+        got = tcnn.vgg_lrp_preset_a_wordbatched(pt, _t(image), _t(seeds), until=UNTIL_POOL).numpy()
         for lane_pack in (True, False):
             ref = jcnn.vgg_lrp_preset_a_wordbatched(pj, jnp.asarray(image), jnp.asarray(seeds),
                                                     "vgg16", UNTIL_POOL, lane_pack=lane_pack)
@@ -332,16 +333,17 @@ def test_preset_a_imgword_batched_matches_jax(rng):
     seeds = rng.normal(size=(2, 3, 8, 8, 128)).astype(np.float32)
     ref = np.asarray(jcnn.vgg_lrp_preset_a_imgword_batched(pj, jnp.asarray(imgs),
                                                            jnp.asarray(seeds), "vgg16", UNTIL_POOL))
-    got = tcnn.vgg_lrp_preset_a_imgword_batched(pt, _t(imgs), _t(seeds), UNTIL_POOL).numpy()
+    got = tcnn.vgg_lrp_preset_a_imgword_batched(pt, _t(imgs), _t(seeds), until=UNTIL_POOL).numpy()
     assert got.shape == (2, 3, 16, 16, 3) and _rel(got, ref) <= MAP_RTOL
     per_image = np.stack([tcnn.vgg_lrp_preset_a_wordbatched(pt, _t(imgs[b:b + 1]), _t(seeds[b]),
-                                                            UNTIL_POOL).numpy() for b in range(2)])
+                                                            until=UNTIL_POOL).numpy()
+                          for b in range(2)])
     np.testing.assert_array_equal(got, per_image)
     for kw, tkw in (({"storage_dtype": jnp.bfloat16}, {"storage_dtype": torch.bfloat16}),
                     ({"compute_dtype": jnp.bfloat16}, {"compute_dtype": torch.bfloat16})):
         jb = np.asarray(jcnn.vgg_lrp_preset_a_imgword_batched(
             pj, jnp.asarray(imgs), jnp.asarray(seeds), "vgg16", UNTIL_POOL, **kw))
-        tb = tcnn.vgg_lrp_preset_a_imgword_batched(pt, _t(imgs), _t(seeds), UNTIL_POOL, **tkw)
+        tb = tcnn.vgg_lrp_preset_a_imgword_batched(pt, _t(imgs), _t(seeds), until=UNTIL_POOL, **tkw)
         assert tb.dtype == torch.float32
         assert _rel(tb.numpy(), ref) <= max(BF16_RATIO * _rel(jb, ref), 1e-3), kw
 
@@ -352,12 +354,12 @@ def test_preset_b_and_epsilon_walks_match_jax_f64(rng):
     pj, pt, image, seed = _setup(rng, size=8, until=UNTIL_POOL)
     p64 = tree_to(pt, dtype=torch.float64)
     x64, s64 = _t(image, torch.float64), _t(seed, torch.float64)
-    got = tcnn.vgg_lrp_preset_b(p64, x64, s64, UNTIL_POOL).numpy()
+    got = tcnn.vgg_lrp_preset_b(p64, x64, s64, until=UNTIL_POOL).numpy()
     ref = _jax64(lambda p, x, s: jcnn.vgg_lrp_preset_b(p, x, s, "vgg16", UNTIL_POOL),
                  image, seed, params=pj)
     assert _rel(got, ref) <= F64_RTOL
     for bias in (True, False):
-        got = tcnn.vgg_lrp_epsilon(p64, x64, s64, UNTIL_POOL, bias=bias).numpy()
+        got = tcnn.vgg_lrp_epsilon(p64, x64, s64, until=UNTIL_POOL, bias=bias).numpy()
         ref = _jax64(lambda p, x, s: jcnn.vgg_lrp_epsilon(p, x, s, "vgg16", UNTIL_POOL,
                                                           bias=bias), image, seed, params=pj)
         assert _rel(got, ref) <= F64_RTOL, bias

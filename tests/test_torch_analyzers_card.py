@@ -28,7 +28,7 @@ from lrp_imagecaptioning_torch.weights import tree_to  # noqa: E402
 def _vgg16_post_relu_convs():
     """(name, H = W, Cin, Cout) of VGG16's 12 convs over a post-ReLU input at 224x224."""
     size, out = 224, []
-    for op in vgg_layers("block5_conv3"):
+    for op in vgg_layers(until="block5_conv3"):
         if op[0] == "pool":
             size //= 2
         elif op[1] != "block1_conv1":
@@ -51,7 +51,7 @@ def _rel(got, ref):
 
 def _small_vgg(seed=0):
     gen = torch.Generator().manual_seed(seed)
-    params = init_vgg_params(gen, UNTIL)
+    params = init_vgg_params(gen, until=UNTIL)
     for p in params.values():
         p["bias"] = torch.randn(p["bias"].shape, generator=gen) * 0.05
     image = torch.randn(2, 16, 16, 3, generator=gen) * 40
@@ -84,7 +84,7 @@ class TestAnalyzersOnCard:
         assert kernels.conv3x3_fused.launches == before + 4
         z = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), kn.permute(3, 2, 0, 1), padding=1)
         assert bool((z <= 0).all()) and bool((z == 0).any())
-        ref = lrp_conv_alpha_beta(r.double(), x.double(), k.double(), None, True,
+        ref = lrp_conv_alpha_beta(r.double(), x.double(), k.double(), None, input_nonneg=True,
                                   alpha=2.0, beta=1.0)
         torch.cuda.synchronize()
         assert got.shape == (2, size, size, cin) and torch.isfinite(got).all()
@@ -116,13 +116,13 @@ class TestAnalyzersOnCard:
         seeds = torch.randn(2, 3, 8, 8, 128, generator=torch.Generator().manual_seed(2))
         kernels.reset_launches()
         with torch.no_grad():
-            got = cnn_lrp.vgg_lrp_preset_a_imgword_batched(
-                tree_to(params, "cuda"), image.cuda(), seeds.cuda(), UNTIL,
-                storage_dtype=torch.bfloat16)
+            got = cnn_lrp.vgg_lrp_preset_a_imgword_batched(tree_to(params, "cuda"), image.cuda(),
+                                                           seeds.cuda(), until=UNTIL,
+                                                           storage_dtype=torch.bfloat16)
         assert kernels.lrp_a1b0_fused.launches == 2 * 2
         assert kernels.conv3x3_fused.launches == 0
-        f32 = cnn_lrp.vgg_lrp_preset_a_imgword_batched(params, image, seeds, UNTIL)
-        cpu = cnn_lrp.vgg_lrp_preset_a_imgword_batched(params, image, seeds, UNTIL,
+        f32 = cnn_lrp.vgg_lrp_preset_a_imgword_batched(params, image, seeds, until=UNTIL)
+        cpu = cnn_lrp.vgg_lrp_preset_a_imgword_batched(params, image, seeds, until=UNTIL,
                                                        storage_dtype=torch.bfloat16)
         assert got.dtype == torch.float32 and got.shape == (2, 3, 16, 16, 3)
         assert _rel(got, f32) <= max(2 * _rel(cpu, f32), 1e-2)
@@ -135,10 +135,10 @@ class TestAnalyzersOnCard:
         seeds = torch.randn(2, 3, 8, 8, 128, generator=torch.Generator().manual_seed(3))
         kernels.reset_launches()
         with torch.no_grad():
-            got = cnn_lrp.vgg_lrp_preset_a_imgword_batched(
-                tree_to(params, "cuda"), image.cuda(), seeds.cuda(), UNTIL,
-                compute_dtype=torch.bfloat16)
+            got = cnn_lrp.vgg_lrp_preset_a_imgword_batched(tree_to(params, "cuda"), image.cuda(),
+                                                           seeds.cuda(), until=UNTIL,
+                                                           compute_dtype=torch.bfloat16)
         assert kernels.conv3x3_fused.launches == 0 and kernels.lrp_a1b0_fused.launches == 0
-        cpu = cnn_lrp.vgg_lrp_preset_a_imgword_batched(params, image, seeds, UNTIL,
+        cpu = cnn_lrp.vgg_lrp_preset_a_imgword_batched(params, image, seeds, until=UNTIL,
                                                        compute_dtype=torch.bfloat16)
         assert torch.isfinite(got).all() and _rel(got, cpu.double()) < 1e-2

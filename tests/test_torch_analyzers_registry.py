@@ -157,7 +157,7 @@ def test_registry_preset_a_matches_direct_call(rng):
     _, pt, image, seed = _setup(rng)
     via_registry = ta.create_analyzer("lrp.sequential_preset_a", pt, until=UNTIL)(
         _t(image), _t(seed))
-    direct = tcnn.vgg_lrp_preset_a(pt, _t(image), _t(seed), UNTIL)
+    direct = tcnn.vgg_lrp_preset_a(pt, _t(image), _t(seed), until=UNTIL)
     np.testing.assert_array_equal(via_registry.numpy(), direct.numpy())
 
 
@@ -177,14 +177,14 @@ def test_random_and_smoothgrad_draw_from_the_generator(rng):
 def test_deep_taylor_equals_preset_a_for_positive_seed(rng):
     _, pt, image, seed = _setup(rng)
     pos = _t(np.abs(seed))
-    dt = tcnn.vgg_deep_taylor(pt, _t(image), pos, UNTIL)
-    pa = tcnn.vgg_lrp_preset_a(pt, _t(image), pos, UNTIL)
+    dt = tcnn.vgg_deep_taylor(pt, _t(image), pos, until=UNTIL)
+    pa = tcnn.vgg_lrp_preset_a(pt, _t(image), pos, until=UNTIL)
     np.testing.assert_array_equal(dt.numpy(), pa.numpy())
 
 
 def test_deep_taylor_clamps_negative_seed(rng):
     _, pt, image, seed = _setup(rng)
-    out = tcnn.vgg_deep_taylor(pt, _t(image), _t(-np.abs(seed)), UNTIL)
+    out = tcnn.vgg_deep_taylor(pt, _t(image), _t(-np.abs(seed)), until=UNTIL)
     assert float(out.abs().max()) == 0.0
 
 
@@ -206,23 +206,23 @@ def test_deeplift_completeness_single_linear_layer(rng):
     pj = jvgg.init_vgg_params(jax.random.PRNGKey(0), "vgg16", "block1_conv1")
     pt = params_from_jax(pj, "cpu")
     image = _t(rng.normal(size=(1, 8, 8, 3)).astype(np.float32))
-    seed = vgg_apply(pt, image, "block1_conv1")
-    attrib = tdl.vgg_deeplift(pt, image, seed, "block1_conv1")
+    seed = vgg_apply(pt, image, until="block1_conv1")
+    attrib = tdl.vgg_deeplift(pt, image, seed, until="block1_conv1")
     np.testing.assert_allclose(float(attrib.sum()), float(seed.sum()), rtol=1e-4)
 
 
 def test_deeplift_standalone_seed_is_output_difference(rng):
     _, pt, image, _ = _setup(rng)
-    via_standalone = tdl.vgg_deeplift_standalone(pt, _t(image), UNTIL)
-    out = vgg_apply(pt, _t(image), UNTIL)
-    ref = vgg_apply(pt, torch.zeros(image.shape), UNTIL)
-    via_seed = tdl.vgg_deeplift(pt, _t(image), out - ref, UNTIL)
+    via_standalone = tdl.vgg_deeplift_standalone(pt, _t(image), until=UNTIL)
+    out = vgg_apply(pt, _t(image), until=UNTIL)
+    ref = vgg_apply(pt, torch.zeros(image.shape), until=UNTIL)
+    via_seed = tdl.vgg_deeplift(pt, _t(image), out - ref, until=UNTIL)
     np.testing.assert_allclose(via_standalone.numpy(), via_seed.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_deeplift_exact_branch_runs(rng):
     _, pt, image, seed = _setup(rng)
-    out = tdl.vgg_deeplift(pt, _t(image), _t(seed), UNTIL, approximate_gradient=False)
+    out = tdl.vgg_deeplift(pt, _t(image), _t(seed), until=UNTIL, approximate_gradient=False)
     assert out.shape == image.shape and torch.isfinite(out).all()
 
 
@@ -257,14 +257,14 @@ def test_linear_pattern_recovers_signal_direction():
                               "cnt": _t([float(n)]), "sum_y": _t(Y.sum(0)),
                               "cnt_all": _t(float(n))}}
     params = {"block1_conv1": {"kernel": _t(w.reshape(3, 3, 3, 1)), "bias": torch.zeros(1)}}
-    A = tpat.compute_patterns(stats, params, "block1_conv1")["block1_conv1"]
+    A = tpat.compute_patterns(stats, params, until="block1_conv1")["block1_conv1"]
     np.testing.assert_allclose(A.numpy().reshape(-1), a[:, 0], atol=0.05)
 
 
 def test_pattern_stats_streaming_equals_one_shot(rng):
     pj, pt, image, _ = _setup(rng, B=4, until=UNTIL_POOL)
-    one = tpat.compute_vgg_patterns(pt, [image], "linear", UNTIL_POOL)
-    two = tpat.compute_vgg_patterns(pt, [image[:2], image[2:]], "linear", UNTIL_POOL)
+    one = tpat.compute_vgg_patterns(pt, [image], "linear", until=UNTIL_POOL)
+    two = tpat.compute_vgg_patterns(pt, [image[:2], image[2:]], "linear", until=UNTIL_POOL)
     for name in one:
         np.testing.assert_allclose(one[name].numpy(), two[name].numpy(), rtol=1e-4,
                                    atol=1e-5 * float(one[name].abs().max()))
@@ -282,7 +282,7 @@ def test_patterns_match_jax_f64(rng, pattern_type):
                                         pattern_type, "vgg16", UNTIL_POOL)
         ref = {k: np.asarray(v) for k, v in ref.items()}
     got = tpat.compute_vgg_patterns(tree_to(pt, dtype=torch.float64), batches, pattern_type,
-                                    UNTIL_POOL)
+                                    until=UNTIL_POOL)
     assert set(got) == set(ref) == {"block1_conv1", "block1_conv2", "block2_conv1"}
     for name in ref:
         assert got[name].dtype == torch.float64 and ref[name].dtype == np.float64
@@ -291,11 +291,11 @@ def test_patterns_match_jax_f64(rng, pattern_type):
 
 def test_pattern_types_differ(rng):
     _, pt, image, _ = _setup(rng, B=2)
-    lin = tpat.compute_vgg_patterns(pt, [image], "linear", UNTIL)
-    rel = tpat.compute_vgg_patterns(pt, [image], "relu", UNTIL)
+    lin = tpat.compute_vgg_patterns(pt, [image], "linear", until=UNTIL)
+    rel = tpat.compute_vgg_patterns(pt, [image], "relu", until=UNTIL)
     assert not np.allclose(lin["block1_conv1"].numpy(), rel["block1_conv1"].numpy())
     with pytest.raises(ValueError):
-        tpat.compute_vgg_patterns(pt, [image], "quadratic", UNTIL)
+        tpat.compute_vgg_patterns(pt, [image], "quadratic", until=UNTIL)
 
 
 def test_patternnet_vs_attribution_differ_and_match_jax(rng):
@@ -303,8 +303,8 @@ def test_patternnet_vs_attribution_differ_and_match_jax(rng):
     pats = jpat.compute_vgg_patterns(pj, [image], "relu", "vgg16", UNTIL)
     tp = params_from_jax(pats, "cpu")      # the patterns dict crosses as params do
     assert set(tp) == set(pats) and all(tp[k].shape == pats[k].shape for k in pats)
-    net = tpat.vgg_patternnet(pt, tp, _t(image), _t(seed), UNTIL).numpy()
-    att = tpat.vgg_pattern_attribution(pt, tp, _t(image), _t(seed), UNTIL).numpy()
+    net = tpat.vgg_patternnet(pt, tp, _t(image), _t(seed), until=UNTIL).numpy()
+    att = tpat.vgg_pattern_attribution(pt, tp, _t(image), _t(seed), until=UNTIL).numpy()
     assert not np.allclose(net, att)
     assert _rel(net, jpat.vgg_patternnet(pj, pats, jnp.asarray(image), jnp.asarray(seed),
                                          "vgg16", UNTIL)) <= MAP_RTOL

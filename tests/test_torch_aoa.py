@@ -187,7 +187,7 @@ def test_forward_train_matches_jax(pair, dropout):
     key = jax.random.PRNGKey(5) if dropout == "jax_masks" else None
     ref = np.asarray(jcap.forward_train(pj, jnp.asarray(images), jnp.asarray(caps), key))
     masks = _jax_masks(key, pj, 0.5, B) if key is not None else None
-    got = tcap.forward_train(pt, _t(images), _t(caps), None, masks).numpy()
+    got = tcap.forward_train(pt, _t(images), _t(caps), None, masks=masks).numpy()
     assert got.shape == (B, T, te.VOCAB)
     _close(got, ref, 1e-5)
 
@@ -211,7 +211,7 @@ def test_loss_gradients_with_dropout_match_jax(pair):
                                            jnp.asarray(y), key)
     masks = _jax_masks(key, pj, 0.5, B)
     lt, _, gt = tstep.value_and_grad(
-        lambda p: (tcap.loss(p, _t(images), _t(caps), _t(y), None, masks), None), pt)
+        lambda p: (tcap.loss(p, _t(images), _t(caps), _t(y), None, masks=masks), None), pt)
     assert float(lt) == pytest.approx(float(lj), rel=1e-6)
     leaves = te.tree_pairs(gj, gt)
     assert len(leaves) == len(jax.tree.leaves(gj))

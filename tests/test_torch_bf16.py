@@ -196,7 +196,7 @@ def test_conv_ops_bf16_match_jax():
     k = _bf16_values(rng.normal(size=(3, 3, 16, 8)))
     s = _bf16_values(rng.normal(size=(2, 6, 8, 8)))
     y = tconv.conv2d(_tb(x), _tb(k))
-    t = tconv.conv2d_input_vjp(_tb(k), _tb(s))
+    t = tconv.conv2d_input_vjp(None, _tb(k), _tb(s))
     assert y.dtype == t.dtype == torch.bfloat16
     yj = jconv.conv2d(jnp.asarray(x, BF16), jnp.asarray(k, BF16))
     tj = jconv.conv2d_input_vjp(x.shape, jnp.asarray(k, BF16), jnp.asarray(s, BF16))
@@ -242,7 +242,8 @@ def test_encode_compute_dtype_matches_jax():
     f32 = tcap.encode(pt, torch.from_numpy(img), compute_dtype=torch.float32)
     assert not torch.equal(f32, got)
     torch.testing.assert_close(
-        tvgg.vgg_apply(pt["vgg"], torch.from_numpy(img), "block2_conv1", torch.bfloat16)
+        tvgg.vgg_apply(pt["vgg"], torch.from_numpy(img), until="block2_conv1",
+                       compute_dtype=torch.bfloat16)
         .reshape(2, 16, 128), got, rtol=0, atol=0)
 
 
@@ -270,7 +271,7 @@ def test_cnn_lrp_bf16_matches_jax_storage_bf16(lane_pack):
                                             storage_dtype=BF16, lane_pack=lane_pack)
     launches = kernels.lrp_a1b0_fused.launches
     got = tcnn.vgg_lrp_preset_a_wordbatched(pt, torch.from_numpy(image), torch.from_numpy(seeds),
-                                            UNTIL, storage_dtype=torch.bfloat16)
+                                            until=UNTIL, storage_dtype=torch.bfloat16)
     assert kernels.lrp_a1b0_fused.launches == launches   # CPU tensors: the plain version
     assert got.dtype == torch.float32 and got.shape == (3, 16, 16, 3)
     for w in range(3):
@@ -281,7 +282,7 @@ def test_vgg_lrp_preset_a_matches_jax():
     """One seed per image, f32, at PR 1's bound: 1e-4 of the map's scale."""
     pj, pt, image, seeds = _cnn_inputs(2, 2)
     ref = jcnn.vgg_lrp_preset_a(pj, jnp.asarray(image), jnp.asarray(seeds), "vgg16", UNTIL)
-    got = tcnn.vgg_lrp_preset_a(pt, torch.from_numpy(image), torch.from_numpy(seeds), UNTIL)
+    got = tcnn.vgg_lrp_preset_a(pt, torch.from_numpy(image), torch.from_numpy(seeds), until=UNTIL)
     assert got.shape == (2, 16, 16, 3)
     for b in range(2):
         assert _dist(got[b], ref[b]) <= 1e-4

@@ -79,7 +79,7 @@ def test_deep_taylor_matches_jax_per_image():
     pj, pt = _vgg()
     image, seeds = _inputs(2, 2)
     ref = j_deep_taylor(pj, jnp.asarray(image), jnp.asarray(seeds), "vgg16", UNTIL)
-    got = t_deep_taylor(pt, torch.from_numpy(image), torch.from_numpy(seeds), UNTIL)
+    got = t_deep_taylor(pt, torch.from_numpy(image), torch.from_numpy(seeds), until=UNTIL)
     assert np.abs(np.asarray(ref)).max() > 0
     assert _rel(got.numpy(), ref) <= MAP_RTOL
 
@@ -89,7 +89,7 @@ def test_deep_taylor_words_as_the_batch_match_jax_per_word():
     alone (the engine's vmap over seeds)."""
     pj, pt = _vgg(3)
     image, seeds = _inputs(1, 3, seed=1)
-    got = t_deep_taylor(pt, torch.from_numpy(image), torch.from_numpy(seeds), UNTIL)
+    got = t_deep_taylor(pt, torch.from_numpy(image), torch.from_numpy(seeds), until=UNTIL)
     for w in range(3):
         ref = j_deep_taylor(pj, jnp.asarray(image), jnp.asarray(seeds[w:w + 1]), "vgg16", UNTIL)
         assert _rel(got[w:w + 1].numpy(), ref) <= MAP_RTOL
@@ -100,7 +100,7 @@ def test_deep_taylor_ignores_negative_seed():
     _, pt = _vgg()
     image, seeds = _inputs(1, 1, seed=2)
     seeds = -np.abs(seeds)
-    out = t_deep_taylor(pt, torch.from_numpy(image), torch.from_numpy(seeds), UNTIL)
+    out = t_deep_taylor(pt, torch.from_numpy(image), torch.from_numpy(seeds), until=UNTIL)
     assert float(out.abs().max()) == 0.0
 
 
@@ -127,9 +127,9 @@ def _deeplift_pair(pj, pt, image, seeds, reference, **kw):
     pt64 = tree_to(pt, dtype=torch.float64)
     x, r = torch.from_numpy(image).double(), torch.as_tensor(reference, dtype=torch.float64)
     if seeds is None:
-        got = t_dl.vgg_deeplift_standalone(pt64, x, UNTIL, reference_inputs=r, **kw)
+        got = t_dl.vgg_deeplift_standalone(pt64, x, until=UNTIL, reference_inputs=r, **kw)
     else:
-        got = t_dl.vgg_deeplift(pt64, x, torch.from_numpy(seeds).double(), UNTIL,
+        got = t_dl.vgg_deeplift(pt64, x, torch.from_numpy(seeds).double(), until=UNTIL,
                                 reference_inputs=r, **kw)
     assert ref.dtype == np.float64 and got.dtype == torch.float64
     return got.numpy(), ref
@@ -155,7 +155,7 @@ def test_deeplift_words_as_the_batch_match_jax_per_word():
     pj, pt = _vgg(6)
     image, seeds = _inputs(1, 3, seed=5)
     got = t_dl.vgg_deeplift(tree_to(pt, dtype=torch.float64), torch.from_numpy(image).double(),
-                            torch.from_numpy(seeds).double(), UNTIL).numpy()
+                            torch.from_numpy(seeds).double(), until=UNTIL).numpy()
     for w in range(3):
         _, ref = _deeplift_pair(pj, pt, image, seeds[w:w + 1], 0.0)
         assert _rel(got[w:w + 1], ref) <= MAP_RTOL
@@ -174,9 +174,9 @@ def test_deeplift_f32_walk_matches_jax_f64_walk_over_its_forward(reference):
     x, s = torch.from_numpy(image), torch.from_numpy(seeds)
     x_ref = (torch.zeros_like(x) if reference == "zero"
              else torch.from_numpy(_reference_image(image, 7)))
-    got = t_dl.vgg_deeplift(pt, x, s, UNTIL, reference_inputs=x_ref).numpy()
-    top, acts = vgg_apply_with_acts(pt, x, UNTIL)
-    top_ref, acts_ref = vgg_apply_with_acts(pt, x_ref, UNTIL)
+    got = t_dl.vgg_deeplift(pt, x, s, until=UNTIL, reference_inputs=x_ref).numpy()
+    top, acts = vgg_apply_with_acts(pt, x, until=UNTIL)
+    top_ref, acts_ref = vgg_apply_with_acts(pt, x_ref, until=UNTIL)
     with jax.enable_x64(True):
         def f64(a):
             return jnp.asarray(np.asarray(a), jnp.float64)
@@ -197,8 +197,8 @@ def test_deeplift_gradient_switch_fires():
     ref = torch.from_numpy(_reference_image(image, 6))
     same = x == ref
     assert 0 < float(same.double().mean()) < 1
-    on = t_dl.vgg_deeplift(pt, x, s, UNTIL, reference_inputs=ref, approximate_gradient=True)
-    off = t_dl.vgg_deeplift(pt, x, s, UNTIL, reference_inputs=ref, approximate_gradient=False)
+    on = t_dl.vgg_deeplift(pt, x, s, until=UNTIL, reference_inputs=ref, approximate_gradient=True)
+    off = t_dl.vgg_deeplift(pt, x, s, until=UNTIL, reference_inputs=ref, approximate_gradient=False)
     assert float(off[same].abs().max()) == 0.0 and float(on[same].abs().max()) > 0
 
 

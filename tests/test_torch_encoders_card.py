@@ -86,7 +86,7 @@ class TestEncodersOnCard:
         grads = []
         for dev, dt in (("cpu", torch.float64), ("cuda", torch.float32)):
             xd = x.to(dev, dt).requires_grad_()
-            y = avgpool2d(xd, window, stride, padding)
+            y = avgpool2d(xd, window, stride, padding=padding)
             cot = torch.randn(y.shape, generator=gen, dtype=torch.float64) if dev == "cpu" else cot
             grads.append(torch.autograd.grad(y, xd, cot.to(dev, dt))[0])
         assert _rel(grads[1].cpu(), grads[0]) < 1e-6

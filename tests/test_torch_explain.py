@@ -82,7 +82,7 @@ def test_vgg_lrp_preset_a_wordbatched_matches_jax(lane_pack):
     image = rng.normal(size=(1, 16, 16, 3)).astype(np.float32)
     seeds = rng.normal(size=(3, 8, 8, 128)).astype(np.float32)
     ref = j_cnn_lrp(pj, jnp.asarray(image), jnp.asarray(seeds), "vgg16", until, lane_pack=lane_pack)
-    got = t_cnn_lrp(pt, torch.from_numpy(image), torch.from_numpy(seeds), until)
+    got = t_cnn_lrp(pt, torch.from_numpy(image), torch.from_numpy(seeds), until=until)
     assert got.shape == (3, 16, 16, 3)
     for w in range(3):
         _assert_map_close(got[w], ref[w])

@@ -179,7 +179,7 @@ def test_every_dispatch_takes_a_ladder_size():
     cfg = FlickrConfig(embedding_dim=16, hidden_dim=16, layer_name="block2_conv1",
                        img_feature_length=16, img_feature_dim=128, sentence_length=5)
     cap = build_captioner("adaptiveattention", cfg, V)
-    ex = Explainer(cap, cap.init_params(0, "cpu"), PP(), beam_size=2, word_buckets=(2,),
+    ex = Explainer(cap, cap.init_params(0, device="cpu"), PP(), beam_size=2, word_buckets=(2,),
                    batch_size=4, device="cpu")
     rng = np.random.default_rng(0)
     images = rng.normal(size=(9, 8, 8, 3)).astype(np.float32) * 40
@@ -222,7 +222,7 @@ class TestExplainerOnCard:
 
     def _explainer(self, model_type="adaptiveattention", **kw):
         cap = build_captioner(model_type, FlickrConfig(**SMALL), V)
-        return Explainer(cap, cap.init_params(0, "cuda"), PP(), beam_size=3,
+        return Explainer(cap, cap.init_params(0, device="cuda"), PP(), beam_size=3,
                          word_buckets=(2, 4), **kw)
 
     def _images(self, n, seed):
@@ -331,7 +331,7 @@ class TestExplainerOnCard:
         out = ex.analyze_batch(images)
         W = ex._bucket_for(max(len(e.words) for e in out))
         # K3 twice per post-ReLU conv (every conv but the input layer) per image
-        convs = sum(op[0] == "conv" for op in vgg_layers(SMALL["layer_name"])) - 1
+        convs = sum(op[0] == "conv" for op in vgg_layers(until=SMALL["layer_name"])) - 1
         assert kernels.lstm_gates.launches == 2 * T + 2 * T
         assert kernels.lrp_linear.launches == 2 * T + 3
         assert kernels.conv3x3_fused.launches == 2 * convs * batch
@@ -352,7 +352,7 @@ class TestExplainerOnCard:
         from lrp_imagecaptioning_torch.ops.lrp_conv import lrp_conv_alpha_beta
 
         T, until = SMALL["sentence_length"], SMALL["layer_name"]
-        convs = sum(op[0] == "conv" for op in vgg_layers(until)) - 1
+        convs = sum(op[0] == "conv" for op in vgg_layers("vgg16", until)) - 1
         images, toks = self._images(2, 6), self._tokens(2, 6)
         ex = self._explainer(method="deep_taylor", batch_size=2).warmup(images)
         kernels.reset_launches()
@@ -367,9 +367,9 @@ class TestExplainerOnCard:
             seeds = torch.as_tensor(e.feat_relevance, device="cuda").reshape(-1, g, g,
                                                                             SMALL["img_feature_dim"])
             with torch.no_grad():
-                _, inputs = vgg_apply_with_acts(vgg, images[b:b + 1], until)
+                _, inputs = vgg_apply_with_acts(vgg, images[b:b + 1], "vgg16", until)
                 want = _backward(vgg64, [x.double() for x in inputs], torch.relu(seeds).double(),
-                                 until, plain)
+                                 "vgg16", until, plain)
             got = torch.as_tensor(e.relevance_maps, device="cuda").double()
             assert got.shape == want.shape and _rel(got, want) <= 1e-4
         ex = self._explainer(method="deep_lift", batch_size=2).warmup(images)

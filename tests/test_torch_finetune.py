@@ -251,7 +251,7 @@ def test_lrp_finetuner_run_two_steps(tmp_path):
     assert tuner.opt_state["count"] == 2
     path = tckpt.latest_checkpoint(str(tmp_path))
     assert path.endswith(tckpt.ckpt_name(0, metrics["accuracy"]) + ".npz")
-    params, opt_state = tckpt.restore_checkpoint(path, "cpu")
+    params, opt_state = tckpt.restore_checkpoint(path, device="cpu")
     _walk(tuner.params, params, lambda p, a, b: np.testing.assert_array_equal(b, a))
     assert opt_state["count"] == 2
     # the next chunk resumes past the batches the first one took

@@ -34,7 +34,7 @@ def _rel(got, ref):
 
 def _encode(pt):
     """The VGG16 encoder as ``gradient_maps`` takes it."""
-    return lambda x, relu_fn: tvgg.vgg_apply(pt, x, UNTIL, relu_fn=relu_fn)
+    return lambda x, relu_fn: tvgg.vgg_apply(pt, x, until=UNTIL, relu_fn=relu_fn)
 
 
 @pytest.fixture(scope="module")
@@ -162,6 +162,7 @@ def test_encode_relu_fn_forward_is_relu(setup):
     encoder's forward (``vgg_apply(relu_fn=)``) is the plain one."""
     _, pt, image, _ = setup
     x = torch.from_numpy(image)
-    ref = tvgg.vgg_apply(pt, x, UNTIL)
+    ref = tvgg.vgg_apply(pt, x, until=UNTIL)
     for fn in (tg.GuidedReLU.apply, tg.DeconvReLU.apply):
-        torch.testing.assert_close(tvgg.vgg_apply(pt, x, UNTIL, relu_fn=fn), ref, rtol=0, atol=0)
+        torch.testing.assert_close(tvgg.vgg_apply(pt, x, until=UNTIL, relu_fn=fn), ref, rtol=0,
+                                   atol=0)

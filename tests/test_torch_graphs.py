@@ -143,7 +143,7 @@ def test_build_on_cpu_runs_stages_eagerly():
     """No graphs on the CPU: the stages are the eager functions."""
     fn, cap = build(FlickrConfig(**SMALL), V, device="cpu", T=T)
     assert fn.graphed == {}
-    params = cap.init_params(0, "cpu")
+    params = cap.init_params(0, device="cpu")
     images = torch.from_numpy(np.random.default_rng(50).normal(size=(B, 32, 32, 3))
                               .astype(np.float32))
     feat, tok = fn.stages["caption"](params, images)
@@ -190,7 +190,7 @@ class TestOnCard:
 
     def test_graphs_match_eager(self):
         fn, cap = build(FlickrConfig(**SMALL), V, device="cuda", T=T)
-        params = cap.init_params(0, "cuda")
+        params = cap.init_params(0, device="cuda")
         self._check(fn, params, self._images(1))   # first call: capture, then replay
         eager, graphed = self._check(fn, params, self._images(1))
         assert eager == graphed and graphed["lstm_gates"] == T and graphed["lrp_linear"] == T + 3
@@ -199,7 +199,7 @@ class TestOnCard:
 
     def test_second_batch_replays_the_same_graph(self):
         fn, cap = build(FlickrConfig(**SMALL), V, device="cuda", T=T)
-        params = cap.init_params(0, "cuda")
+        params = cap.init_params(0, device="cuda")
         self._check(fn, params, self._images(2))
         self._check(fn, params, self._images(3))   # other values, the same shapes
         assert fn.graphed["beam_search"].captures == 1
@@ -210,11 +210,11 @@ class TestOnCard:
     def test_params_swap_captures_anew(self):
         fn, cap = build(FlickrConfig(**SMALL), V, device="cuda", T=T)
         images = self._images(5)
-        first = cap.init_params(0, "cuda")
+        first = cap.init_params(0, device="cuda")
         self._check(fn, first, images)
         # other weights (while the first stay alive, at other addresses): the
         # first params' graphs must not be replayed
-        self._check(fn, cap.init_params(1, "cuda"), images)
+        self._check(fn, cap.init_params(1, device="cuda"), images)
         assert fn.graphed["beam_search"].captures == 2
         assert fn.graphed["decoder_lrp"].captures == 2
 
@@ -231,7 +231,7 @@ class TestOnCard:
 
         monkeypatch.setattr(torch.cuda, "CUDAGraph", debug_graph)
         fn, cap = build(FlickrConfig(**SMALL), V, device="cuda", T=T)
-        self._check(fn, cap.init_params(0, "cuda"), self._images(6))
+        self._check(fn, cap.init_params(0, device="cuda"), self._images(6))
         for name, run in fn.graphed.items():
             path = tmp_path / f"{name}.dot"
             run.entry.graph.debug_dump(str(path))

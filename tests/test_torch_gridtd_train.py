@@ -109,7 +109,7 @@ def test_forward_train_matches_jax(dropout):
     key = jax.random.PRNGKey(5) if dropout == "jax_masks" else None
     ref = np.asarray(jcap.forward_train(pj, jnp.asarray(images), jnp.asarray(caps), key))
     masks = _jax_masks(key, pj, 0.5) if key is not None else None
-    got = tcap.forward_train(pt, _t(images), _t(caps), None, masks).numpy()
+    got = tcap.forward_train(pt, _t(images), _t(caps), None, masks=masks).numpy()
     assert got.shape == (B, T, VOCAB)
     _close_to_scale(got, ref, 1e-5)
 
@@ -174,7 +174,7 @@ def test_loss_gradients_with_dropout_match_jax():
                                            jnp.asarray(y), key)
     masks = _jax_masks(key, pj, 0.5)
     lt, _, gt = tstep.value_and_grad(
-        lambda p: (tcap.loss(p, _t(images), _t(caps), _t(y), None, masks), None), pt)
+        lambda p: (tcap.loss(p, _t(images), _t(caps), _t(y), None, masks=masks), None), pt)
     assert float(lt) == pytest.approx(float(lj), rel=1e-6)
     _walk(gj, gt, lambda path, a, b: _close_to_scale(b, a, 1e-4))
 

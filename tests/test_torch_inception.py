@@ -81,7 +81,7 @@ def test_average_pool_and_z_rule_match_jax(window, stride, padding, size):
     rng = np.random.default_rng(size + window)
     x = rng.normal(size=(1, size, size, 4)).astype(np.float32)
     y = np.asarray(jil._pool(jnp.asarray(x), "avg", window, stride, padding))
-    assert te.rel(tconv.avgpool2d(_t(x), window, stride, padding).numpy(), y) <= 1e-6
+    assert te.rel(tconv.avgpool2d(_t(x), window, stride, padding=padding).numpy(), y) <= 1e-6
     r = rng.normal(size=(3, *y.shape[1:])).astype(np.float32)
     _, vjp = jax.vjp(lambda t: jil._pool(t, "avg", window, stride, padding),
                      jnp.broadcast_to(x, (3, *x.shape[1:])))
@@ -89,7 +89,8 @@ def test_average_pool_and_z_rule_match_jax(window, stride, padding, size):
     assert te.rel(got, vjp(jnp.asarray(r))[0]) <= 1e-6
     z = y + np.where(y >= 0, 1e-7, -1e-7)
     ref = np.broadcast_to(x, (3, *x.shape[1:])) * np.asarray(vjp(jnp.asarray(r / z))[0])
-    assert te.rel(tconv.lrp_avgpool(_t(r), _t(x), window, stride, padding).numpy(), ref) <= 1e-4
+    got = tconv.lrp_avgpool(_t(r), _t(x), window, stride, padding=padding).numpy()
+    assert te.rel(got, ref) <= 1e-4
 
 
 @pytest.mark.parametrize("method", METHODS)

@@ -219,7 +219,7 @@ def test_a1b0_taps_are_the_transposed_conv(n, h, w, cin, cout):
     s_pad = torch.nn.functional.pad(s, (0, 0, 1, 1, 1, 1))   # SAME zeros outside the image
     got = sum(s_pad[:, dy:dy + h, dx:dx + w, :] @ taps[8 - (3 * dy + dx)].T
               for dy in range(3) for dx in range(3))
-    torch.testing.assert_close(got, conv2d_input_vjp(kp, s), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(got, conv2d_input_vjp(None, kp, s), rtol=1e-12, atol=1e-12)
 
 
 def test_conv3x3_fused_rejects_bad_arguments():

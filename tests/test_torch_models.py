@@ -58,12 +58,12 @@ def test_vgg_apply_with_acts_truncated_matches_jax():
     pt = params_from_jax(pj, "cpu")
     x = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
     fj, ij = jvgg.vgg_apply_with_acts(pj, jnp.asarray(x), "vgg16", "block2_conv1")
-    ft, it = tvgg.vgg_apply_with_acts(pt, torch.from_numpy(x), "block2_conv1")
+    ft, it = tvgg.vgg_apply_with_acts(pt, torch.from_numpy(x), until="block2_conv1")
     assert ft.shape == (2, 8, 8, 128) and len(it) == len(ij) == 4
     _close(ft, fj, rtol=1e-4, atol=1e-4)
     for a, b in zip(it, ij):
         _close(a, b, rtol=1e-4, atol=1e-4)
-    _close(tvgg.vgg_apply(pt, torch.from_numpy(x), "block2_conv1"), fj, rtol=1e-4, atol=1e-4)
+    _close(tvgg.vgg_apply(pt, torch.from_numpy(x), until="block2_conv1"), fj, rtol=1e-4, atol=1e-4)
 
 
 def test_adaptive_step_and_cached_forward_match_jax(decoder):

@@ -321,9 +321,9 @@ def test_run_stepped_steps_stacks_and_tails_as_jax(sizes, K, want):
         return fn
 
     recorded = []
-    p, _ = tstep.run_stepped_steps(batches(), len(sizes), lambda a: a, single_fn("torch"), "g",
-                                   0, None, recorded.append, K, multi_fn("torch"),
-                                   lambda a: a[:, :, :1])
+    p, _ = tstep.run_stepped_steps(batches(), len(sizes), K, lambda a: a, torch.Generator(),
+                                   multi_fn("torch"), single_fn("torch"), 0, None,
+                                   recorded.append, lambda a: a[:, :, :1])
     jstep.run_stepped_steps(batches(), len(sizes), K, lambda a: a, lambda n: np.zeros(n),
                             multi_fn("jax"), single_fn("jax"), 0, None, lambda m: None)
     assert calls["torch"] == calls["jax"] == want

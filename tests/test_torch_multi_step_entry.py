@@ -144,7 +144,7 @@ def test_lrp_finetuner_steps_per_call_on_a_mesh(tmp_path, slots):
     from lrp_imagecaptioning_torch.parallel import Sharded, make_mesh
 
     tcap = t_build("adaptiveattention", TConfig(**KW), VOCAB)
-    pt = tcap.init_params(0, "cpu")
+    pt = tcap.init_params(0, device="cpu")
     images, caps, y = _batches(9, 3)
     batches = [(images[k], caps[k], y[k]) for k in range(3)]
     runs = {}

@@ -61,7 +61,7 @@ def test_conv2d_and_input_vjp_match_jax():
     np.testing.assert_allclose(tconv.conv2d(_t(x), _t(k)).numpy(),
                                np.asarray(jconv.conv2d(jnp.asarray(x), jnp.asarray(k))),
                                rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(tconv.conv2d_input_vjp(_t(k), _t(s)).numpy(),
+    np.testing.assert_allclose(tconv.conv2d_input_vjp(None, _t(k), _t(s)).numpy(),
                                np.asarray(jconv.conv2d_input_vjp(x.shape, jnp.asarray(k), jnp.asarray(s))),
                                rtol=1e-5, atol=1e-5)
 

@@ -109,12 +109,13 @@ def test_generalized_conv_rules_match_jax(kernel, stride, padding, size):
     assert te.rel(tconv.conv2d(_t(x), _t(k), stride, padding).numpy(), y) <= 1e-5
     r = rng.normal(size=(3, *y.shape[1:])).astype(np.float32)
     xs = np.broadcast_to(x, (3, *x.shape[1:]))
-    vjp = tconv.conv2d_input_vjp(_t(k), _t(r), x.shape, stride, padding).numpy()
+    vjp = tconv.conv2d_input_vjp(x.shape, _t(k), _t(r), stride, padding).numpy()
     assert vjp.shape == xs.shape
     assert te.rel(vjp, jconv.conv2d_input_vjp(xs.shape, jnp.asarray(k), jnp.asarray(r),
                                               stride, padding)) <= 1e-5
     for xin, nonneg in ((x, False), (np.maximum(x, 0), True)):
-        got = tconv.lrp_conv_alpha_beta(_t(r), _t(xin), _t(k), None, nonneg, stride, padding)
+        got = tconv.lrp_conv_alpha_beta(_t(r), _t(xin), _t(k), None, input_nonneg=nonneg,
+                                        stride=stride, padding=padding)
         ref = jconv.lrp_conv_alpha_beta(jnp.asarray(r), jnp.broadcast_to(xin, xs.shape),
                                         jnp.asarray(k), None,
                                         stride=stride, padding=padding, input_nonneg=nonneg)

@@ -69,7 +69,7 @@ class TestServingOnCard:
 
     def _model(self):
         cap = build_captioner("adaptiveattention", FlickrConfig(**SMALL), V)
-        return cap, cap.init_params(0, "cuda")
+        return cap, cap.init_params(0, device="cuda")
 
     def _images(self, n, seed=0):
         return (np.random.default_rng(seed).normal(size=(n, 32, 32, 3)) * 40).astype(np.float32)

@@ -141,7 +141,7 @@ def test_forward_train_matches_jax(dropout):
     key = jax.random.PRNGKey(5) if dropout == "jax_masks" else None
     ref = np.asarray(jcap.forward_train(pj, jnp.asarray(images), jnp.asarray(caps), key))
     masks = _jax_masks(key, pj, B, 0.5) if key is not None else None
-    got = tcap.forward_train(pt, _t(images), _t(caps), None, masks).numpy()
+    got = tcap.forward_train(pt, _t(images), _t(caps), None, masks=masks).numpy()
     assert got.shape == (B, T, VOCAB)
     _close_to_scale(got, ref, 1e-5)
 
@@ -205,7 +205,7 @@ def test_loss_gradients_with_dropout_match_jax():
                                            jnp.asarray(y), key)
     masks = _jax_masks(key, pj, B, 0.5)
     lt, _, gt = tstep.value_and_grad(
-        lambda p: (tcap.loss(p, _t(images), _t(caps), _t(y), None, masks), None), pt)
+        lambda p: (tcap.loss(p, _t(images), _t(caps), _t(y), None, masks=masks), None), pt)
     assert float(lt) == pytest.approx(float(lj), rel=1e-6)
     _leafwise_grad_check(gj, gt)
 
@@ -342,7 +342,7 @@ def test_forward_train_generator_draws_the_masks_it_applies():
     drawn = tcap.forward_train(pt, _t(images), _t(caps), torch.Generator().manual_seed(4))
     masks = tad.draw_dropout_masks(torch.Generator().manual_seed(4), pt["decoder"], B,
                                    tcap.cfg, 0.5)
-    given = tcap.forward_train(pt, _t(images), _t(caps), None, masks)
+    given = tcap.forward_train(pt, _t(images), _t(caps), None, masks=masks)
     assert torch.equal(drawn, given)
     dropped = (masks.logit == 0)[:, None, :].expand_as(given)
     assert bool(dropped.any()) and bool((given[dropped] == 0).all())
@@ -407,7 +407,7 @@ def test_checkpoint_roundtrip_and_latest(tmp_path):
     latest = tckpt.latest_checkpoint(d)
     assert latest == path and latest.endswith("ckpt_03_0.3000.npz")
     assert tckpt.ckpt_name(7, None) == "ckpt_07"
-    params, restored = tckpt.restore_checkpoint(latest, "cpu")
+    params, restored = tckpt.restore_checkpoint(latest, device="cpu")
     _walk(pt, params, lambda path, a, b: np.testing.assert_array_equal(b, a))
     assert restored["count"] == 1 and restored["learning_rate"] == pytest.approx(1e-3)
     _walk(state["nu"], restored["nu"], lambda path, a, b: np.testing.assert_array_equal(b, a))
@@ -423,15 +423,15 @@ def test_run_stepped_steps_runs_every_batch_in_order():
             yield ((np.full((s, 3), s), np.zeros((s, 2))), np.zeros((s, 5)))
         raise AssertionError("pulled a batch too many")
 
-    calls, recorded = [], []
+    calls, recorded, g = [], [], torch.Generator()
 
     def step_fn(p, o, imgs, cap, y, rng):
         calls.append((imgs.shape[0], cap.shape[0], y.shape[0], rng))
         return p + 1, o + [p], {"loss": float(imgs.shape[0])}
 
-    p, o = tstep.run_stepped_steps(batches(), 3, lambda a: a[:, :1], step_fn, "g", 0, [],
+    p, o = tstep.run_stepped_steps(batches(), 3, 1, lambda a: a[:, :1], g, None, step_fn, 0, [],
                                    recorded.append)
-    assert calls == [(4, 4, 4, "g"), (4, 4, 4, "g"), (2, 2, 2, "g")]
+    assert calls == [(4, 4, 4, g), (4, 4, 4, g), (2, 2, 2, g)]
     assert (p, o) == (3, [0, 1, 2])
     assert recorded == [{"loss": 4.0}, {"loss": 4.0}, {"loss": 2.0}]
 

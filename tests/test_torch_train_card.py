@@ -164,7 +164,8 @@ class TestTrainingOnCard:
             images, caps, y = _batch(3, dev)
             kernels.reset_launches()
             loss, _, grads = step.value_and_grad(
-                lambda p: (cap.loss(p, images, caps, y, None, masks.to(dev)), None), params[dev])
+                lambda p: (cap.loss(p, images, caps, y, None, masks=masks.to(dev)), None),
+                params[dev])
             out[dev] = (loss.cpu(), tree_to(grads, "cpu"), kernels.lstm_gates.launches)
         (l0, g0, n0), (l1, g1, n1) = out["cpu"], out["cuda"]
         assert (n0, n1) == (0, T)
@@ -178,7 +179,8 @@ class TestTrainingOnCard:
         stop = np.zeros(VOCAB + 1, bool)
         stop[5] = True
         opt = make_optimizer("adaptiveattention", 1e-3)
-        convs = sum(op[0] == "conv" for op in vgg_layers(CFG.layer_name)) - 1   # post-ReLU convs
+        # post-ReLU convs
+        convs = sum(op[0] == "conv" for op in vgg_layers("vgg16", CFG.layer_name)) - 1
         out = {}
         for dev in ("cpu", "cuda"):
             images, caps, y = _batch(2, dev)
@@ -242,7 +244,7 @@ class TestTrainingOnCard:
         got_p, got_s, m = multi(params, opt.init(params), *stacks,
                                 torch.Generator(device="cuda").manual_seed(3))
         launches = {k.__name__: k.launches for k in kernels.KERNELS}
-        convs = sum(op[0] == "conv" for op in vgg_layers(CFG.layer_name)) - 1
+        convs = sum(op[0] == "conv" for op in vgg_layers("vgg16", CFG.layer_name)) - 1
         one = ({"lrp_linear": 0, "lstm_gates": T, "conv3x3_fused": 0} if path == "train" else
                {"lrp_linear": T + 3, "lstm_gates": 3 * T, "conv3x3_fused": 2 * convs * B})
         assert launches == {**{k: K * v for k, v in one.items()}, "lrp_a1b0_fused": 0}

@@ -49,15 +49,15 @@ def _t(a):
 
 @pytest.mark.parametrize("until", ["block5_conv4", "block3_conv4"])
 def test_layers_and_forward_match_jax(until):
-    assert tvgg.vgg_layers(until, "vgg19") == jvgg.vgg_layers("vgg19", until)
+    assert tvgg.vgg_layers("vgg19", until) == jvgg.vgg_layers("vgg19", until)
     enc = te.encoder_params("vgg19", layer_name=until)
     x = te.images("vgg19")
     ref, ref_in = jvgg.vgg_apply_with_acts(jax.tree.map(jnp.asarray, enc), jnp.asarray(x),
                                            "vgg19", until)
-    got, got_in = tvgg.vgg_apply_with_acts(params_from_jax(enc, "cpu"), _t(x), until, "vgg19")
+    got, got_in = tvgg.vgg_apply_with_acts(params_from_jax(enc, "cpu"), _t(x), "vgg19", until)
     assert len(got_in) == len(ref_in)
     assert te.rel(got.numpy(), ref) <= 1e-5
-    assert te.rel(tvgg.vgg_apply(params_from_jax(enc, "cpu"), _t(x), until, arch="vgg19").numpy(),
+    assert te.rel(tvgg.vgg_apply(params_from_jax(enc, "cpu"), _t(x), "vgg19", until).numpy(),
                   ref) <= 1e-5
 
 
@@ -70,8 +70,8 @@ def test_lrp_walk_matches_jax():
     ref = np.asarray(jlrp.vgg_lrp_preset_a_wordbatched(
         jax.tree.map(jnp.asarray, enc), jnp.asarray(x), jnp.asarray(seeds), "vgg19",
         "block5_conv4"))
-    got = tlrp.vgg_lrp_preset_a_wordbatched(params_from_jax(enc, "cpu"), _t(x), _t(seeds),
-                                            "block5_conv4", arch="vgg19").numpy()
+    got = tlrp.vgg_lrp_preset_a_wordbatched(params_from_jax(enc, "cpu"), _t(x), _t(seeds), "vgg19",
+                                            "block5_conv4").numpy()
     assert got.shape == (2, 32, 32, 3) and te.rel(got, ref) <= 1e-4
 
 

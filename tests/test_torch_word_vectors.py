@@ -107,16 +107,16 @@ def test_init_params_vocab_words(tmp_path, model_type):
     ref = j_build(model_type, JConfig(drop_rate=0.0, **small), 3).init_params(
         jax.random.PRNGKey(0), vocab_words=vocab, word_vector_path=str(p))
     cap = build_captioner(model_type, TConfig(**small), 3)
-    params = cap.init_params(0, "cpu", vocab_words=vocab, word_vector_path=str(p))
+    params = cap.init_params(0, device="cpu", vocab_words=vocab, word_vector_path=str(p))
     emb = params["decoder"]["embedding"]
     np.testing.assert_array_equal(emb[[0, 2]].numpy(),
                                   np.asarray(ref["decoder"]["embedding"])[[0, 2]])
     assert float(emb[1].abs().max()) > 0
     # without vocab_words, or without the config's option: the plain init
-    plain = cap.init_params(0, "cpu")["decoder"]["embedding"]
+    plain = cap.init_params(0, device="cpu")["decoder"]["embedding"]
     assert plain.shape == emb.shape and not torch.equal(plain[0], emb[0])
     off = build_captioner(model_type, TConfig(**dict(small, pretrained_word_vector=None)), 3)
-    torch.testing.assert_close(off.init_params(0, "cpu", vocab_words=vocab,
+    torch.testing.assert_close(off.init_params(0, device="cpu", vocab_words=vocab,
                                                word_vector_path=str(p))["decoder"]["embedding"],
                                plain, rtol=0, atol=0)
 

@@ -89,7 +89,7 @@ def run(rank, world, port):
     cap = build_captioner("adaptiveattention", FlickrConfig(**CFG), VOCAB)
     opt = make_optimizer("adaptiveattention", 1e-3)
     step, place = make_sharded_train_step(cap, opt, mesh)
-    params = cap.init_params(0, "cpu")
+    params = cap.init_params(0, device="cpu")
     params, state = place(params, opt.init(params))
     batch = shard_global_batch(mesh, *(a[rows] for a in global_batch()),
                                global_batch=GLOBAL_BATCH)
@@ -121,7 +121,7 @@ def run_stacked(rank, world, port, K=2):
     cap = build_captioner("adaptiveattention", FlickrConfig(**CFG), VOCAB)
     opt = make_optimizer("adaptiveattention", 1e-3)
     multi, place = make_sharded_multi_train_step(cap, opt, mesh)
-    params0, state0 = place(*(lambda p: (p, opt.init(p)))(cap.init_params(0, "cpu")))
+    params0, state0 = place(*(lambda p: (p, opt.init(p)))(cap.init_params(0, device="cpu")))
     stacks = [np.stack(a) for a in zip(*(global_batch(seed=k) for k in range(K)))]
     local = [global_stacked_batch_from_local(mesh, a[:, rows], global_batch=GLOBAL_BATCH)
              for a in stacks]
