@@ -146,9 +146,15 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             12c the same over gRPC's raw and typed services where grpcio
             imports; 12d export_serving at batch 8 and ExportedService
             (export, load and warm-up seconds, program sizes, one counted
-            explain: tokens equal 12a's, maps within 1e-6); 12e the CLI's
-            ``serve`` live (mini fixture) and ``serve --exported`` in child
-            processes, one /explain each;
+            explain: tokens equal 12a's, maps within 1e-6); 12f
+            export_serving of guided_gradcam at batch 8 (one program at T,
+            traced by make_fx, then torch.export) and ExportedService: one
+            counted explain, tokens equal the live Explainer's, every array
+            within 1e-6, K2's launches as derived; 12e the CLI's ``serve``
+            live (mini fixture) and ``serve --exported`` in child
+            processes, one /explain each. ``--only export_grad`` (12g, not
+            in the whole run) holds all seven gradient methods so at word
+            buckets EXPORT_BUCKETS and T;
 13. analyzers: the analyzer catalogue on VGG16 up to block5_conv3 at
             224x224 (seeded weights, biases drawn; images over the
             preprocessed pixel range), batch 8, one seed an image: each of
@@ -794,17 +800,19 @@ PATH_KERNELS = {"f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
                 **{p: ("lrp_linear", "lstm_gates", "lrp_a1b0_fused")
                    for p in ("vgg19_bf16", "aoa_bf16", "serve_bf16")},
                 "serve_f32": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
-                "exported": ("lrp_linear", "lstm_gates", "conv3x3_fused")}
+                "exported": ("lrp_linear", "lstm_gates", "conv3x3_fused"),
+                "exported_grad": ("lstm_gates",)}
 # the paths whose dispatches the Explainer plans from its captions' lengths
 # (phases 10 and 11): "deep_taylor" one analyze_batch of B_MAIN images, "bbox"
 # the analyze_many calls of evaluate_dataset over the test split at B_TRAIN,
 # phase 11's one analyze_batch each (f32 at B_MAIN, bf16 at B_BF16) on its
 # configuration (PATH_CONFIG), phase 12's one explain request of B_MAIN
 # images through CaptionService (serve_f32; serve_bf16 in bf16 storage) and
-# through the exported programs (exported); their kernels are timed at the
-# shapes of that run's chunks, (images, word bucket)
+# through the exported programs (exported; exported_grad guided_gradcam's);
+# their kernels are timed at the shapes of that run's chunks, (images, word
+# bucket)
 PLAN_PATHS = ("deep_taylor", "bbox", "resnet101_f32", "inception_f32", "vgg19_f32", "vgg19_bf16",
-              "aoa_f32", "aoa_bf16", "serve_f32", "serve_bf16", "exported")
+              "aoa_f32", "aoa_bf16", "serve_f32", "serve_bf16", "exported", "exported_grad")
 PATH_TITLES = {"bf16": "phase 2b: the bf16 path's kernels vs their plain versions, batch {b}",
                "train": "phase 2c: the train path's kernel, K2 with its gradient, batch {b}",
                "finetune": "phase 2c: the fine-tune path's kernels, batch {b} x {w} words",
@@ -2740,7 +2748,7 @@ def plan_summary(dev, path, plan, failures, detail):
             if key not in cache:
                 f32_rows = [r for r in detail.get(name, ()) if r["path"] == "f32"]
                 if (images, bucket) == (B_MAIN, T) and f32_rows and path in (
-                        "deep_taylor", "bbox", "serve_f32", "exported"):
+                        "deep_taylor", "bbox", "serve_f32", "exported", "exported_grad"):
                     cache[key] = f32_rows
                 else:
                     cache[key] = check(gen, dev, path, (None, images, bucket))
@@ -3481,7 +3489,10 @@ CLI_SERVE_S = 5             # --serve-seconds of 12e's servers
 # the exported explain programs' word buckets: every bucket, unless
 # exporting them all takes over 120 s on the card. It took 212.4 s (25.7 s
 # the decode, 33-40 s each explain program; H100 80GB HBM3 at 700 W), so
-# the smoke exports (8,) and T
+# 12g exports (8,) and T. 12d and 12f export T alone (12d's captions take
+# all T words, so the counted request never ran its bucket 8): with 12d at
+# (8,) + T and 12f, the whole smoke took 1109.8 s of its 1200 on a slow
+# host (12d 216.0 s, 12f 131.5; H100 80GB HBM3 at 700 W)
 EXPORT_BUCKETS = (8,)
 # 12b/12c: a coalesced request explains its image inside a batch of up to
 # B_MAIN rows where the direct reference runs it alone: held to the entry
@@ -3498,6 +3509,113 @@ TOL_SERVE_F16 = TOL_CONSISTENT_LRP
 # bit for bit from run to run (analyze_batch against itself read 1.8e-7 of
 # scale, the other arrays 0): they are held within this, the rest exactly
 TOL_EXPORTED = 1e-6
+# 12f: the gradient method the whole run exports (Guided-GradCAM, one of the
+# reference's four headline explainers) and its word buckets: one program at
+# T. A gradient program holds B_MAIN images' forwards and backwards, IG's
+# 16 and SmoothGrad's 8 passes an image each, so ``--only export_grad``
+# (12g) alone exports every method, at EXPORT_BUCKETS and T
+GRAD_EXPORT = ("guided_gradcam", ())
+
+
+def export_grad_check(dev, failures, cap, params, images, work, method, buckets, label):
+    """``export_serving`` of a gradient method at B_MAIN (``make_fx``, then
+    ``torch.export``; every program must call ``lrpic::lstm_gates``),
+    ``ExportedService`` (its warm-up captures every program's graph), one
+    counted explain request of ``images``: tokens equal the live Explainer's
+    ``analyze_batch``, every array within TOL_EXPORTED of its scale or twice
+    the live call's distance from itself, whichever is larger, K2's
+    launches as derived (the decode's beam search and the program's cached
+    forward, T each), the graphs unchanged by the request. -> report"""
+    import numpy as np
+
+    from lrp_imagecaptioning_torch.explain.engine import Explainer
+    from lrp_imagecaptioning_torch.infer.export import ExportedService, export_serving
+
+    out = os.path.join(work, f"artifact_{method}")
+    _, export_ms = timed(lambda: export_serving(
+        cap, params, CaptionPP(), out, batch_size=B_MAIN, beam_size=BEAM, max_len=T,
+        method=method, word_buckets=buckets, device=dev))
+    with open(os.path.join(out, "export.json")) as f:
+        programs = json.load(f)
+    esvc, load_ms = timed(lambda: ExportedService(out, device=dev))
+    before = esvc.graph_stats()
+    got, ms, counted = counted_run(lambda: esvc.dispatch(images, explain=True))
+    after = esvc.graph_stats()
+    warmup_s = esvc.stats.get("warmup_s")
+    del esvc
+    words = [len(e.words) for e in got]
+    plan = [(len(images), min(w for w in (*buckets, T) if w >= max(max(words), 1)))]
+    want = explain_launches("adaptiveattention", None, plan, decodes=1, method=method)
+    ex = Explainer(cap, params, CaptionPP(), method, beam_size=BEAM, max_len=T,
+                   word_buckets=buckets, batch_size=B_MAIN, device=dev)
+    first = ex.analyze_batch(images)   # its first call captures and pays cuDNN's first calls
+    ref, live_ms = timed(ex.analyze_batch, images)
+    del ex
+    # cuDNN's backward convs may sum in a varying order: the live path
+    # against itself bounds what the same ops can give
+    spread = explanation_dist(first, ref)
+    tol = {f: max(TOL_EXPORTED, 2 * d) for f, d in spread.items()}
+    dist = explanation_dist(got, ref)
+    tokens = all(np.array_equal(g.tokens_1based, r.tokens_1based) for g, r in zip(got, ref))
+    exact = same_explanations(got, ref, EXPLANATION_FIELDS)
+    check_explanations(got, words, f"{label} exported {method}", failures,
+                       nonzero=method != "guided_gradcam", size=images.shape[1])
+    if not tokens or any(d > tol[f] for f, d in dist.items()):
+        failures.append(f"{label} exported {method} vs the live Explainer: tokens equal "
+                        f"{tokens}, distances {dist}, tolerances {tol}")
+    if counted != want:
+        failures.append(f"{label} exported {method}: launches {counted}, {want} derived")
+    if after != before:
+        failures.append(f"{label} exported {method}: the request changed the graphs: {before} "
+                        f"-> {after}")
+    rep = dict(method=method, buckets=list(buckets), export_s=export_ms / 1e3,
+               programs=programs, load_warmup_s=load_ms / 1e3, warmup_s=warmup_s,
+               explain_ms=ms, explain_img_per_s=len(images) / ms * 1e3, live_ms=live_ms,
+               live_img_per_s=len(images) / live_ms * 1e3, words=words, plan=plan,
+               launches=counted, expected=want, tokens_equal=tokens, bit_for_bit=exact,
+               dist=dist, live_run_to_run=spread, tolerance=tol, graphs_after_warmup=before,
+               graphs_after_requests=after,
+               pool_gib=after["pool_bytes"] / 2**30)
+    log(f"  {label} export_serving({method}) at batch {B_MAIN}, buckets {list(buckets)} + T: "
+        f"{export_ms / 1e3:.1f} s ({programs['seconds']}; bytes {programs['bytes']}); load + "
+        f"warmup {load_ms / 1e3:.1f} s; explain of {len(images)} {ms:.1f} ms = "
+        f"{rep['explain_img_per_s']:.2f} img/s exported against {live_ms:.1f} ms = "
+        f"{rep['live_img_per_s']:.2f} img/s live (words {words}); launches {counted}; graphs "
+        f"{before} -> {after}; against the live Explainer: tokens equal {tokens}, bit for bit "
+        f"{exact}, {dist}; live against itself {spread}")
+    return rep
+
+
+def phase_export_grad(dev, failures):
+    """12g (``--only export_grad``): every gradient method exported at
+    EXPORT_BUCKETS and T and held as 12f holds guided_gradcam, in
+    ``build/phase12g`` (removed after)."""
+    import shutil
+
+    from lrp_imagecaptioning_torch.config import FlickrConfig
+    from lrp_imagecaptioning_torch.models.captioner import build_captioner
+
+    work = os.path.join(HERE, "build", "phase12g")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cap = build_captioner("adaptiveattention", FlickrConfig(), VOCAB)
+    params = cap.init_params(seed=0, device=dev)
+    images = serve_images(B_MAIN, 12)
+    reps = {}
+    for method in GRAD_METHODS:
+        t0 = time.perf_counter()
+        try:
+            reps[method] = export_grad_check(dev, failures, cap, params, images, work, method,
+                                             EXPORT_BUCKETS, "12g")
+        except Exception:  # noqa: BLE001 — a method that raises is recorded as failed
+            traceback.print_exc()
+            failures.append(f"12g {method} raised")
+        log(f"  ({time.perf_counter() - t0:.1f} s; {host_gib()})")
+        shutil.rmtree(os.path.join(work, f"artifact_{method}"), ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return reps
 
 
 def serve_images(n, seed):
@@ -3666,8 +3784,8 @@ def phase_serve_live(dev, failures, cap, params, images, storage_dtype=None, lab
 
 
 def phase_serve(dev, failures, detail):
-    """12a-12e. Returns (launches, kernel summaries, report) of the paths
-    serve_f32, serve_bf16 and exported."""
+    """12a-12f. Returns (launches, kernel summaries, report) of the paths
+    serve_f32, serve_bf16, exported and exported_grad."""
     import shutil
 
     from lrp_imagecaptioning_torch.config import FlickrConfig
@@ -3827,7 +3945,7 @@ def phase_serve(dev, failures, detail):
         out = os.path.join(work, "artifact")
         _, export_ms = timed(lambda: export_serving(
             cap, params, CaptionPP(), out, batch_size=B_MAIN, beam_size=BEAM, max_len=T,
-            method="lrp", word_buckets=EXPORT_BUCKETS, device=dev))
+            method="lrp", word_buckets=(), device=dev))
         with open(os.path.join(out, "export.json")) as f:
             programs = json.load(f)
         esvc, load_ms = timed(lambda: ExportedService(out, device=dev))
@@ -3846,7 +3964,7 @@ def phase_serve(dev, failures, detail):
                                explain_img_per_s=len(images) / ms * 1e3, launches=counted,
                                expected=want, graphs_after_warmup=before,
                                graphs_after_requests=after, **held)
-        log(f"  12d export_serving at batch {B_MAIN}, buckets {EXPORT_BUCKETS} + T: "
+        log(f"  12d export_serving at batch {B_MAIN}, one program at T: "
             f"{export_ms / 1e3:.1f} s ({programs['seconds']}; bytes {programs['bytes']}); "
             f"load + warmup {load_ms / 1e3:.1f} s; explain of {len(images)} {ms:.1f} ms = "
             f"{rep['exported']['explain_img_per_s']:.2f} img/s; launches {counted}; graphs "
@@ -3859,6 +3977,14 @@ def phase_serve(dev, failures, detail):
         state["artifact"] = out
         del esvc
 
+    def exported_grad():
+        method, buckets = GRAD_EXPORT
+        r = rep["exported_grad"] = export_grad_check(dev, failures, cap, params, images, work,
+                                                     method, buckets, "12f")
+        launches["exported_grad"] = r["launches"]
+        summary["exported_grad"] = plan_summary(dev, "exported_grad", r["plan"], failures,
+                                                detail)
+
     def cli():
         rep["cli"] = phase_serve_cli(work, state, images[0], failures)
 
@@ -3867,6 +3993,8 @@ def phase_serve(dev, failures, detail):
                       (f"12b: the HTTP front-end, {N_CLIENTS} concurrent clients", http),
                       (f"12c: the gRPC front-end, {N_CLIENTS} concurrent clients", grpc),
                       ("12d: export_serving and ExportedService", exported),
+                      (f"12f: export_serving of {GRAD_EXPORT[0]} and ExportedService",
+                       exported_grad),
                       ("12e: the CLI's serve, live and --exported", cli)):
         if fn is not live and state["svc"] is None:
             failures.append(f"phase {title} skipped: 12a did not run")
@@ -5127,6 +5255,8 @@ def main(argv=None) -> int:
                "+ grid-TD, AOA, VGG19", "configs"),
               ("phase 12: the serving entry points at full width: CaptionService, HTTP, gRPC, "
                "export, the CLI's serve", "serve"),
+              (f"phase 12g: every gradient method through export_serving at batch {B_MAIN}, "
+               f"buckets {list(EXPORT_BUCKETS)} + T (--only export_grad)", "export_grad"),
               (f"phase 13: the analyzer catalogue at full width: the 32 names at batch {B_MAIN}, "
                f"the wrappers, imgword_batched at {B_MAIN} x {N_WORDS_13}, perturbation",
                "analyzers"),
@@ -5144,6 +5274,8 @@ def main(argv=None) -> int:
         _build.build_all()
         summary = {name: {} for name in KERNEL_META}
         phases = [(title, key) for title, key in phases if key in only]
+    else:   # 12g runs on request only: seven artifacts at two buckets each
+        phases = [(title, key) for title, key in phases if key != "export_grad"]
     for title, key in phases:
         log(title)
         t0 = time.perf_counter()
@@ -5255,6 +5387,10 @@ def main(argv=None) -> int:
                 for path, by_kernel in serve_summaries.items():
                     for name, s_ in by_kernel.items():
                         summary.setdefault(name, {})[path] = s_
+            elif key == "export_grad":
+                gc.collect()
+                torch.cuda.empty_cache()
+                report["export_grad"] = phase_export_grad(dev, failures)
             elif key == "analyzers" and summary is None:
                 failures.append(f"{title} skipped: phase 2 did not run")
             elif key == "analyzers":

@@ -7,8 +7,8 @@ returns (W, H, W, 3).
 * ``gradient``: d(features)/d(image) contracted with each seed.
 * ``input_times_gradient``: the gradient times the image.
 * ``guided_backprop``: the backward ReLU also zeroes negative upstream
-  gradients (``GuidedReLU``).
-* ``deconvnet``: ReLU on the backward signal only (``DeconvReLU``).
+  gradients (``guided_relu``).
+* ``deconvnet``: ReLU on the backward signal only (``deconv_relu``).
 * ``integrated_gradients``: the mean gradient along the straight path
   from a zero baseline, times the image.
 * ``smoothgrad``: the gradient averaged over noisy copies of the image;
@@ -24,14 +24,12 @@ encoders) are thin adapters over ``gradient_maps`` with its signatures;
 the JAX package takes a PRNG key.
 
 Each pass (the image, an IG step, a SmoothGrad sample) is one forward and
-the W words' VJPs in one batched backward (``input_gradients``), under
-autograd on cuDNN's convs: the LRP kernels (K3, K4) have no gradient and
-are never reached here.
+the W words' VJPs in one backward vmapped over them (``input_gradients``),
+on cuDNN's convs: the LRP kernels (K3, K4) have no gradient and are never
+reached here.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -39,67 +37,51 @@ import torch.nn.functional as F
 from ..models.vgg import vgg_apply
 
 
-class GuidedReLU(torch.autograd.Function):
+def guided_relu(x):
     """ReLU whose backward passes the gradient only where the input and the
-    gradient are both positive (guided backprop). Its vmap rule lets
-    ``input_gradients`` batch the backward over the seeds."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x):
-        return torch.relu(x)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(inputs[0])
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return torch.where((x > 0) & (g > 0), g, torch.zeros_like(g))
+    gradient are both positive (guided backprop): a hook hands ReLU's own
+    backward the ReLU of the gradient. A hook, not a custom
+    ``autograd.Function``: under ``torch.vmap`` of ``torch.func.vjp``
+    (``input_gradients``) a Function's backward goes through functorch's
+    Python rules at every call, a host cost a word bucket of few words pays
+    at each of the encoder's ReLUs."""
+    y = torch.relu(x)
+    if y.requires_grad:
+        y.register_hook(torch.relu)
+    return y
 
 
-class DeconvReLU(torch.autograd.Function):
+def deconv_relu(x):
     """ReLU whose backward is the ReLU of the gradient, whatever the forward
-    input's sign (deconvnet, gradient_based.py:171-216)."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x):
-        return torch.relu(x)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, g):
-        return torch.clamp(g, min=0.0)
+    input's sign (deconvnet, gradient_based.py:171-216): the forward is
+    ReLU's value on the identity's gradient, hooked as ``guided_relu``."""
+    y = x + (torch.relu(x) - x).detach()
+    if y.requires_grad:
+        y.register_hook(torch.relu)
+    return y
 
 
-RELU_FNS = {"guided_backprop": GuidedReLU.apply, "guided_gradcam": GuidedReLU.apply,
-            "deconvnet": DeconvReLU.apply}
+RELU_FNS = {"guided_backprop": guided_relu, "guided_gradcam": guided_relu,
+            "deconvnet": deconv_relu}
 
 
 def input_gradients(encode, images, seeds):
     """d(sum(encode(x) * seed))/dx for each of the W seeds -> (W, H, W, 3).
 
     images (1, H, W, 3), one image for every seed: one forward, then the W
-    VJPs in one ``torch.autograd.grad(is_grads_batched=True)`` (vmap over
-    the backward), as the reference maps its VJP over the seeds. On the card
-    that beats W calls with ``retain_graph`` by 1.2-1.7x; a forward of W
-    copies is faster still on ResNet and Inception, but the copies' f32
-    sums flip near-tied ReLUs, 4e-3 to 8e-3 of a map from the one-forward result
-    (scripts/gradient_vjp_forms.py). images (W, H, W, 3), each seed its own
-    image: one forward and one backward at batch W."""
+    VJPs as ``torch.vmap`` of ``torch.func.vjp``'s pullback, as the reference
+    maps its VJP over the seeds (``jax.vmap`` of ``jax.vjp``). Each layer's
+    backward then runs once over the W seeds (a conv's as one transposed
+    conv at batch W), where ``torch.autograd.grad(is_grads_batched=True)``
+    loops over them in convolution_backward: a traced program
+    (``infer/export.py``) holds one backward, not W. A forward of W copies instead flips near-tied ReLUs, 4e-3 to 8e-3 of
+    a map from the one-forward result (scripts/gradient_vjp_forms.py times
+    the forms). images (W, H, W, 3), each seed its own image: one forward
+    and one backward at batch W."""
     with torch.enable_grad():
         if images.shape[0] == 1:
-            x = images.detach().requires_grad_(True)
-            feats = encode(x)[0]
-            (grad,) = torch.autograd.grad(feats, x, seeds.reshape(-1, *feats.shape),
-                                          is_grads_batched=True)
+            feats, pullback = torch.func.vjp(lambda x: encode(x)[0], images.detach())
+            (grad,) = torch.vmap(pullback)(seeds.reshape(-1, *feats.shape))
             return grad[:, 0]
         x = images.detach().clone().requires_grad_(True)
         feats = encode(x)
@@ -152,38 +134,36 @@ def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
     return torch.where(idx >= n, period - idx, idx)
 
 
-def _linear_upsample_matrix(n: int, upscale: int) -> torch.Tensor:
+def _linear_upsample_matrix(n: int, upscale: int, device) -> torch.Tensor:
     """(n * upscale, n) float64 weights of linear interpolation with
     half-pixel centres, sources left of the first centre clamped to it: what
     ``F.interpolate(mode="bilinear", align_corners=False)`` applies along one
     axis."""
-    src = ((torch.arange(n * upscale, dtype=torch.float64) + 0.5) / upscale - 0.5).clamp(min=0)
+    src = ((torch.arange(n * upscale, dtype=torch.float64, device=device) + 0.5) / upscale
+           - 0.5).clamp(min=0)
     i0 = src.floor().long().clamp(max=n - 1)
     i1 = (i0 + 1).clamp(max=n - 1)
-    frac = src - i0
-    rows = torch.arange(n * upscale)
-    m = torch.zeros(n * upscale, n, dtype=torch.float64)
-    m.index_put_((rows, i0), 1 - frac, accumulate=True)
-    m.index_put_((rows, i1), frac, accumulate=True)
-    return m
+    frac = (src - i0)[:, None]
+    cols = torch.arange(n, device=device)
+    return (i0[:, None] == cols) * (1 - frac) + (i1[:, None] == cols) * frac
 
 
-@functools.lru_cache(maxsize=16)
-def _expand_matrix(n: int, upscale: int, sigma: float) -> torch.Tensor:
-    """(n * upscale, n) float64 on the CPU: the linear upsampling by
+def _expand_matrix(n: int, upscale: int, sigma: float, device) -> torch.Tensor:
+    """(n * upscale, n) float64 on ``device``: the linear upsampling by
     ``upscale``, then the Gaussian blur of ``sigma`` (radius int(4 sigma +
-    0.5), numpy-reflect padding) along one axis, as one linear map. Read
-    only: every caller shares it."""
+    0.5), numpy-reflect padding) along one axis, as one linear map: output
+    row i sums the blur's taps times the upsampling's rows at the taps'
+    reflected indices. Device ops alone, no host copy or sync, so that a
+    traced program (``infer/export.py``) replays it from a CUDA graph."""
     size = n * upscale
     radius = int(4 * sigma + 0.5)
-    xs = torch.arange(-radius, radius + 1, dtype=torch.float64)
+    xs = torch.arange(-radius, radius + 1, dtype=torch.float64, device=device)
     kern = torch.exp(-(xs ** 2) / (2 * sigma ** 2))
     kern = kern / kern.sum()
-    rows = torch.arange(size)[:, None].expand(size, 2 * radius + 1)
-    taps = _reflect_index(size, radius, "cpu")[rows + torch.arange(2 * radius + 1)]
-    blur = torch.zeros(size, size, dtype=torch.float64)
-    blur.index_put_((rows, taps), kern.expand(size, -1), accumulate=True)
-    return blur @ _linear_upsample_matrix(n, upscale)
+    offsets = torch.arange(size, device=device)[:, None] + torch.arange(2 * radius + 1,
+                                                                        device=device)
+    taps = _reflect_index(size, radius, device)[offsets]                # (size, 2r + 1)
+    return (kern[:, None] * _linear_upsample_matrix(n, upscale, device)[taps]).sum(dim=1)
 
 
 def pyramid_expand(img: torch.Tensor, upscale: int = 16, sigma: float = 20.0) -> torch.Tensor:
@@ -196,8 +176,8 @@ def pyramid_expand(img: torch.Tensor, upscale: int = 16, sigma: float = 20.0) ->
     Both steps are linear and separable, so each axis is one (h * upscale, h)
     matrix and the whole is two small products."""
     h, w = img.shape[-2:]
-    rows = _expand_matrix(h, upscale, float(sigma)).to(img.device, img.dtype)
-    cols = _expand_matrix(w, upscale, float(sigma)).to(img.device, img.dtype)
+    rows = _expand_matrix(h, upscale, float(sigma), img.device).to(img.dtype)
+    cols = _expand_matrix(w, upscale, float(sigma), img.device).to(img.dtype)
     return rows @ img @ cols.T
 
 

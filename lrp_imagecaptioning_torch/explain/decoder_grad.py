@@ -59,7 +59,7 @@ def grad_word_adaptive(params, consts, caches, words_0based: torch.Tensor,
     d_ht_next = torch.zeros((R, H), device=dev, dtype=dtype)
     d_ct_next = torch.zeros_like(d_ht_next)
     d_global = torch.zeros((R, E), device=dev, dtype=dtype)
-    d_words = torch.zeros((R, T), device=dev, dtype=dtype)
+    d_words = [None] * T   # a column a step: no in-place write, so a trace holds no mutation
     for i in range(T - 1, -1, -1):
         active = (t_idx >= i)[:, None]
         is_seed = (t_idx == i)[:, None]
@@ -70,13 +70,14 @@ def grad_word_adaptive(params, consts, caches, words_0based: torch.Tensor,
                                                caches.c[i][b_idx], 0.0, d_ht_next, d_ct_next)
         d_xt = d_gates @ wi.T                                     # (R, 2E)
         d_global = d_global + torch.where(active, d_xt[:, E:], zero)
-        d_words[:, i] = torch.where(active[:, 0], d_xt[:, :E].sum(dim=-1), zero)
+        d_words[i] = torch.where(active[:, 0], d_xt[:, :E].sum(dim=-1), zero)
         d_ht_next = torch.where(active, d_gates @ wh.T, zero)
         d_ct_next = torch.where(active, d_ct_prev, zero)
 
     d_feat = _feat_grad(params, consts, b_idx, d_global, d_V)
     L = d_feat.shape[1]
-    return d_feat.reshape(B, W, L, -1), d_words.reshape(B, W, T), attention_t.reshape(B, W, L)
+    return (d_feat.reshape(B, W, L, -1), torch.stack(d_words, dim=1).reshape(B, W, T),
+            attention_t.reshape(B, W, L))
 
 
 def grad_word_gridtd(params, consts, caches, words_0based: torch.Tensor,
@@ -107,7 +108,7 @@ def grad_word_gridtd(params, consts, caches, words_0based: torch.Tensor,
     d_c1_next = torch.zeros_like(d_h2_next)
     d_V = torch.zeros(v_dead.shape, device=dev, dtype=dtype)
     d_global = torch.zeros((R, E), device=dev, dtype=dtype)
-    d_words = torch.zeros((R, T), device=dev, dtype=dtype)
+    d_words = [None] * T
     for i in range(T - 1, -1, -1):
         active = (t_idx >= i)[:, None]
         is_seed = (t_idx == i)[:, None]
@@ -130,7 +131,7 @@ def grad_word_gridtd(params, consts, caches, words_0based: torch.Tensor,
                                                 d_c1_next)
         d_x1 = d_gates1 @ td["wi"].T                              # (R, H + 2E): [h2, g, e]
         d_global = d_global + torch.where(active, d_x1[:, H:H + E], zero)
-        d_words[:, i] = torch.where(active[:, 0], d_x1[:, H + E:H + 2 * E].sum(dim=-1), zero)
+        d_words[i] = torch.where(active[:, 0], d_x1[:, H + E:H + 2 * E].sum(dim=-1), zero)
         d_h2_next = torch.where(active, d_gates2 @ lang["wh"].T + d_x1[:, :H], zero)
         d_c2_next = torch.where(active, d_c2_prev, zero)
         d_h1_next = torch.where(active, d_gates1 @ td["wh"].T, zero)
@@ -138,5 +139,5 @@ def grad_word_gridtd(params, consts, caches, words_0based: torch.Tensor,
 
     d_feat = _feat_grad(params, consts, b_idx, d_global, d_V)
     L = d_feat.shape[1]
-    return (d_feat.reshape(B, W, L, -1), d_words.reshape(B, W, T),
+    return (d_feat.reshape(B, W, L, -1), torch.stack(d_words, dim=1).reshape(B, W, T),
             at_t(caches.attention).reshape(B, W, L))

@@ -57,6 +57,7 @@ import torch
 from ..graphs import GraphCache, param_tensors
 from ..infer.beam import beam_search, n_explained as _n_explained
 from ..models.vgg import vgg_apply
+from ..ops.noise import smoothgrad_noise
 from ..runtime import resolve_device
 from ..weights import tree_leaves, tree_to
 from . import cnn_gradient, inception_lrp, resnet_lrp
@@ -249,9 +250,10 @@ class Explainer:
     def _encode(self, images, params=None):
         return self.captioner.encode(self.params if params is None else params, images)
 
-    def _cnn(self, images, feat_grid, r_feat, params=None):
+    def _cnn(self, images, feat_grid, r_feat, params=None, noise=None):
         """The CNN side of the method: (B, W, L, D) seeds -> (B, W, H, W, 3);
-        ``params`` default the Explainer's (the gradient methods read those)."""
+        ``params`` default the Explainer's (the gradient methods read those),
+        ``noise`` SmoothGrad's (``_gradient``)."""
         cfg = self.captioner.cfg
         enc, until = cfg.img_encoder, cfg.layer_name
         vgg = (self.params if params is None else params)["vgg"]
@@ -264,7 +266,8 @@ class Explainer:
         for b in range(B):
             image, s = images[b:b + 1], seeds[b]
             if self.method not in _RELEVANCE_METHODS:
-                maps.append(self._gradient(image, s, feat_grid[b].reshape(g, g, D), params))
+                maps.append(self._gradient(image, s, feat_grid[b].reshape(g, g, D), params,
+                                           noise))
             elif enc in ("vgg16", "vgg19"):
                 walk = vgg_deep_taylor if self.method == "deep_taylor" else vgg_deeplift
                 maps.append(walk(vgg, image, s, enc, until))
@@ -274,70 +277,66 @@ class Explainer:
                 maps.append(_INCEPTION_WALKS[self.method](vgg, image, s, until=until))
         return torch.stack(maps)
 
-    def _gradient(self, image, seeds, feat_hw, params=None):
+    def _gradient(self, image, seeds, feat_hw, params=None, noise=None):
         """The gradient methods' CNN side on any encoder: image (1, H, W, 3),
-        seeds (W, g, g, D) -> (W, H, W, 3). VGG's SmoothGrad draws noise per
-        word position, the other encoders' one set per image (as the JAX
-        package draws them)."""
+        seeds (W, g, g, D) -> (W, H, W, 3). ``noise``: SmoothGrad's draws
+        (``program_noise``), by default the Explainer's own."""
         cfg, params = self.captioner.cfg, self.params if params is None else params
+        if self.method == "smoothgrad" and noise is None:
+            noise = self._noise_on(seeds.shape[0], image)
         if cfg.img_encoder in ("vgg16", "vgg19"):
             # f32 whatever cfg.compute_dtype, as the reference's VGG functions
             def encode(x, relu_fn):
                 return vgg_apply(params["vgg"], x, cfg.img_encoder, cfg.layer_name,
                                  relu_fn=relu_fn)
-
-            noise = (self._smoothgrad_noise_on(seeds.shape[0], image)
-                     if self.method == "smoothgrad" else None)
         else:
             def encode(x, relu_fn):
                 return self.captioner.encode(params, x, relu_fn=relu_fn)
 
-            noise = self._generic_noise_on(image)[None] if self.method == "smoothgrad" else None
         return cnn_gradient.gradient_maps(self.method, encode, image, seeds, feat_hw,
                                           self._ig_steps, noise, self._sg_noise)
 
     def generic_smoothgrad_noise(self, image_shape) -> torch.Tensor:
         """The generic (ResNet, Inception) SmoothGrad's standard-normal noise,
         (samples, *image_shape) on the CPU, one set per image shared by its
-        words (as the JAX package draws it, from one key): a CPU generator
-        seeded 0, so its bits are not ``jax.random``'s."""
-        gen = torch.Generator().manual_seed(0)
-        return torch.randn((self._sg_samples, *image_shape), generator=gen)
-
-    def _generic_noise_on(self, image):
-        key = ("generic", tuple(image.shape[1:]), image.dtype, image.device)
-        if key not in self._noise:
-            self._noise[key] = self.generic_smoothgrad_noise(tuple(image.shape[1:])).to(
-                image.device, image.dtype)
-        return self._noise[key]
+        words (as the JAX package draws it, from one key): ``ops/noise.py``'s
+        position 0."""
+        return smoothgrad_noise(1, self._sg_samples, image_shape)[0]
 
     def smoothgrad_noise(self, n_words: int, image_shape) -> torch.Tensor:
         """SmoothGrad's standard-normal noise, (n_words, samples, *image_shape)
-        on the CPU. Word position p draws from its own generator (seed p), so
-        a position's noise does not depend on the bucket or the batch (as the
-        JAX package keys it per position)."""
-        out = []
-        for p in range(n_words):
-            gen = torch.Generator().manual_seed(p)
-            out.append(torch.randn((self._sg_samples, *image_shape), generator=gen))
-        return torch.stack(out)
+        on the CPU, keyed per word position (``ops/noise.py``)."""
+        return smoothgrad_noise(n_words, self._sg_samples, image_shape)
 
-    def _smoothgrad_noise_on(self, n_words, image):
+    def program_noise(self, n_words: int, image_shape) -> torch.Tensor:
+        """The noise the CNN side of ``n_words`` positions takes, on the CPU:
+        VGG's draws per position (n_words, samples, *image_shape), the other
+        encoders' one set (1, samples, *image_shape). Row p is drawn from
+        seed p either way, so an exported SmoothGrad program's loader draws
+        its input from the input's shape alone."""
+        if self.captioner.cfg.img_encoder in ("vgg16", "vgg19"):
+            return self.smoothgrad_noise(n_words, image_shape)
+        return self.generic_smoothgrad_noise(image_shape)[None]
+
+    def _noise_on(self, n_words, image):
+        """``program_noise`` for ``image`` (1, H, W, 3), cached on its device."""
         key = (n_words, tuple(image.shape[1:]), image.dtype, image.device)
         if key not in self._noise:
-            self._noise[key] = self.smoothgrad_noise(n_words, image.shape[1:]).to(
+            self._noise[key] = self.program_noise(n_words, tuple(image.shape[1:])).to(
                 image.device, image.dtype)
         return self._noise[key]
 
     def _explain_batch_impl(self, params, images, toks, W: int, n: int | None = None,
-                            decoder_stage=None, positions=None):
+                            decoder_stage=None, positions=None, noise=None):
         """images (B, H, W, 3) and tokens (B, T) on ``params``' device, W
         positions an image -> (maps, r_feat, r_words, attentions, betas) of
         the first ``n`` rows (default all B); the rows past ``n`` are
         padding, which the CNN side skips. ``positions`` (B, W) replaces the
-        first W positions (the word-sharded slices). The decoder stage is by
-        default the eager one: the body ``infer/export.py`` traces per bucket
-        (no graph replay, no host sync)."""
+        first W positions (the word-sharded slices); ``noise`` SmoothGrad's
+        draws (``program_noise(W, ...)`` on the device; default the
+        Explainer's). The decoder stage is by default the eager one: the body
+        ``infer/export.py`` traces per bucket, for every method (no graph
+        replay, no host sync; the gradient methods enable grad inside)."""
         n = images.shape[0] if n is None else n
         feat_grid = self.captioner.encode(params, images)
         if positions is None:
@@ -345,7 +344,8 @@ class Explainer:
                                                                      W).contiguous()
         outs = (decoder_stage or self._decoder_impl)(params, feat_grid, toks, positions)
         r_feat, r_words, atts, betas = (o[:n] for o in outs)
-        return self._cnn(images[:n], feat_grid[:n], r_feat, params), r_feat, r_words, atts, betas
+        maps = self._cnn(images[:n], feat_grid[:n], r_feat, params, noise)
+        return maps, r_feat, r_words, atts, betas
 
     def _slots_for(self, size: int) -> list:
         """The slots a dispatch of ``size`` rows splits over: every slot when

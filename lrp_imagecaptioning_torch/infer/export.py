@@ -8,8 +8,9 @@ backward, CNN side) at one fixed batch, and writes them with the params and
 the tokenizer surface. An artifact directory holds::
 
     decode.pt2            (params, images (B,H,W,3)) -> (tokens (B,T), scores (B,))
-    explain_w{W}.pt2      (params, images, tokens (B,T)) -> (maps, r_feat,
-                          r_words, attentions, betas), one per word bucket and T
+    explain_w{W}.pt2      (params, images, tokens (B,T)[, noise]) -> (maps,
+                          r_feat, r_words, attentions, betas), one per word
+                          bucket and T; SmoothGrad's take its noise
     params.npz            the params (train/checkpoint.py's layout)
     meta.json             vocab id -> word, SOS/EOS ids, shapes, buckets: the
                           JAX artifact's keys
@@ -32,9 +33,17 @@ chunk's work is issued before the first is copied to the host.
 
 The traced bodies are the eager stages (no graph replay inside a trace) and
 contain no host sync: the bucket choice, ``.cpu()`` and the assembly of the
-explanations stay in ``ExportedCaptioner``. Only the relevance methods
-(``lrp``, ``deep_taylor``, ``deep_lift``) export: the gradient methods run
-autograd, which a traced program does not carry.
+explanations stay in ``ExportedCaptioner``. Every method of
+``explain.engine.METHODS`` exports. The relevance methods (``lrp``,
+``deep_taylor``, ``deep_lift``) go to ``torch.export`` as they are. The
+gradient methods run autograd inside the body, which ``torch.export`` does
+not trace, so ``make_fx`` traces them first (on fake tensors, as
+``torch.export`` does, so that both traces see the same strides: the
+forward and the backward ops autograd runs, the kernels as ``lrpic::``
+ops) and ``torch.export`` takes its graph; a trace that fails raises. SmoothGrad's
+noise is an input of its programs, not a constant: the loader draws it once
+a bucket from the Explainer's seeds (``ops/noise.py``), the input's shape
+saying how many rows.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 
 from ..graphs import GraphCache, param_tensors
 from ..ops import kernels  # noqa: F401  (registers the lrpic:: custom ops)
+from ..ops.noise import smoothgrad_noise
 from ..runtime import resolve_device
 from ..weights import load_params_npz, save_params_npz, tree_to
 from .beam import beam_search, n_explained
@@ -58,11 +68,30 @@ from .beam import beam_search, n_explained
 _DECODE = "decode.pt2"
 _META = "meta.json"
 _PARAMS = "params.npz"
-EXPORTABLE_METHODS = ("lrp", "deep_taylor", "deep_lift")
+_K2_OP = "lrpic.lstm_gates.default"   # every decoder's LSTM step: in every program
 
 
 def _explain_file(w: int) -> str:
     return f"explain_w{w}.pt2"
+
+
+def _views_to_reshapes(gm: torch.fx.GraphModule) -> torch.fx.GraphModule:
+    """``gm`` (a ``make_fx`` trace) with each ``aten.view`` a reshape again.
+    make_fx records a reshape as a view where its trace's strides allow one,
+    and ``torch.export`` traces the graph again with strides of its own (on
+    the card its fake convs give NCHW outputs where make_fx's and cuDNN's
+    are channels-last), so each view goes back to a reshape for that trace
+    to decide. A reshape that copies would break an alias that an in-place
+    op writes through: raises on any op that mutates."""
+    for node in gm.graph.nodes:
+        if node.op != "call_function" or not isinstance(node.target, torch._ops.OpOverload):
+            continue
+        if node.target._schema.is_mutable:
+            raise RuntimeError(f"the traced program writes in place ({node.target})")
+        if node.target is torch.ops.aten.view.default:
+            node.target = torch.ops.aten.reshape.default
+    gm.recompile()
+    return gm
 
 
 class _Decode(torch.nn.Module):
@@ -80,14 +109,16 @@ class _Decode(torch.nn.Module):
 
 
 class _ExplainBucket(torch.nn.Module):
-    """(params, images, tokens) -> the explain outputs of all B rows on W words."""
+    """(params, images, tokens[, noise]) -> the explain outputs of all B rows
+    on W words; ``noise`` SmoothGrad's draws."""
 
     def __init__(self, explainer, n_words: int):
         super().__init__()
         self.explainer, self.n_words = explainer, n_words
 
-    def forward(self, params, images, tokens):
-        return self.explainer._explain_batch_impl(params, images, tokens, self.n_words)
+    def forward(self, params, images, tokens, noise=None):
+        return self.explainer._explain_batch_impl(params, images, tokens, self.n_words,
+                                                  noise=noise)
 
 
 def export_serving(captioner, params, caption_pp, out_dir: str, *, batch_size: int = 8,
@@ -96,14 +127,13 @@ def export_serving(captioner, params, caption_pp, out_dir: str, *, batch_size: i
     """Write a self-contained serving artifact directory, its programs traced
     on ``device`` (default "cuda"). ``method``: also export the bucketed
     explain programs for this method, one per word bucket plus the full
-    length, as ``Explainer.warmup`` captures them. The export time and the
-    programs' sizes go to ``meta.json``'s sibling ``export.json``."""
-    from ..explain.engine import Explainer
+    length, as ``Explainer.warmup`` captures them; any of
+    ``explain.engine.METHODS``. The export time and the programs' sizes go
+    to ``meta.json``'s sibling ``export.json``."""
+    from torch.fx.experimental.proxy_tensor import make_fx
 
-    if method is not None and method not in EXPORTABLE_METHODS:
-        raise NotImplementedError(f"method {method!r}: only {EXPORTABLE_METHODS} export (the "
-                                  "gradient methods run autograd, which a traced program "
-                                  "does not carry)")
+    from ..explain.engine import _RELEVANCE_METHODS, Explainer
+
     dev = resolve_device(device)
     T = max_len or captioner.cfg.sentence_length
     sos = caption_pp.SOS_TOKEN_LABEL_ENCODED
@@ -121,10 +151,14 @@ def export_serving(captioner, params, caption_pp, out_dir: str, *, batch_size: i
     tokens = torch.zeros((batch_size, T), dtype=torch.long, device=dev)
     report = {"seconds": {}, "bytes": {}}
 
-    def write(name, module, args):
+    def write(name, module, args, autograd=False):
         t0 = time.perf_counter()
         with torch.no_grad():
+            if autograd:   # the body differentiates: make_fx records the backward's ops
+                module = _views_to_reshapes(make_fx(module, tracing_mode="fake")(*args))
             program = torch.export.export(module, args, strict=False)
+        if _K2_OP not in {str(n.target) for n in program.graph.nodes}:
+            raise RuntimeError(f"{name}: the traced program does not call lrpic::lstm_gates")
         program.example_inputs = None   # else the archive carries the params
         path = os.path.join(out_dir, name)
         torch.export.save(program, path)
@@ -136,7 +170,11 @@ def export_serving(captioner, params, caption_pp, out_dir: str, *, batch_size: i
     if method is not None:
         buckets = sorted({*ex._buckets, T})
         for w in buckets:
-            write(_explain_file(w), _ExplainBucket(ex, w), (params, images, tokens))
+            args = (params, images, tokens)
+            if method == "smoothgrad":
+                args += (ex.program_noise(w, images.shape[1:]).to(dev),)
+            write(_explain_file(w), _ExplainBucket(ex, w), args,
+                  autograd=method not in _RELEVANCE_METHODS)
 
     save_params_npz(os.path.join(out_dir, _PARAMS), params)
     meta = {
@@ -165,6 +203,18 @@ def _program_device(program) -> torch.device:
         if node.op == "placeholder" and node.name in user:
             return node.meta["val"].device
     raise ValueError("exported program has no tensor input")
+
+
+def _program_noise(program, n_params: int) -> torch.Tensor | None:
+    """The SmoothGrad draws an explain program takes after (params, images,
+    tokens), on the CPU, drawn for the shape of that input (rows, samples,
+    H, W, 3); None for a program without it."""
+    user = program.graph_signature.user_inputs
+    if len(user) == n_params + 2:
+        return None
+    last = next(n for n in program.graph.nodes if n.op == "placeholder" and n.name == user[-1])
+    rows, samples, *image_shape = last.meta["val"].shape
+    return smoothgrad_noise(rows, samples, image_shape)
 
 
 def _on_device(program, device: torch.device):
@@ -224,24 +274,30 @@ class ExportedCaptioner:
             got = _program_device(program)
             if got.type != self.device.type:
                 raise ValueError(f"{out_dir}: exported on {got}, cannot run on {self.device}")
-        by_device = {}   # device -> (params, modules)
+        n_params = len(param_tensors(params))
+        noise = {w: _program_noise(p, n_params) for w, p in programs.items() if w is not None}
+        by_device = {}   # device -> (params, modules, SmoothGrad's noise a bucket)
         self._slots = []
         for d in slot_devices:
             if d not in by_device:
                 by_device[d] = (tree_to(params, d),
-                                {w: _on_device(p, d).module() for w, p in programs.items()})
-            replica, modules = by_device[d]
+                                {w: _on_device(p, d).module() for w, p in programs.items()},
+                                {w: None if n is None else n.to(d) for w, n in noise.items()})
+            replica, modules, noise_on = by_device[d]
             graphs = GraphCache() if d.type == "cuda" else None
 
-            def stage(module, graphs=graphs):
-                fn = lambda params, *inputs: module(params, *inputs)   # noqa: E731
+            def stage(module, noise=None, graphs=graphs):
+                def fn(params, *inputs):
+                    return module(params, *inputs) if noise is None else module(params, *inputs,
+                                                                                noise)
                 return fn if graphs is None else graphs.stage(fn, param_tensors)
 
             self._slots.append(_ServingSlot(d, replica, graphs, stage(modules[None]),
-                                            {w: stage(m) for w, m in modules.items()
+                                            {w: stage(m, noise_on[w]) for w, m in modules.items()
                                              if w is not None}))
         self.params = self._slots[0].params
         self.graphs = self._slots[0].graphs
+        self.programs = programs   # the loaded programs: None (decode) and each bucket
 
     @property
     def devices(self) -> list[torch.device]:

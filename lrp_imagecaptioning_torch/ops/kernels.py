@@ -28,21 +28,25 @@ Each source's header says what bounds the kernel on the H100 and what its
 design does about it.
 
 ``torch.export`` traces with fake tensors, which have no device pointers
-for a ctypes launch. So each wrapper is also a ``torch.library.custom_op``
-(``lrpic::<wrapper>``) with a fake (shape) function, and routes to it only
-while ``torch.compiler.is_exporting()``: an exported program calls the op,
-whose implementation is the wrapper's own route (the plain version on the
-CPU, the kernel on the card, counted as any launch). Eager and graphed calls
-take the direct route, with no dispatcher hop.
+for a ctypes launch, and ``make_fx`` cannot see what a ctypes launch writes.
+So each wrapper is also a ``torch.library.custom_op`` (``lrpic::<wrapper>``)
+with a fake (shape) function, and routes to it only while a trace records
+it (``torch.compiler.is_exporting()``, or a ``make_fx`` proxy mode, as
+``infer/export.py`` traces the gradient methods): a traced program calls the
+op, whose implementation is the wrapper's own route (the plain version on
+the CPU, the kernel on the card, counted as any launch). ``lrpic::lstm_gates``
+carries ``lstm_gates_vjp`` as its registered backward, so a trace may
+differentiate through it. Eager and graphed calls take the direct route,
+with no dispatcher hop.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
-
-from typing import Optional
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from . import _build
 from .lrp_conv import conv2d, conv2d_input_vjp
@@ -69,7 +73,8 @@ def _no_grad_only(name: str, *tensors) -> None:
 
 
 def _exporting() -> bool:
-    return torch.compiler.is_exporting()
+    """A trace records this call: an export, or a ``make_fx`` trace."""
+    return torch.compiler.is_exporting() or get_proxy_mode() is not None
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:
@@ -212,8 +217,8 @@ def lstm_gates(zx: torch.Tensor, zh: torch.Tensor, bias: torch.Tensor, c_prev: t
     """The gate pre-activations ``z_pre = (zx + zh) + bias``, then the gate
     nonlinearities and the cell update, in one launch; returns (z_pre, h, c).
     zx = x @ W_i and zh = h_prev @ W_h: (B, 4H); bias (4H,); c_prev (B, H).
-    On the card an input that requires grad takes ``LSTMGates``; an export
-    traces the inference route."""
+    On the card an input that requires grad takes ``LSTMGates``; a trace
+    records ``lrpic::lstm_gates``, with the same backward."""
     if _exporting():
         return torch.ops.lrpic.lstm_gates(zx, zh, bias, c_prev)
     return _lstm_gates(zx, zh, bias, c_prev)
@@ -261,6 +266,14 @@ def _lstm_gates_op(zx: torch.Tensor, zh: torch.Tensor, bias: torch.Tensor,
 @_lstm_gates_op.register_fake
 def _(zx, zh, bias, c_prev):
     return torch.empty_like(zx), torch.empty_like(c_prev), torch.empty_like(c_prev)
+
+
+def _lstm_gates_setup(ctx, inputs, output):
+    ctx.save_for_backward(output[0], inputs[3], output[2])   # z_pre, c_prev, c
+
+
+# LSTMGates' backward (lstm_gates_vjp) from the same saved tensors
+_lstm_gates_op.register_autograd(LSTMGates.backward, setup_context=_lstm_gates_setup)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The gradient methods' CNN side in three forms, timed on the card at the
+"""The gradient methods' CNN side in four forms, timed on the card at the
 shapes of ``chip_smoke.py``'s phases 8d (VGG16), 11a (ResNet-101) and 11b
 (InceptionV3). Needs a CUDA card.
 
@@ -12,6 +12,8 @@ respect to one image, (W, H, W, 3):
   with ``retain_graph``;
 * ``batched``: one forward, then one ``torch.autograd.grad`` over the W
   seeds with ``is_grads_batched=True`` (vmap over the backward);
+* ``vmap_vjp``: one forward, then ``torch.vmap`` of ``torch.func.vjp``'s
+  pullback over the W seeds (``input_gradients``' form);
 * ``batch_w``: one forward of the image copied W times and one backward
   (the batch-W form).
 
@@ -55,6 +57,13 @@ def batched_vjps(encode, x, seeds):
         return torch.autograd.grad(feats, xg, seeds, is_grads_batched=True)[0][:, 0]
 
 
+def vmap_vjps(encode, x, seeds):
+    import torch
+
+    feats, pullback = torch.func.vjp(lambda im: encode(im)[0], x.detach())
+    return torch.vmap(pullback)(seeds.reshape(-1, *feats.shape))[0][:, 0]
+
+
 def batch_w_vjps(encode, x, seeds):
     import torch
 
@@ -63,7 +72,8 @@ def batch_w_vjps(encode, x, seeds):
         return torch.autograd.grad(encode(xw), xw, seeds)[0]
 
 
-FORMS = {"loop": loop_vjps, "batched": batched_vjps, "batch_w": batch_w_vjps}
+FORMS = {"loop": loop_vjps, "batched": batched_vjps, "vmap_vjp": vmap_vjps,
+         "batch_w": batch_w_vjps}
 
 
 def compare(cs, encode, x, seeds, images=None):
@@ -102,7 +112,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from lrp_imagecaptioning_torch.config import FlickrConfig
-    from lrp_imagecaptioning_torch.explain.cnn_gradient import GuidedReLU
+    from lrp_imagecaptioning_torch.explain.cnn_gradient import guided_relu
     from lrp_imagecaptioning_torch.models.captioner import build_captioner
     from lrp_imagecaptioning_torch.runtime import resolve_device
 
@@ -122,7 +132,7 @@ def main() -> int:
         seeds = torch.randn(args.words, cfg.img_feature_length, cfg.img_feature_dim,
                             generator=gen, device=dev)
         rows = {}
-        for relu, fn in (("relu", None), ("guided", GuidedReLU.apply)):
+        for relu, fn in (("relu", None), ("guided", guided_relu)):
             def encode(im, fn=fn):
                 return cap.encode(params, im, relu_fn=fn)
 

@@ -98,9 +98,9 @@ def test_integrated_gradients_and_smoothgrad_match_jax(setup):
 def test_guided_relu_and_deconv_relu_backward():
     x = torch.tensor([-1.0, 0.0, 2.0, 3.0], requires_grad=True)
     g = torch.tensor([5.0, 5.0, -1.0, 4.0])
-    (gx,) = torch.autograd.grad(tg.GuidedReLU.apply(x), x, g)
+    (gx,) = torch.autograd.grad(tg.guided_relu(x), x, g)
     assert gx.tolist() == [0.0, 0.0, 0.0, 4.0]
-    (gx,) = torch.autograd.grad(tg.DeconvReLU.apply(x), x, g)
+    (gx,) = torch.autograd.grad(tg.deconv_relu(x), x, g)
     assert gx.tolist() == [5.0, 5.0, 0.0, 4.0]
 
 
@@ -163,6 +163,6 @@ def test_encode_relu_fn_forward_is_relu(setup):
     _, pt, image, _ = setup
     x = torch.from_numpy(image)
     ref = tvgg.vgg_apply(pt, x, until=UNTIL)
-    for fn in (tg.GuidedReLU.apply, tg.DeconvReLU.apply):
+    for fn in (tg.guided_relu, tg.deconv_relu):
         torch.testing.assert_close(tvgg.vgg_apply(pt, x, until=UNTIL, relu_fn=fn), ref, rtol=0,
                                    atol=0)
