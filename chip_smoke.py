@@ -194,17 +194,21 @@ port's package is not beside it. Phases; any failure makes the exit code 1:
             flips, the ranks' params bit for bit): a 1-rank NCCL group whose
             mesh comes from the default ``make_multihost_mesh()`` (it must
             be [[cuda:0]]), a Trainer step, a fine-tune step and the
-            Trainer's K-step call (K = 4: on a group of one rank the
-            one-device call, its step captured and replayed, held to 4
+            Trainer's K-step call (K = 4: each step the replay of one
+            captured rank step with its all-reduce, one capture, held to 4
             chained one-device steps, both under cuDNN's deterministic
             algorithms); a 2-rank
             gloo group (both ranks on cuda:0), a Trainer step;
             ``--nproc-per-node 2`` under NCCL on the one card, whose ranks
             must both raise the split's ValueError before joining; where
             two or more cards are visible, NCCL groups of 2 and 4 ranks (as
-            the cards allow), one a card, both steps, else a line says they
-            did not run. Every path's launches are held to each slot's
-            derived counts, the mesh's ms or img/s beside one device's;
+            the cards allow), one a card, both steps and both K-step calls
+            (train K = 4, fine-tune K = 2, each replayed from one captured
+            rank step, held bit for bit to the chained sharded steps and
+            to K chained one-device steps; ms a step, capture s, peak GiB
+            and host share a rank beside the chained sharded steps timed
+            alike), else a line says they did not run. Every path's
+            launches are held to each slot's derived counts, the mesh's ms or img/s beside one device's;
 5.    card tests: ``pytest --noconftest -m cuda`` over the kernel, graph,
             training, trainer, encoder, serving and analyzer card tests, in a
             child process (run last).
@@ -216,7 +220,9 @@ phase 12's serve_f32, serve_bf16 and exported, phase 13's
 analyzers_f32 and analyzers_bf16, and phase 14's mesh_train, vocab_train,
 mesh_finetune, shard_words_f32, shard_words_bf16, mesh_bf16, mesh_serve,
 mesh_exported, multihost_train summed over the gloo ranks, multihost_nccl,
-multi_nccl (14f's K-step call), and on several cards nccl_2_ranks and nccl_4_ranks a rank) is driven
+multi_nccl (14f's K-step call), and on several cards nccl_N_ranks,
+nccl_N_ranks_finetune, nccl_N_ranks_multi and nccl_N_ranks_multi_finetune
+for N = 2 and 4, a rank) is driven
 with the launch counts set to 0 just before it and read just after; each
 kernel's count must equal its calls on that path as phase 2's shapes derive
 them (for deep_taylor and bbox the shapes of the run's chunks, timed after
@@ -4454,8 +4460,8 @@ MESH_PATHS = {
 # the paths explaining given captions: K2 in the cached forward only
 GIVEN_TOKENS = ("shard_words_f32", "shard_words_bf16", "mesh_bf16")
 # phase 6c's K-step calls and 14f's K-step call of the 1-rank NCCL group
-# (the one-device call, captured): name -> (the path whose kernel shapes each step takes, (storage,
-# rows, words), steps a call)
+# (its rank step with the all-reduce, captured): name -> (the path whose
+# kernel shapes each step takes, (storage, rows, words), steps a call)
 MESH_PATHS.update({
     "multi_train": ("train", (None, B_TRAIN, T_TRAIN), K_TRAIN),
     "multi_finetune": ("finetune", (None, B_TRAIN, T_TRAIN), K_FINETUNE),
@@ -4699,16 +4705,17 @@ def parallel_worker():
     return torch_parallel_worker
 
 
-def start_group(work, name, n, cards, backend="nccl", steps="train,finetune"):
+def start_group(work, name, n, cards, backend="nccl", steps="train,finetune", reps=0):
     """A group of ``n`` ranks, one ``torchrun`` agent on this host, the
     first ``cards`` cards visible: each rank builds a Trainer on its
     default mesh (gloo: on cuda:0, shared) and runs ``steps`` at full
     width on its rows of one seeded global batch of 32, each against the
-    one-device step on rank 0. -> (output prefix, the agent)."""
+    one-device step on rank 0 (``reps``: timed so many more times).
+    -> (output prefix, the agent)."""
     prefix = os.path.join(work, f"{name}_")
     return prefix, parallel_worker().launch(
-        n, ["--rank", prefix, "--size", "full", "--backend", backend, "--steps", steps],
-        cards=cards, cwd=work)
+        n, ["--rank", prefix, "--size", "full", "--backend", backend, "--steps", steps,
+            "--reps", reps], cards=cards, cwd=work)
 
 
 def read_group(group, n, label):
@@ -4722,12 +4729,14 @@ def read_group(group, n, label):
     return [worker.load_rank(f"{prefix}{r}.npz") for r in range(n)]
 
 
-def ranks_held(label, ranks, key, lr, want, failures):
+def ranks_held(label, ranks, key, lr, want, failures, update_held=True):
     """Step ``key`` (its index in the ranks' steps) of a group against the
     one-device step on rank 0 (``torch_parallel_worker.against``): the loss,
     the gradient, the params after the step (the share apart by over lr / 2:
     Adam's flips; the largest distance), the ranks' params bit for bit, each
-    rank's launches against ``want``. Returns the report."""
+    rank's launches against ``want``. ``update_held`` False logs the
+    gradient and the params against one device and holds the rest.
+    Returns the report."""
     r0 = ranks[0]
     equal = len({r[f"{key}_digest"] for r in ranks}) == 1
     rep = dict(loss=[r[f"{key}_loss"] for r in ranks], ms=[r[f"{key}_ms"] for r in ranks],
@@ -4743,8 +4752,9 @@ def ranks_held(label, ranks, key, lr, want, failures):
         f"{equal}; launches {rep['launches']}")
     if any(v != want for v in rep["launches"]):
         failures.append(f"14f {label} {key}: launches {rep['launches']}, {want} derived a rank")
-    if (rep["loss_rel"] > TOL_MESH_LOSS or rep["grad_dist"] > TOL_MESH_GRAD
-            or rep["apart"] > MESH_FLIP_SHARE or rep["largest"] > 2.5 * lr or not equal):
+    if (rep["loss_rel"] > TOL_MESH_LOSS or not equal
+            or update_held and (rep["grad_dist"] > TOL_MESH_GRAD or rep["apart"] > MESH_FLIP_SHARE
+                                or rep["largest"] > 2.5 * lr)):
         failures.append(f"14f {label} {key} against one device: loss rel {rep['loss_rel']:.3e}, "
                         f"gradient {rep['grad_dist']:.3e}, params apart {rep['apart']:.3e} "
                         f"(largest {rep['largest']:.3e}), ranks equal {equal}")
@@ -4763,8 +4773,8 @@ def phase_multihost(dev, failures, work):
     a Trainer step; ``torchrun --nproc-per-node 2`` under NCCL on the one
     card, which must raise the split's ValueError in both ranks before the
     group is joined. With N >= 2 cards, then NCCL groups of 2 and 4 ranks
-    (as the cards allow), one a card, both steps. Returns (launches by
-    path, report)."""
+    (as the cards allow), one a card, both steps and both K-step calls
+    (``multi_held``). Returns (launches by path, report)."""
     from lrp_imagecaptioning_torch.config import FlickrConfig
 
     worker = parallel_worker()
@@ -4792,18 +4802,11 @@ def phase_multihost(dev, failures, work):
                         f"ValueError (rc {split_rc}): {refused} {split_text[-2000:]}")
     rep["nccl_1_rank"] = {key: ranks_held("1-rank NCCL", [nccl], k, lr, want[key], failures)
                           for k, key in enumerate(want)}
-    # the Trainer's K-step call: on a group of one rank the one-device call
-    # (train.step.one_device_mesh), its step captured and replayed K times,
-    # against K chained one-device steps
-    rep["nccl_1_rank"]["multi"] = ranks_held(
-        f"1-rank NCCL, K = {parallel_worker().MULTI_K} steps a call", [nccl], 2, lr,
-        {k: parallel_worker().MULTI_K * v for k, v in want["train"].items()}, failures)
-    rep["nccl_1_rank"]["multi"].update(captures=nccl["2_captures"], losses=nccl["2_losses"].tolist(),
-                                       ref_losses=nccl["2_ref_losses"].tolist())
-    if nccl["2_captures"] != 1:
-        failures.append(f"14f: the 1-rank NCCL group's K-step call made {nccl['2_captures']} "
-                        "captures (-1: it chained the sharded steps), 1 expected: a group "
-                        "of one rank runs the one-device call")
+    # the Trainer's K-step call: each step the replay of one captured rank
+    # step with its all-reduce (train.step.rank_multi), against K chained
+    # one-device steps
+    rep["nccl_1_rank"]["multi"] = multi_held("1-rank NCCL", [nccl], 2, lr, want["train"],
+                                             failures)
     rep["gloo_2_ranks"] = ranks_held("2-rank gloo (the ranks share the card)", gloo, 0, lr,
                                      expected_launches("train", FlickrConfig(batch_size=16)),
                                      failures)
@@ -4817,26 +4820,84 @@ def phase_multihost(dev, failures, work):
     if not groups:
         log(f"  14f: {cards} card visible: the NCCL groups of one rank a card did not run")
     for n in groups:
-        ranks = read_group(start_group(work, f"nccl{n}", n, n), n, f"{n}-rank NCCL")
+        ranks = read_group(start_group(work, f"nccl{n}", n, n,
+                                       steps="train,finetune,multi,multi_finetune",
+                                       reps=MULTI_REPS), n, f"{n}-rank NCCL")
         meshes = [r["mesh"] for r in ranks]
         log(f"  14f {n}-rank NCCL, one rank a card: meshes {meshes}")
         if meshes != [[[f"cuda:{r}"]] for r in range(n)]:
             failures.append(f"14f {n}-rank NCCL: meshes {meshes}")
         rows = B_TRAIN // n
-        for k, (key, suffix) in enumerate((("train", ""), ("finetune", "_finetune"))):
+        for k, (key, suffix) in enumerate((("train", ""), ("finetune", "_finetune"),
+                                           ("train", "_multi"), ("finetune", "_multi_finetune"))):
             path = f"nccl_{n}_ranks{suffix}"
-            rep[path] = ranks_held(f"{n}-rank NCCL", ranks, k, lr, expected_launches(
-                key, FlickrConfig(batch_size=rows)), failures)
+            one_step = expected_launches(key, FlickrConfig(batch_size=rows))
+            if "multi" in suffix:
+                rep[path] = multi_held(f"{n}-rank NCCL", ranks, k, lr, one_step, failures)
+            else:
+                rep[path] = ranks_held(f"{n}-rank NCCL", ranks, k, lr, one_step, failures)
             launches[path] = ranks[0][f"{k}_launches"]
-            MESH_PATHS[path] = (key, (None, rows, T_TRAIN), 1)
+            MESH_PATHS[path] = (key, (None, rows, T_TRAIN), ranks[0].get(f"{k}_K", 1))
             PATH_KERNELS[path] = PATH_KERNELS[key]
     return launches, rep
 
 
-def phase_scale_out(dev, failures, detail, artifact):
+def multi_held(label, ranks, key, lr, one_step, failures):
+    """A group's K-step call (step ``key`` of the ranks' steps, K its
+    ``_K``): ``ranks_held`` against K chained one-device steps on rank 0,
+    each rank's launches K x ``one_step``'s, one capture a rank (each step
+    the replay of one captured rank step with its all-reduce); where the
+    ranks timed it (``--reps``), ms a step, capture s, peak GiB and the
+    host's share of a call of each rank beside the chained sharded steps'
+    timed alike. Each rank's call is held bit for bit to the K sharded
+    steps chained from the same state and dropout (under cuDNN's
+    deterministic algorithms: the worker's ``chained_equal``). Against one
+    device, a group of one rank (the one device's rows) is held as a step
+    is; in a group of several the K steps' update is logged: the ranks sum
+    in another order than one device, and K Adam steps compound the sign
+    flips of near-zero gradients (H100s read 6.2e-3 to 2.04e-2 of the K = 4
+    update's 2-norm on 2 and 4 ranks over two runs, the calls bit for bit
+    the chained sharded steps).
+    Returns the report."""
+    r0 = ranks[0]
+    K = r0[f"{key}_K"]
+    rep = ranks_held(f"{label}, K = {K} steps a call", ranks, key, lr,
+                     {k: K * v for k, v in one_step.items()}, failures,
+                     update_held=len(ranks) == 1)
+    captures = [r[f"{key}_captures"] for r in ranks]
+    chained = [r[f"{key}_chained_equal"] for r in ranks]
+    rep.update(K=K, captures=captures, losses=r0[f"{key}_losses"].tolist(),
+               ref_losses=r0[f"{key}_ref_losses"].tolist(), chained_equal=chained,
+               chained_dist=[r[f"{key}_chained_dist"] for r in ranks])
+    log(f"  14f {label}, K = {K}: against the chained sharded steps bit for bit {chained} "
+        f"(update distance {rep['chained_dist']}); captures {captures}")
+    if captures != [1] * len(ranks):
+        failures.append(f"14f {label} K-step call: captures {captures} (-1: the sharded steps "
+                        "chained), one a rank expected")
+    if not all(chained):
+        failures.append(f"14f {label} K-step call: not bit for bit the chained sharded steps "
+                        f"{chained}, update distance {rep['chained_dist']}")
+    if f"{key}_ms_per_step" in r0:
+        fields = ("ms_per_step", "chained_ms_per_step", "capture_s", "peak_gib",
+                  "chained_peak_gib", "host_share", "chained_host_share")
+        rep["timed"] = {f: [r[f"{key}_{f}"] for r in ranks] for f in fields}
+        t = rep["timed"]
+        log(f"  14f {label}, K = {K}, cuDNN default, a rank: "
+            f"{[round(v, 2) for v in t['ms_per_step']]} ms a step captured against "
+            f"{[round(v, 2) for v in t['chained_ms_per_step']]} "
+            f"chained (medians of {MULTI_REPS} calls, in turn); host share "
+            f"{[round(v, 3) for v in t['host_share']]} against "
+            f"{[round(v, 3) for v in t['chained_host_share']]}; capture "
+            f"{[round(v, 2) for v in t['capture_s']]} s; peak "
+            f"{[round(v, 2) for v in t['peak_gib']]} GiB against "
+            f"{[round(v, 2) for v in t['chained_peak_gib']]}")
+    return rep
+
+
+def phase_scale_out(dev, failures, detail, artifact, groups_only=False):
     """14a-14f: the sharded paths at full width on a mesh of SLOTS slots on
-    the card against their one-device runs. Returns (launches, kernel
-    summaries, report) of MESH_PATHS."""
+    the card against their one-device runs (``groups_only``: 14f alone).
+    Returns (launches, kernel summaries, report) of MESH_PATHS."""
     import numpy as np
 
     from lrp_imagecaptioning_torch.config import FlickrConfig
@@ -5023,6 +5084,8 @@ def phase_scale_out(dev, failures, detail, artifact):
                            f"{B_MESH_SERVE} on the mesh", many_and_service),
                           ("14e: ExportedCaptioner over two slots", exported),
                           ("14f: process groups on the card, NCCL and gloo", multihost)):
+            if groups_only and fn is not multihost:
+                continue
             log(f" phase {title} ({host_gib()})")
             t0 = time.perf_counter()
             try:
@@ -5263,6 +5326,7 @@ def main(argv=None) -> int:
               (f"phase 14: scale-out at full width on a {SLOTS}-slot mesh on the card: the "
                "sharded train and fine-tune steps, the word-sharded and mesh Explainer, the mesh "
                "CaptionService, exported serving over two slots, process groups", "scale_out"),
+              ("phase 14f alone (--only multihost): process groups on the card", "multihost"),
               ("phase 15: the JAX package's call forms through the package exports, full "
                "width: alpha2beta1 on K3, word-batched bf16 on K4, VGG19", "api"),
               ("phase 5: card tests", "card_tests")]
@@ -5274,8 +5338,10 @@ def main(argv=None) -> int:
         _build.build_all()
         summary = {name: {} for name in KERNEL_META}
         phases = [(title, key) for title, key in phases if key in only]
-    else:   # 12g runs on request only: seven artifacts at two buckets each
-        phases = [(title, key) for title, key in phases if key != "export_grad"]
+    else:   # 12g runs on request only: seven artifacts at two buckets each; 14f
+        # alone only where phase 14 does not run
+        phases = [(title, key) for title, key in phases if key not in ("export_grad",
+                                                                        "multihost")]
     for title, key in phases:
         log(title)
         t0 = time.perf_counter()
@@ -5402,12 +5468,12 @@ def main(argv=None) -> int:
                 for path, by_kernel in an_summaries.items():
                     for name, s_ in by_kernel.items():
                         summary.setdefault(name, {})[path] = s_
-            elif key == "scale_out":
+            elif key in ("scale_out", "multihost"):
                 gc.collect()
                 torch.cuda.empty_cache()
-                mesh_launches, mesh_summaries, report["scale_out"] = phase_scale_out(
+                mesh_launches, mesh_summaries, report[key] = phase_scale_out(
                     dev, failures, report.setdefault("kernel_shapes", {}),
-                    (report.get("serve") or {}).get("artifact"))
+                    (report.get("serve") or {}).get("artifact"), groups_only=key == "multihost")
                 launches.update(mesh_launches)
                 for path, by_kernel in mesh_summaries.items():
                     for name, s_ in by_kernel.items():

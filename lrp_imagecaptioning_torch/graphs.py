@@ -36,12 +36,23 @@ A third, ``StepGraph``, runs K optimizer steps a call (``--steps-per-call``,
 ``train/step.py::make_multi_train_step``): one train or fine-tune step is
 captured over static state and inputs and replayed once a step, the step's
 batch, dropout masks and Adam scalars copied in on the card before each
-replay.
+replay. In a NCCL group of one card a process the captured step is one
+rank's, its all-reduce of the gradient inside the graph
+(``train/step.py::rank_multi``), as the JAX package's sharded K-step call
+is one program on every process. Every rank captures and replays the same
+collectives in the same order: the ranks' steps have one key (equal rows
+a rank), and a capture is the only new collective a rank issues on its
+own. Such a graph holds the communicator (NCCL waits for every graph that
+captured one of its collectives before it destroys it): the StepGraphs
+are released before ``torch.distributed.destroy_process_group``
+(``release_step_graphs``, also run at exit).
 """
 
 from __future__ import annotations
 
+import atexit
 import gc
+import weakref
 from typing import Callable, NamedTuple
 
 import torch
@@ -245,7 +256,12 @@ class StepGraph:
     The kernel wrappers' launch counts are derived from the capture (as
     ``capture_stage`` does) and grow by each replay's. The capture's warm-up
     is one real step on the static state (the state is copied in after it),
-    and its launches count. A capture that fails raises."""
+    and its launches count. A capture that fails raises. On the CPU nothing
+    is captured: each step runs the body on the static tensors, after the
+    same copy-in, which is what a replay on the card computes.
+
+    ``release()`` drops the graph and the static tensors (the state a call
+    returned stays valid); the next call captures anew."""
 
     def __init__(self, body: Callable, optimizer):
         self.body = body
@@ -257,6 +273,7 @@ class StepGraph:
         self.params = self.mu = self.nu = None
         self.scalars = self.batch = self.masks = self.out = None
         self.launches: dict = {}
+        self._state: list = []   # the static params and moments, leaf by leaf
 
     def __call__(self, params, opt_state, stacks, masks=None):
         K, dev = stacks[0].shape[0], stacks[0].device
@@ -265,13 +282,13 @@ class StepGraph:
         # kept until the copy has run
         rows = torch.stack([torch.stack(self.optimizer.step_scalars(count + k + 1, lr))
                             for k in range(K)])
-        scalars = rows.pin_memory().to(dev, non_blocking=True)
+        scalars = rows.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else rows
         key = (tuple((tuple(x.shape[1:]), x.dtype, x.device) for x in stacks),
                None if masks is None else tuple((tuple(t.shape), t.dtype)
                                                 for t in tree_leaves(masks[0])),
                tuple((tuple(p.shape), p.dtype, p.device) for p in tree_leaves(params)))
         if key != self.key:
-            self.key = self.graph = None   # release the old graph's pool first
+            self.release()   # the old graph's pool first
             self._capture(params, opt_state, [x[0] for x in stacks],
                           None if masks is None else masks[0], scalars[0])
             self.key = key
@@ -286,6 +303,9 @@ class StepGraph:
                 for s, m in zip(tree_leaves(self.masks), tree_leaves(masks[k])):
                     s.copy_(m)
             self.scalars.copy_(scalars[k])
+            if self.graph is None:   # the CPU
+                metrics[:, k].copy_(self._run())
+                continue
             self.graph.replay()
             metrics[:, k].copy_(self.out)
             for wrapper, n in self.launches.items():
@@ -301,20 +321,55 @@ class StepGraph:
             params, opt_state["mu"], opt_state["nu"]))
         self.scalars, self.batch = static(scalars), [static(x) for x in batch]
         self.masks = None if masks is None else _rebuild(masks, static)
-        state = [*tree_leaves(self.params), *tree_leaves(self.mu), *tree_leaves(self.nu)]
+        self._state = [*tree_leaves(self.params), *tree_leaves(self.mu), *tree_leaves(self.nu)]
+        dev = self.batch[0].device
+        if dev.type != "cuda":
+            return
         launches = {}
 
         def run():   # records the launches of its last call: the captured one
             before = {k: k.launches for k in kernels.KERNELS}
-            p, mu, nu, m = self.body(self.params, self.mu, self.nu, self.scalars, *self.batch,
-                                     self.masks)
-            for dst, src in zip(state, [*tree_leaves(p), *tree_leaves(mu), *tree_leaves(nu)]):
-                dst.copy_(src)
+            out = self._run()
             launches.update((k, k.launches - before[k]) for k in kernels.KERNELS)
-            return torch.stack([m["loss"].float(), m["accuracy"].float()])
+            return out
 
-        self.graph, self.out = capture(run, self.batch[0].device)
+        self.graph, self.out = capture(run, dev)
         for wrapper, n in launches.items():
             wrapper.launches -= n   # the capture launched nothing
         self.launches = launches
         self.captures += 1
+        _captured.add(self)
+
+    def _run(self) -> torch.Tensor:
+        """One step of the body on the static tensors, the new params and
+        moments copied back into them; -> (loss, accuracy)."""
+        p, mu, nu, m = self.body(self.params, self.mu, self.nu, self.scalars, *self.batch,
+                                 self.masks)
+        for dst, src in zip(self._state, [*tree_leaves(p), *tree_leaves(mu), *tree_leaves(nu)]):
+            dst.copy_(src)
+        return torch.stack([m["loss"].float(), m["accuracy"].float()])
+
+    def release(self) -> None:
+        """Drop the graph, its memory pool and the static tensors."""
+        self.key = self.graph = None
+        self.params = self.mu = self.nu = None
+        self._state = []
+        self.scalars = self.batch = self.masks = self.out = None
+
+
+# every StepGraph that holds a graph: ``release_step_graphs`` drops them all
+_captured: weakref.WeakSet = weakref.WeakSet()
+
+
+def release_step_graphs() -> None:
+    """Release every ``StepGraph``'s graph (``StepGraph.release``). A graph
+    that captured a NCCL collective holds its communicator, and NCCL
+    destroys a communicator only once every such graph is gone: call this
+    before ``torch.distributed.destroy_process_group``. It runs at exit too,
+    before the process group's own teardown."""
+    for graph in list(_captured):
+        graph.release()
+    _captured.clear()
+
+
+atexit.register(release_step_graphs)

@@ -40,9 +40,9 @@ from ..parallel.mesh import batch_sharding, stacked_batch_sharding
 from ..runtime import resolve_device
 from .checkpoint import save_checkpoint
 from .optimizer import apply_updates, make_optimizer
-from .step import (chain_steps, drawn_masks, graph_body, mask_rows, metric_accumulator,
-                   one_device_mesh, place_on_mesh, replicas, run_slots, run_stepped_steps,
-                   sharded_multi, sharded_step, sharded_value_and_grad, undonated,
+from .step import (chain_steps, drawn_masks, graph_body, group_multi, mask_rows,
+                   metric_accumulator, one_device_mesh, place_on_mesh, replicas, run_slots,
+                   run_stepped_steps, sharded_step, sharded_value_and_grad, undonated,
                    value_and_grad)
 
 # NLTK english stop words, frozen so that no corpus download is needed
@@ -281,12 +281,13 @@ def make_sharded_multi_lrp_finetune_step(captioner, optimizer, mesh, stop_table,
                                          donate: bool = True, max_words: int | None = None):
     """K sharded fine-tune steps a call over (K, B, ...) stacks split on the
     batch axis, the JAX package's ``make_sharded_multi_lrp_finetune_step``:
-    the K ``make_sharded_lrp_finetune_step`` steps chained
-    (``train.step.sharded_multi``)."""
+    what K ``make_sharded_lrp_finetune_step`` steps compute, each step
+    replayed from one captured rank step in a NCCL group of one card a
+    process, else the steps chained (``train.step.group_multi``)."""
     phases = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
                                     mode, max_words=max_words).phases
-    return undonated(sharded_multi(captioner, optimizer, mesh,
-                                   sharded_finetune_grads(captioner, mesh, phases)), donate)
+    return undonated(group_multi(captioner, optimizer, mesh,
+                                 sharded_finetune_grads(captioner, mesh, phases)), donate)
 
 
 class LRPFinetuner:
@@ -294,9 +295,10 @@ class LRPFinetuner:
     resumable by ``save_idx``, on one device or, with ``mesh``, data-parallel
     over its slots (``make_sharded_lrp_finetune_step``; a ragged epoch tail
     is dropped). ``steps_per_call = K > 1`` runs K steps a call
-    (``make_multi_lrp_finetune_step``, or its sharded form on a mesh of
-    several slots or processes; values below 1 are 1, as in the JAX
-    package), the ragged tail as single steps.
+    (``make_multi_lrp_finetune_step``, or on a mesh of several slots or
+    in a process group its sharded form: in a NCCL group of one card a
+    process each step replayed from one captured rank step; values below 1
+    are 1, as in the JAX package), the ragged tail as single steps.
 
     ``provider`` has ``caption_preprocessor`` (``vocab_size``, ``word_of``,
     ``SOS_TOKEN_LABEL_ENCODED``, ``EOS_TOKEN_LABEL_ENCODED``) and
@@ -347,9 +349,9 @@ class LRPFinetuner:
         return self._on_device(arr)
 
     def _place_stacked(self, arr):
-        """A (K, B, ...) stack: on a mesh of several slots its batch axis (1)
-        split over the slots."""
-        if self.mesh is not None and not one_device_mesh(self.mesh):
+        """A (K, B, ...) stack (in a process group, this process's rows): on
+        a mesh of several slots its batch axis (1) split over the slots."""
+        if self.mesh is not None and self.mesh.devices.size > 1:
             return stacked_batch_sharding(self.mesh).place(arr)
         return self._on_device(arr)
 

@@ -16,10 +16,16 @@ compute what K chained steps compute. On the card each step is the replay
 of one captured step (``graphs.StepGraph``), its dropout drawn before the
 replays in the single steps' order and Adam's scalars read from the card;
 the state handed in is the state updated (the runner's own, rewritten by
-its next call). A sharded call chains the sharded steps; a mesh of one
-slot in one process (``one_device_mesh``: a 1-rank NCCL group too) takes
-the one-device call instead. ``run_stepped_steps`` feeds stacks of K and
-runs the ragged rest as single steps.
+its next call). In a NCCL group of one card a process (``one_card_a_process``,
+a group of one rank too) each step is the replay of one captured rank step
+(``rank_multi``): its forward and backward on its rows, the all-reduce of
+the gradient and Adam, as the JAX package's sharded K-step call is one
+program on every process. A mesh of one slot and no group
+(``one_device_mesh``) takes the one-device call. An in-process mesh of
+several slots, a gloo group and a process that holds several cards chain
+the sharded steps (``sharded_multi``): a graph belongs to one device, and
+gloo cannot be captured. ``run_stepped_steps`` feeds stacks of K and runs
+the ragged rest as single steps.
 
 The sharded step (``make_sharded_train_step``) computes what the one-device
 step computes on the global batch, as the JAX package's GSPMD program does,
@@ -59,6 +65,7 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.captioner import keras_categorical_ce, masked_accuracy, masked_accuracy_counts
 from ..parallel.distributed import all_reduce_sum
@@ -534,14 +541,18 @@ def sharded_step(captioner, optimizer, mesh, grads_of):
 
 
 def one_device_mesh(mesh) -> bool:
-    """Whether ``mesh`` is one slot in a group of one process (or none): its
-    sharded step computes the one-device step (an all-reduce over one rank
-    is the identity), so the trainers run its K steps a call as the
-    one-device call, replayed from one captured step on a card. A graph
-    belongs to one device and gloo cannot be captured; a NCCL group of
-    several processes chains its sharded steps, its captured K-step call
-    having not finished on four H100s (ROADMAP §C)."""
-    return mesh.devices.size == 1 and mesh.process_count == 1
+    """Whether ``mesh`` is one slot and no process group: its sharded step
+    computes the one-device step, so the trainers run its K steps a call as
+    the one-device call (``make_multi_train_step``)."""
+    return mesh.devices.size == 1 and not mesh.distributed
+
+
+def one_card_a_process(mesh) -> bool:
+    """Whether ``mesh`` is this process's one card in a NCCL group (of one
+    rank too): its K sharded steps a call replay one captured rank step
+    (``rank_multi``), the group's all-reduce inside the graph."""
+    return (mesh.distributed and mesh.devices.size == 1 and mesh.primary.type == "cuda"
+            and "nccl" in dist.get_backend())
 
 
 def sharded_multi(captioner, optimizer, mesh, grads_of):
@@ -564,6 +575,57 @@ def sharded_multi(captioner, optimizer, mesh, grads_of):
     return multi
 
 
+def rank_body(optimizer, mesh, grads_of):
+    """One rank's step of a group whose processes hold one slot each, the
+    body of its ``graphs.StepGraph``: ``grads_of`` (``sharded_train_grads``
+    or the fine-tune's) on the rank's rows, its all-reduce summing the
+    gradient over the group, then Adam from the step's scalars
+    (``graph_body``). The batch and the masks it takes are the rank's rows
+    (the masks already ``mask_rows`` of the global batch's), so they stand
+    at offset 0 of a global batch of their rows times the ranks."""
+    def grads(params, images, captions_in, y_onehot, masks):
+        B = images.shape[0] * mesh.process_count
+        return grads_of(params, *(Sharded([x], B) for x in (images, captions_in, y_onehot)),
+                        masks)
+
+    return graph_body(optimizer, grads)
+
+
+def rank_multi(captioner, optimizer, mesh, grads_of):
+    """K sharded steps a call in a group of one card a process
+    (``one_card_a_process``): ``multi`` as ``sharded_multi``'s, the stacks
+    this process's rows (``Sharded`` on axis 1, or plain (K, rows, ...)
+    tensors). Each step is the replay of one captured ``rank_body``
+    (``multi.graph``, a ``graphs.StepGraph``; on the CPU the body runs
+    eagerly on its static tensors). The masks of the K global batches are
+    drawn before the replays in the chained steps' order, and each step
+    copies in the rank's rows of them with its batch and Adam's scalars. It
+    computes what ``sharded_multi`` chains."""
+    from ..graphs import StepGraph
+
+    graph = StepGraph(rank_body(optimizer, mesh, grads_of), optimizer)
+
+    def multi(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
+        stacks = [as_stacked(mesh, a) for a in (images, captions_in, y_onehot)]
+        (rows,) = stacks[0].rows
+        masks = drawn_masks(captioner, params, stacks[0].global_rows,
+                            stacks[0].shards[0].shape[0], generator, masks)
+        if masks is not None:
+            masks = [mask_rows(m, rows, mesh.primary) for m in masks]
+        images, captions_in, y_onehot = (x.shards[0] for x in stacks)
+        return graph(params, opt_state, [images, captions_in.long(), y_onehot], masks)
+
+    multi.graph = graph
+    return multi
+
+
+def group_multi(captioner, optimizer, mesh, grads_of, shard_vocab: bool = False):
+    """The K-step call of ``mesh``: ``rank_multi`` in a NCCL group of one
+    card a process, else ``sharded_multi`` (with ``shard_vocab`` too)."""
+    one_rank_step = one_card_a_process(mesh) and not shard_vocab
+    return (rank_multi if one_rank_step else sharded_multi)(captioner, optimizer, mesh, grads_of)
+
+
 def _steps_of(stacked: Sharded, K: int) -> list:
     """A (K, B, ...) stack split on axis 1 as K batches ``Sharded`` on axis 0."""
     return [Sharded([s[k] for s in stacked.shards], stacked.global_rows, stacked.offset)
@@ -576,10 +638,11 @@ def make_sharded_multi_train_step(captioner, optimizer, mesh, shard_vocab: bool 
     """K sharded train steps a call over (K, B, ...) stacks whose batch axis
     is split over the data slots, the JAX package's
     ``make_sharded_multi_train_step``: the same as K chained sharded steps
-    (``make_sharded_train_step``). Returns ``(multi, place_state)``;
-    ``multi`` as ``sharded_multi``'s."""
-    multi = sharded_multi(captioner, optimizer, mesh, sharded_train_grads(captioner, mesh,
-                                                                          shard_vocab))
+    (``make_sharded_train_step``), the steps replayed from one captured
+    rank step in a NCCL group of one card a process (``group_multi``).
+    Returns ``(multi, place_state)``; ``multi`` as ``sharded_multi``'s."""
+    multi = group_multi(captioner, optimizer, mesh,
+                        sharded_train_grads(captioner, mesh, shard_vocab), shard_vocab)
     return undonated(multi, donate), place_on_mesh(mesh, shard_vocab, params_template,
                                                    opt_state_template)
 

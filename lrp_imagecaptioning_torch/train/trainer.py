@@ -13,10 +13,12 @@ group, each loading its own rows of the global batch
 log). Checkpoints are the port's npz files (``train/checkpoint.py``).
 ``steps_per_call = K > 1`` runs K train steps a call
 (``train/step.py::make_multi_train_step``, on the card each step replayed
-from one captured CUDA graph; on a mesh of several slots or processes its
-sharded form), the ragged epoch tail as single steps. ``cfg.pretrained_word_vector`` seeds
-the embedding from the file at ``cfg.word_vector_path`` (an attribute the
-caller sets, as in the JAX package; ``models/word_vectors.py``).
+from one captured CUDA graph; on a mesh of several slots or in a process
+group its sharded form, replayed from one captured rank step in a NCCL
+group of one card a process), the ragged epoch tail as single steps.
+``cfg.pretrained_word_vector`` seeds the embedding from the file at
+``cfg.word_vector_path`` (an attribute the caller sets, as in the JAX
+package; ``models/word_vectors.py``).
 """
 
 from __future__ import annotations
@@ -166,12 +168,11 @@ class Trainer:
         return self._typed(arr).to(self.device)
 
     def _place_stacked(self, arr):
-        """A (K, B, ...) stack of training batches: on the device, or on a
-        mesh of several slots or processes its batch axis (1) split over the
-        data slots (with ``multihost``, this process's rows of K global
-        batches)."""
+        """A (K, B, ...) stack of training batches (with ``multihost``, this
+        process's rows of K global batches): on the device, or on a mesh of
+        several slots its batch axis (1) split over the data slots."""
         t = self._typed(arr, stacked=True)
-        if self.mesh is not None and not one_device_mesh(self.mesh):
+        if self.mesh is not None and self.mesh.devices.size > 1:
             return global_stacked_batch_from_local(self.mesh, t)
         return t.to(self.device)
 

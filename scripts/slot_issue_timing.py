@@ -3,7 +3,7 @@
 process a card, buys over issuing them in turn from one thread, for the
 sharded train and fine-tune steps. Needs a CUDA card; uses up to four.
 
-    python3 scripts/slot_issue_timing.py [--reps 5]
+    python3 scripts/slot_issue_timing.py [--reps 5] [--processes-only]
 
 FlickrConfig at full width (VGG16, 224 x 224, E = H = 512, vocab 7003, T =
 21), batch 32, dropout from one seeded generator, params from seed 0. Each
@@ -21,9 +21,12 @@ group of one process a card started by ``torchrun --nproc-per-node N``
 (``tests/torch_parallel_worker.py``'s ``launch`` and ``--rank`` at the
 full size), each rank's mesh from the default ``make_multihost_mesh()``,
 its rows of the global batch (``process_batch_slice``), the train step a
-Trainer's (``multihost=True``), the fine-tune step after it. The ranks
-start each step together (a barrier) and a step's time is the slowest
-rank's.
+Trainer's (``multihost=True``), the fine-tune step after it, then the
+K-step calls: the Trainer's (train, K = 4) and the sharded fine-tune's
+(K = 2), each step replayed from one captured rank step with its
+all-reduce, timed beside the K sharded steps chained, in turn. The ranks
+start each call together (a barrier) and a call's time is the slowest
+rank's. ``--processes-only`` runs the groups alone.
 
 For each it reports the median wall time of a step (every card
 synchronized before and after), the median host time until the step
@@ -35,9 +38,13 @@ largest leaf's: ``torch_parallel_worker.leaf_dists``), and the share of params
 whose Adam step lies over lr / 2 from one device's (for ``processes``
 rank 0 runs the one-device step itself, from the same params and
 dropout); for ``processes`` also whether the ranks' params after a step
-are bit for bit equal. In one process the runs alternate serial, threads,
-threads, serial; the groups run after them. The result is printed as one
-JSON line and written to ``chiprun_out/slot_issue_timing.json``.
+are bit for bit equal; for the K-step calls ms a step captured and
+chained, the host's share of a call of each, the capture's s and the peak
+GiB of a call (each rank's), with cuDNN's default algorithms, and the
+checks against K chained one-device steps (with its deterministic ones).
+In one process the runs alternate serial, threads, threads, serial; the
+groups run after them. The result is printed as one JSON line and written
+to ``chiprun_out/slot_issue_timing.json``.
 """
 
 from __future__ import annotations
@@ -141,6 +148,8 @@ def setup(dev, rows=slice(None)):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--processes-only", action="store_true",
+                    help="only the NCCL groups of one process a card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("slot_issue_timing: needs a CUDA card", file=sys.stderr)
@@ -174,8 +183,9 @@ def main() -> int:
         sync_all()
         return (time.perf_counter() - t0) * 1e3, host * 1e3, out[2]
 
-    result = {"card": card, "cards": n_cards, "batch": B, "reps": args.reps, "steps": {}}
-    for name, (single, sharded, lr) in steps.items():
+    result = {"card": card, "cards": n_cards, "batch": B, "reps": args.reps,
+              "steps": {name: {} for name in (*steps, "multi", "multi_finetune")}}
+    for name, (single, sharded, lr) in ({} if args.processes_only else steps).items():
         opt = make_optimizer("adaptiveattention", lr)
         state = opt.init(params)
         one = single(opt)
@@ -214,17 +224,33 @@ def main() -> int:
     work = os.path.join(HERE, "build", "slot_issue_timing")
     os.makedirs(work, exist_ok=True)
     torch.cuda.empty_cache()
+    names = [*steps, "multi", "multi_finetune"]
     for n in (1, 2, 4):
         if n > n_cards:
             continue
         prefix = os.path.join(work, f"rank{n}_")
         (text, rc), = worker.finish(worker.launch(
-            n, ["--rank", prefix, "--size", "full", "--steps", ",".join(steps), "--reps",
-                args.reps], cards=n, cwd=work), timeout=1200)
+            n, ["--rank", prefix, "--size", "full", "--steps", ",".join(names), "--reps",
+                args.reps, "--guard", 1100], cards=n, cwd=work), timeout=1200)
         if rc != 0:
             raise RuntimeError(f"{n} processes: rc {rc}\n{text[-4000:]}")
         ranks = [worker.load_rank(f"{prefix}{r}.npz") for r in range(n)]
-        for k, name in enumerate(steps):
+        for k, name in enumerate(names):
+            if name.startswith("multi"):
+                cell = {f: [r[f"{k}_{f}"] for r in ranks] for f in (
+                    "ms_per_step", "chained_ms_per_step", "host_share", "chained_host_share",
+                    "capture_s", "peak_gib", "chained_peak_gib", "captures")}
+                K = ranks[0][f"{k}_K"]
+                for f in ("", "chained_"):   # the slowest rank's call, a step
+                    wall = np.max([r[f"{k}_{f}reps_ms"] for r in ranks], axis=0)
+                    cell[f"{f}slowest_ms_per_step"] = float(np.median(wall)) / K
+                cell.update(K=K, slots=[r["mesh"] for r in ranks],
+                            loss_rel=ranks[0][f"{k}_loss_rel"],
+                            grad_dist=ranks[0][f"{k}_grad_dist"],
+                            ranks_equal=len({r[f"{k}_digest"] for r in ranks}) == 1)
+                result["steps"][name][f"{n} processes"] = cell
+                print(f"{name} {n} processes: {json.dumps(cell)}", file=sys.stderr, flush=True)
+                continue
             wall = np.max([r[f"{k}_reps_ms"] for r in ranks], axis=0)
             cell = {"ms": float(np.median(wall)),
                     "host_share": [float(np.median(r[f"{k}_reps_host_ms"] / r[f"{k}_reps_ms"]))

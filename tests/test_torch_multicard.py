@@ -35,9 +35,14 @@ two cards, so here and on a one-card machine):
   a rank): both ranks at cuda:0 of distinct cards, accepted (a card is
   known by its UUID), the steps as above;
 * the Trainer's K-step call (``steps_per_call`` 4) in NCCL groups of 2 and
-  4 ranks, one a card, its sharded steps chained, against K chained
-  one-device steps (losses at rel 1e-5, the update within chip_smoke's
-  TOL_MESH_GRAD by the 2-norm), the ranks' params bit for bit.
+  4 ranks, one a card, and the sharded fine-tune's (K = 2) at 2 ranks:
+  each step replayed from one captured rank step with its all-reduce, one
+  capture a rank, bit for bit the K sharded steps chained from the same
+  state and dropout, against K chained one-device steps (losses at rel 1e-5,
+  the update within chip_smoke's TOL_MESH_GRAD by the 2-norm), the ranks'
+  params bit for bit, launches K x one step's. Each rank's hang guard
+  (``torch_parallel_worker.GUARD_S``) ends a hung group with its stacks in
+  the log inside ``finish``'s timeout.
 
 Nothing here imports JAX: ``pytest --noconftest -m cuda`` runs it on a
 machine without JAX.
@@ -272,9 +277,11 @@ TOL_MESH_GRAD = 4.5e-3
 @pytest.mark.parametrize("ranks", [2, 4])
 def test_nccl_group_k_steps_a_call(tmp_path, ranks):
     """The Trainer's K-step call (``steps_per_call`` 4) in NCCL groups of
-    one process a card: the K sharded steps chained (a group of several
-    processes does not capture: ``train.step.one_device_mesh``); against K
-    chained one-device steps on rank 0: the losses at rel 1e-5, the K
+    one process a card: each step the replay of one captured rank step with
+    its all-reduce (``train.step.rank_multi``), one capture a rank, bit for
+    bit the K sharded steps chained from the same state and dropout (cuDNN's
+    deterministic algorithms); against
+    K chained one-device steps on rank 0: the losses at rel 1e-5, the K
     steps' update within TOL_MESH_GRAD by the 2-norm; the ranks' params bit
     for bit; each rank's launches K x one step's at its rows."""
     if torch.cuda.device_count() < ranks:
@@ -285,9 +292,29 @@ def test_nccl_group_k_steps_a_call(tmp_path, ranks):
     assert ref["1_loss_rel"] <= 1e-5, ref["1_loss_rel"]
     assert ref["1_grad_dist"] <= TOL_MESH_GRAD, ref["1_grad_dist"]
     for z in got:
-        assert z["1_captures"] == -1
+        assert z["1_captures"] == 1 and z["1_chained_equal"], z["1_chained_dist"]
         assert z["1_launches"] == {"lrp_linear": 0, "lstm_gates": 4 * 7, "conv3x3_fused": 0,
                                    "lrp_a1b0_fused": 0}
+        assert z["1_digest"] == ref["1_digest"] and z["1_acc"] == ref["1_ref_acc"]
+
+
+@pytest.mark.cuda
+def test_nccl_group_k_finetune_steps_a_call(tmp_path):
+    """The sharded fine-tune's K-step call (K = 2) in a NCCL group of two
+    processes, one a card, as the train step's above: one capture a rank,
+    against K chained one-device fine-tune steps on rank 0, the ranks'
+    params bit for bit, each rank's launches K x those of its sharded
+    fine-tune step (step 0) at its rows."""
+    logs, rcs, got = _group(tmp_path, 2, cards=2, steps="finetune,multi_finetune")
+    assert rcs == [0] and len(got) == 2, logs
+    ref = got[0]
+    assert ref["1_K"] == 2
+    assert ref["1_loss_rel"] <= 1e-5, ref["1_loss_rel"]
+    assert ref["1_grad_dist"] <= TOL_MESH_GRAD, ref["1_grad_dist"]
+    for z in got:
+        assert z["1_captures"] == 1 and z["1_chained_equal"], z["1_chained_dist"]
+        assert z["1_launches"] == {k: 2 * v for k, v in z["0_launches"].items()}
+        assert z["1_launches"]["conv3x3_fused"] > 0 and z["1_launches"]["lrp_linear"] > 0
         assert z["1_digest"] == ref["1_digest"] and z["1_acc"] == ref["1_ref_acc"]
 
 

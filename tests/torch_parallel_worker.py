@@ -3,9 +3,11 @@
 
     python tests/torch_parallel_worker.py RANK WORLD PORT OUT.npz
     python tests/torch_parallel_worker.py --stacked RANK WORLD PORT OUT.npz
+    python tests/torch_parallel_worker.py --group RANK WORLD PORT IN.npz OUT.npz
     python tests/torch_parallel_worker.py --claims OUT
     python tests/torch_parallel_worker.py --rank OUT [--size small|full]
-        [--backend nccl|gloo] [--steps train,finetune] [--reps N]
+        [--backend nccl|gloo] [--steps train,finetune,multi,multi_finetune]
+        [--reps N] [--guard SECONDS]
 
 The first joins a gloo group of WORLD processes at localhost:PORT
 (``parallel.initialize_distributed``), builds a one-slot CPU mesh inside it
@@ -17,6 +19,9 @@ same in this process on the whole batch, without a group: the reference
 ``tests/test_torch_parallel.py`` holds the processes to. ``--stacked`` does
 the same for one K-step call over stacks of K global batches, each process
 stacking its own rows (``run_stacked``; ``tests/test_torch_multi_step.py``).
+``--group`` runs one rank's captured K-step body eagerly beside the chained
+sharded call on given params, batches and masks (``run_group``;
+``tests/test_torch_multi_step_group.py``).
 
 ``--claims`` and ``--rank`` are ranks of a group that ``launch`` starts
 under ``torchrun`` (``torch.distributed.run``), which sets ``RANK``,
@@ -27,14 +32,19 @@ writes what the group's ownership check says of given layouts
 (``claim_errors``). ``--rank`` runs the sharded steps on the default mesh
 (``rank_worker``); ``load_rank`` reads what it writes. The card tests
 (``tests/test_torch_multicard.py``), ``chip_smoke.py``'s phase 14f and
-``scripts/slot_issue_timing.py`` start it.
+``scripts/slot_issue_timing.py`` start it. A ``--rank`` rank that has not
+ended after ``--guard`` seconds (default GUARD_S) prints every thread's
+stack and exits 1, and a rank that ``torchrun`` stops prints its stacks
+too: a group that hangs ends with where each rank stood in the log.
 """
 
 import argparse
+import faulthandler
 import hashlib
 import json
 import math
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -59,6 +69,8 @@ GLOBAL_BATCH, VOCAB, STEPS = 8, 32, 2
 CFG = dict(embedding_dim=16, hidden_dim=16, layer_name="block2_conv1", img_feature_length=16,
            img_feature_dim=128, sentence_length=6, batch_size=GLOBAL_BATCH, drop_rate=0.5)
 MULTI_K = 4   # --rank's "multi": steps a call (the Trainer's steps_per_call)
+MULTI_FINETUNE_K = 2   # --rank's "multi_finetune": the sharded fine-tune's steps a call
+GUARD_S = 240   # --rank's hang guard: inside ``finish``'s 300 and 600 s
 # --rank's sizes: (FlickrConfig's fields, vocabulary, image side). "full" is
 # FlickrConfig's VGG16 at full width: E = H = 512, T = 21, global batch 32
 SIZES = {"small": (CFG, VOCAB, 8), "full": ({}, 7003, 224)}
@@ -135,6 +147,80 @@ def run_stacked(rank, world, port, K=2):
             p, s, m = step(p, s, *(a[k] for a in stacks), gen)
             losses.append(float(m["loss"]))
         out.update(stack=stacks[0], chained_losses=np.asarray(losses))
+    return out
+
+
+def run_group(rank, world, port, inputs) -> dict:
+    """Process ``rank`` of a gloo group of ``world`` on the CPU, one slot
+    each, over the K global batches of the ``inputs`` npz (``images``,
+    ``caps``, ``y`` stacked (K, B, ...), the params' leaves ``p<i>``, the
+    train steps' dropout masks of the global batch ``m<k>_<i>``, the config
+    ``cfg`` as JSON: FlickrConfig's fields, ``vocab``, ``lr``). For each
+    path it runs one rank's K-step call through its per-step copy-in, the
+    body the card captures run eagerly (``train.step.rank_multi``), and the
+    sharded K-step call of the package (under gloo the sharded steps
+    chained), both from the same state on this process's rows:
+
+    * ``train``: the train step with the given masks;
+    * ``finetune``: the fine-tune step without dropout;
+    * ``finetune_dropout``: the fine-tune step with dropout drawn from one
+      seeded generator.
+
+    -> per path the rank call's losses, accuracies and params' leaves, the
+    chained call's losses, and whether the two ended bit for bit equal
+    (params, moments, losses, accuracies, count)."""
+    from lrp_imagecaptioning_torch.models.adaptive import DropoutMasks
+    from lrp_imagecaptioning_torch.parallel import global_stacked_batch_from_local
+    from lrp_imagecaptioning_torch.train.lrp_finetune import (
+        make_lrp_finetune_step, make_sharded_multi_lrp_finetune_step, sharded_finetune_grads)
+    from lrp_imagecaptioning_torch.train.step import (make_sharded_multi_train_step, rank_multi,
+                                                      sharded_train_grads)
+    from lrp_imagecaptioning_torch.weights import tree_unflatten
+
+    torch.set_num_threads(1)
+    initialize_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = make_multihost_mesh(devices=["cpu"])
+    with np.load(inputs) as z:
+        data = {k: z[k] for k in z.files}
+    cfg = json.loads(str(data["cfg"]))
+    vocab, lr, B = cfg.pop("vocab"), cfg.pop("lr"), data["images"].shape[1]
+    K = data["images"].shape[0]
+    rows = process_batch_slice(B)
+    local = [global_stacked_batch_from_local(mesh, torch.from_numpy(data[a][:, rows]),
+                                             global_batch=B) for a in ("images", "caps", "y")]
+    n = sum(k.startswith("p") for k in data)
+    leaves = [torch.from_numpy(data[f"p{i}"]) for i in range(n)]
+    masks = [DropoutMasks(*(torch.from_numpy(data[f"m{k}_{i}"]) for i in range(4)),
+                          lstm=tuple(torch.from_numpy(data[f"m{k}_{i}"]) for i in (4, 5)))
+             for k in range(K)]
+    opt = make_optimizer("adaptiveattention", lr)
+    stop = np.zeros(vocab + 1, bool)
+    stop[5] = True
+    out = {}
+    for path, drop in (("train", 0.5), ("finetune", 0.0), ("finetune_dropout", 0.5)):
+        cap = build_captioner("adaptiveattention", FlickrConfig(**cfg, drop_rate=drop), vocab)
+        params = tree_unflatten(cap.init_params(0, device="cpu"), leaves)
+        if path == "train":
+            grads_of = sharded_train_grads(cap, mesh)
+            chained = make_sharded_multi_train_step(cap, opt, mesh)[0]
+        else:
+            phases = make_lrp_finetune_step(cap, opt, stop, SOS, EOS).phases
+            grads_of = sharded_finetune_grads(cap, mesh, phases)
+            chained = make_sharded_multi_lrp_finetune_step(cap, opt, mesh, stop, SOS, EOS)
+        given = masks if path == "train" else None
+        ends = []
+        for call in (rank_multi(cap, opt, mesh, grads_of), chained):
+            gen = torch.Generator().manual_seed(5) if path == "finetune_dropout" else None
+            p, st, m = call(params, opt.init(params), *local, gen, masks=given)
+            ends.append((p, tree_leaves((p, st["mu"], st["nu"])), m, st["count"]))
+        (p, mine, m, count), (_, theirs, mc, count_c) = ends
+        out.update({f"{path}_losses": m["loss"].numpy(), f"{path}_acc": m["accuracy"].numpy(),
+                    f"{path}_chained_losses": mc["loss"].numpy(),
+                    f"{path}_equal": count == count_c == K and all(
+                        torch.equal(a, b) for a, b in zip(mine, theirs))
+                    and torch.equal(m["loss"], mc["loss"])
+                    and torch.equal(m["accuracy"], mc["accuracy"])})
+        out.update({f"{path}_p{i}": x.numpy() for i, x in enumerate(tree_leaves(p))})
     return out
 
 
@@ -367,22 +453,40 @@ def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> 
     together), again with a recording optimizer on the same dropout (the
     all-reduced gradient), and ``reps`` times more timed; rank 0 also runs
     the one-device step on its first card at the global batch from the same
-    params and dropout (``against``). ``multi`` is the Trainer's K-step call
-    (``steps_per_call`` MULTI_K: in a 1-rank group the one-device call,
-    its step captured and replayed, in a group of several the sharded steps
-    chained: ``train.step.one_device_mesh``) over K seeded global
-    batches, after one call that captures, against K chained one-device
-    steps on rank 0 (``against_multi``), both with cuDNN's deterministic
-    algorithms. Writes
-    ``OUT<RANK>.npz``; where the group refuses this process's cards, the
-    error and whether the group was joined (the rank ends with 0, so that
-    ``torchrun`` stops no rank before it has written its error)."""
+    params and dropout (``against``).
+
+    ``multi`` is the Trainer's K-step call (``steps_per_call`` MULTI_K),
+    ``multi_finetune`` the sharded fine-tune's
+    (``make_sharded_multi_lrp_finetune_step``, MULTI_FINETUNE_K), each over
+    K seeded global batches: in a NCCL group of one card a process each
+    step replayed from one captured rank step with its all-reduce
+    (``train.step.rank_multi``; ``captures`` counts its captures), else the
+    sharded steps chained (``captures`` -1). After one call that captures,
+    the counted call is held in every rank to the K sharded steps chained
+    from the same state and dropout (``chained_equal``: params and losses
+    bit for bit; ``chained_dist``: ``update_dists``' 2-norm), and on rank 0
+    to K chained one-device steps (``against_multi``), all with cuDNN's
+    deterministic algorithms. With
+    ``reps``, a new call of the same kind and the chained sharded steps
+    (``train.step.sharded_multi``) are then timed alike with cuDNN's
+    default algorithms, in turn: ms a step, the capture's s, the peak GiB
+    of a call and the host's share of a call.
+
+    Writes ``OUT<RANK>.npz``; where the group refuses this process's cards,
+    the error and whether the group was joined (the rank ends with 0, so
+    that ``torchrun`` stops no rank before it has written its error). The
+    StepGraphs are released before the group is destroyed
+    (``graphs.release_step_graphs``)."""
     import torch.distributed as dist
 
+    from lrp_imagecaptioning_torch.graphs import release_step_graphs
     from lrp_imagecaptioning_torch.ops import kernels
-    from lrp_imagecaptioning_torch.train.lrp_finetune import (make_lrp_finetune_step,
-                                                              make_sharded_lrp_finetune_step)
-    from lrp_imagecaptioning_torch.train.step import make_train_step
+    from lrp_imagecaptioning_torch.train.lrp_finetune import (
+        make_lrp_finetune_step, make_sharded_lrp_finetune_step,
+        make_sharded_multi_lrp_finetune_step, sharded_finetune_grads)
+    from lrp_imagecaptioning_torch.train.step import (chain_steps, make_sharded_multi_train_step,
+                                                      make_train_step, sharded_multi,
+                                                      sharded_train_grads)
     from lrp_imagecaptioning_torch.train.trainer import Trainer
 
     out = f"{out}{os.environ['RANK']}.npz"
@@ -415,21 +519,35 @@ def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> 
         single = {"train": lambda o: make_train_step(t.captioner, o),
                   "finetune": lambda o: make_lrp_finetune_step(t.captioner, o, stop, SOS, EOS)}
         counted = {"train": t._train_step, "finetune": sharded["finetune"](t.optimizer)}
+        phases = make_lrp_finetune_step(t.captioner, t.optimizer, stop, SOS, EOS).phases
+        # the K-step calls: (the step, K, a new call, the K sharded steps chained)
+        multis = {
+            "multi": ("train", MULTI_K,
+                      lambda: make_sharded_multi_train_step(t.captioner, t.optimizer, mesh)[0],
+                      lambda: sharded_multi(t.captioner, t.optimizer, mesh,
+                                            sharded_train_grads(t.captioner, mesh))),
+            "multi_finetune": ("finetune", MULTI_FINETUNE_K,
+                               lambda: make_sharded_multi_lrp_finetune_step(
+                                   t.captioner, t.optimizer, mesh, stop, SOS, EOS),
+                               lambda: sharded_multi(t.captioner, t.optimizer, mesh,
+                                                     sharded_finetune_grads(t.captioner, mesh,
+                                                                            phases)))}
         params, state, gen = t.params, t.opt_state, t.generator
         got = {"mesh": json.dumps([[str(d) for d in row] for row in mesh.devices]),
                "steps": json.dumps(list(steps))}
 
-        def timed(step, dropout, inputs=None):
-            dist.barrier()
+        def sync():
             for d in mesh.slots:
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)
+
+        def timed(step, dropout, inputs=None):
+            dist.barrier()
+            sync()
             t0 = time.perf_counter()
             result = step(params, state, *(batch if inputs is None else inputs), dropout)
             host = time.perf_counter() - t0
-            for d in mesh.slots:
-                if d.type == "cuda":
-                    torch.cuda.synchronize(d)
+            sync()
             return result, (time.perf_counter() - t0) * 1e3, host * 1e3
 
         stacks = [np.stack(a) for a in zip(*(global_batch(cfg.batch_size, side,
@@ -443,39 +561,46 @@ def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> 
                 g.set_state(drawn)
                 return g
 
-            if name == "multi":
+            if name in multis:
+                key, K, fresh, chained = multis[name]
+                multi = t._multi_step if name == "multi" else fresh()
                 # cuDNN's deterministic algorithms for the K-step call and its
                 # reference: with the default ones two eager chains on one
                 # input already part in the weight gradients' last bits,
                 # which K Adam steps amplify (chip_smoke.py 6c)
                 torch.backends.cudnn.deterministic = True
-                local = [t._place_stacked(a[:, rows]) for a in stacks]
-                t._multi_step(params, state, *local, torch.Generator(device=dev).manual_seed(99))
+                local = [t._place_stacked(a[:K, rows]) for a in stacks]
+                multi(params, state, *local, torch.Generator(device=dev).manual_seed(99))
                 kernels.reset_launches()
-                (new_params, new_state, m), ms, host = timed(t._multi_step, gen, local)
+                (new_params, new_state, m), ms, host = timed(multi, gen, local)
                 launches = {w.__name__: w.launches for w in kernels.KERNELS}
-                graph = getattr(t._multi_step, "graph", None)   # none where steps chain
+                graph = getattr(multi, "graph", None)   # none where steps chain
                 got.update({f"{k}_loss": float(m["loss"][0]), f"{k}_acc": float(m["accuracy"][0]),
-                            f"{k}_losses": m["loss"].cpu().numpy(), f"{k}_ms": ms,
+                            f"{k}_losses": m["loss"].cpu().numpy(), f"{k}_ms": ms, f"{k}_K": K,
                             f"{k}_host_ms": host, f"{k}_launches": json.dumps(launches),
                             f"{k}_captures": -1 if graph is None else graph.captures,
                             f"{k}_digest": hashlib.sha256(flat(new_params).tobytes()).hexdigest()})
+                # the K sharded steps chained from the same state and dropout
+                chained_params, _, chained_m = chained()(params, state, *local, again())
+                got.update({f"{k}_chained_equal": bool(
+                    np.array_equal(flat(chained_params), flat(new_params))
+                    and torch.equal(chained_m["loss"].cpu(), m["loss"].cpu())),
+                            f"{k}_chained_dist": update_dists(
+                                params, new_params, chained_params,
+                                t.optimizer.learning_rate)["dist"]})
+                del chained_params
                 if rank == 0:
-                    from lrp_imagecaptioning_torch.train.step import chain_steps
-
                     ref_params, _, ref_m = chain_steps(
-                        single["train"](t.optimizer), params, state,
-                        [t._typed(a, stacked=True).to(dev) for a in stacks], again())
-                    got.update({f"{k}_{key}": v for key, v in against_multi(
+                        single[key](t.optimizer), params, state,
+                        [t._typed(a[:K], stacked=True).to(dev) for a in stacks], again())
+                    got.update({f"{k}_{field}": v for field, v in against_multi(
                         params, (new_params, m), (ref_params, ref_m),
                         t.optimizer.learning_rate).items()})
                     del ref_params
-                # the replays rewrite the runner's state, which new_params is:
-                # the same inputs and draws give it again
-                times = [timed(t._multi_step, again(), local)[1:] for _ in range(reps)]
-                got.update({f"{k}_reps_ms": np.asarray([w for w, _ in times]),
-                            f"{k}_reps_host_ms": np.asarray([h for _, h in times])})
                 torch.backends.cudnn.deterministic = False
+                if reps:
+                    got.update({f"{k}_{field}": v for field, v in timed_multi(
+                        dev, timed, fresh(), chained(), again, local, K, reps).items()})
                 params, state = new_params, new_state
                 continue
             kernels.reset_launches()
@@ -501,8 +626,52 @@ def rank_worker(out, size="small", backend="nccl", steps=("train",), reps=0) -> 
             params, state = new_params, new_state
         np.savez(out, **got)
     finally:
+        release_step_graphs()
         dist.destroy_process_group()
     return 0
+
+
+def timed_multi(dev, timed, multi, chained, dropout, stacks, K, reps) -> dict:
+    """A new K-step call ``multi`` and the K chained sharded steps
+    ``chained`` timed alike (``timed``: the ranks start together, the cards
+    synchronized before and after) on the same stacks and dropout: after
+    the call that captures (its capture timed alone) and a warm-up of the
+    chain, ``reps`` of each in turn (ABBA). -> the reps' wall and host ms,
+    ms a step, the host's share of a call and the peak GiB allocated in a
+    call, each for both (the chained ones prefixed ``chained_``), and the
+    capture's s."""
+    spent = []
+    graph = getattr(multi, "graph", None)
+    if graph is not None:
+        capture = graph._capture
+
+        def timed_capture(*args):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            capture(*args)
+            torch.cuda.synchronize(dev)
+            spent.append(time.perf_counter() - t0)
+
+        graph._capture = timed_capture
+    timed(multi, dropout(), stacks)
+    timed(chained, dropout(), stacks)
+    runs = {"": (multi, [], []), "chained_": (chained, [], [])}
+    for r in range(reps):
+        for label in ("", "chained_") if r % 2 == 0 else ("chained_", ""):
+            call, times, peaks = runs[label]
+            torch.cuda.reset_peak_memory_stats(dev)
+            times.append(timed(call, dropout(), stacks)[1:])
+            peaks.append(torch.cuda.max_memory_allocated(dev) / 2**30)
+    out = {"capture_s": spent[0] if spent else float("nan")}
+    for label, (_, times, peaks) in runs.items():
+        wall, host = np.asarray([w for w, _ in times]), np.asarray([h for _, h in times])
+        out.update({f"{label}reps_ms": wall, f"{label}reps_host_ms": host,
+                    f"{label}ms_per_step": float(np.median(wall)) / K,
+                    f"{label}host_share": float(np.median(host / wall)),
+                    f"{label}peak_gib": max(peaks)})
+    if graph is not None:
+        graph.release()
+    return out
 
 
 def load_rank(path) -> dict:
@@ -527,8 +696,16 @@ if __name__ == "__main__":
         ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl")
         ap.add_argument("--steps", default="train")
         ap.add_argument("--reps", type=int, default=0)
+        ap.add_argument("--guard", type=float, default=GUARD_S)
         a = ap.parse_args()
+        faulthandler.dump_traceback_later(a.guard, exit=True)
+        faulthandler.register(signal.SIGTERM, chain=True)
         sys.exit(rank_worker(a.out, a.size, a.backend, a.steps.split(","), a.reps))
+    if sys.argv[1] == "--group":
+        rank, world, port = int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+        np.savez(sys.argv[6], **run_group(rank, world, port, sys.argv[5]))
+        torch.distributed.destroy_process_group()
+        sys.exit(0)
     if sys.argv[1] == "--stacked":
         rank, world, port, out = int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
         np.savez(out, **run_stacked(rank, world, port))
