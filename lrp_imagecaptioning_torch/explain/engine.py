@@ -29,6 +29,12 @@ batch's halving ladder; the padded rows go through the beam search and the
 decoder stage and are dropped, and the CNN side runs on the real rows only.
 ``warmup`` captures the graphs up front.
 
+Each stage records a span (``utils/profiling.py::annotate``):
+``lrpic.explain.analyze_many`` around that call, ``.beam`` around the beam
+search, ``.dispatch`` around each dispatch, inside it ``.encode``,
+``.decoder`` and ``.cnn`` (the three stages above) and ``.to_host`` (the
+wait for the dispatch's work and the copies to the host).
+
 The JAX package encodes and runs the cached forward at batch 1 per image;
 here they run at batch B (the same function, summed in another order).
 
@@ -59,6 +65,7 @@ from ..infer.beam import beam_search, n_explained as _n_explained
 from ..models.vgg import vgg_apply
 from ..ops.noise import smoothgrad_noise
 from ..runtime import resolve_device
+from ..utils.profiling import annotate
 from ..weights import tree_leaves, tree_to
 from . import cnn_gradient, inception_lrp, resnet_lrp
 from .aoa_backward import explain_word_aoa, grad_word_aoa
@@ -109,9 +116,11 @@ _INCEPTION_WALKS = {"lrp": inception_lrp.inception_lrp_wordbatched,
                     "deep_lift": inception_lrp.inception_deeplift_wordbatched}
 def _to_host(outs, axis: int = 0) -> list:
     """Each slot's explain outputs on the host, each array joined over the
-    slots on ``axis`` (one slot's as it is: no copy)."""
-    parts = zip(*([o.float().cpu().numpy() for o in out] for out in outs))
-    return [p[0] if len(p) == 1 else np.concatenate(p, axis=axis) for p in parts]
+    slots on ``axis`` (one slot's as it is: no copy). Its span holds the
+    wait for the work queued before and the copies."""
+    with annotate("lrpic.explain.to_host"):
+        parts = zip(*([o.float().cpu().numpy() for o in out] for out in outs))
+        return [p[0] if len(p) == 1 else np.concatenate(p, axis=axis) for p in parts]
 
 
 @dataclass
@@ -338,13 +347,16 @@ class Explainer:
         ``infer/export.py`` traces per bucket, for every method (no graph
         replay, no host sync; the gradient methods enable grad inside)."""
         n = images.shape[0] if n is None else n
-        feat_grid = self.captioner.encode(params, images)
+        with annotate("lrpic.explain.encode"):
+            feat_grid = self.captioner.encode(params, images)
         if positions is None:
             positions = torch.arange(W, device=images.device).expand(images.shape[0],
                                                                      W).contiguous()
-        outs = (decoder_stage or self._decoder_impl)(params, feat_grid, toks, positions)
+        with annotate("lrpic.explain.decoder"):
+            outs = (decoder_stage or self._decoder_impl)(params, feat_grid, toks, positions)
         r_feat, r_words, atts, betas = (o[:n] for o in outs)
-        maps = self._cnn(images[:n], feat_grid[:n], r_feat, params, noise)
+        with annotate("lrpic.explain.cnn"):
+            maps = self._cnn(images[:n], feat_grid[:n], r_feat, params, noise)
         return maps, r_feat, r_words, atts, betas
 
     def _slots_for(self, size: int) -> list:
@@ -357,21 +369,22 @@ class Explainer:
         ``toks_np`` (host) on bucket W, from one explain call padded to
         ``size`` rows and split over the slots; each slot's outputs are
         copied to the host once, after every slot's work is issued."""
-        k = images.shape[0]
-        images, toks_pad = _pad_rows(images, size), _pad_rows(toks_np, size)
-        slots = self._slots_for(size)
-        per = size // len(slots)
-        outs = []
-        for i, slot in enumerate(slots):
-            real = min(k - i * per, per)
-            if real <= 0:   # padding only
-                break
-            rows = slice(i * per, (i + 1) * per)
-            toks = torch.as_tensor(toks_pad[rows], dtype=torch.long, device=slot.device)
-            outs.append(self._explain_batch_impl(slot.params, images[rows].to(slot.device), toks,
-                                                 W, real, slot.decoder))
-        host = _to_host(outs)
-        return [self._assemble(toks_np, host, b) for b in range(k)]
+        with annotate("lrpic.explain.dispatch"):
+            k = images.shape[0]
+            images, toks_pad = _pad_rows(images, size), _pad_rows(toks_np, size)
+            slots = self._slots_for(size)
+            per = size // len(slots)
+            outs = []
+            for i, slot in enumerate(slots):
+                real = min(k - i * per, per)
+                if real <= 0:   # padding only
+                    break
+                rows = slice(i * per, (i + 1) * per)
+                toks = torch.as_tensor(toks_pad[rows], dtype=torch.long, device=slot.device)
+                outs.append(self._explain_batch_impl(slot.params, images[rows].to(slot.device),
+                                                     toks, W, real, slot.decoder))
+            host = _to_host(outs)
+            return [self._assemble(toks_np, host, b) for b in range(k)]
 
     def _explain_words_sharded(self, image, toks_np, W: int):
         """One image's explanation with its word positions split over the
@@ -401,17 +414,18 @@ class Explainer:
         """Beam search over device images -> (n, T) int32 tokens, in the
         dispatches of ``_chunks`` at batch B (default ``batch_size``), each
         split over the slots (one image: the first)."""
-        toks = []
-        for i, j, size in self._chunks(images.shape[0], B or self.batch_size):
-            chunk = _pad_rows(images[i:j], size)
-            slots = self._slots_for(size)
-            per = size // len(slots)
-            parts = [slot.decode(slot.params,
-                                 self._encode(chunk[s * per:(s + 1) * per].to(slot.device),
-                                              slot.params)).to(self.device)
-                     for s, slot in enumerate(slots) if s * per < j - i]
-            toks.append(torch.cat(parts)[:j - i])
-        return torch.cat(toks).cpu().numpy().astype(np.int32)
+        with annotate("lrpic.explain.beam"):
+            toks = []
+            for i, j, size in self._chunks(images.shape[0], B or self.batch_size):
+                chunk = _pad_rows(images[i:j], size)
+                slots = self._slots_for(size)
+                per = size // len(slots)
+                parts = [slot.decode(slot.params,
+                                     self._encode(chunk[s * per:(s + 1) * per].to(slot.device),
+                                                  slot.params)).to(self.device)
+                         for s, slot in enumerate(slots) if s * per < j - i]
+                toks.append(torch.cat(parts)[:j - i])
+            return torch.cat(toks).cpu().numpy().astype(np.int32)
 
     def _assemble(self, toks_np, outs, b) -> Explanation:
         """Build one Explanation from row ``b`` of a batched explain output
@@ -585,42 +599,43 @@ class Explainer:
         same-bucket group goes out in sub-batches from the halving ladder of
         ``batch_size`` (``warmup(sub_batches=True)`` captures them all). On a
         mesh ``batch_size`` must divide by its data size."""
-        images = self._as_images(images)
-        n = images.shape[0]
-        if n == 0:
-            return []
-        B = batch_size or self.batch_size
-        if B % len(self._slots):
-            raise ValueError(f"batch_size {B} not divisible by the mesh data-axis size "
-                             f"{len(self._slots)}")
-        toks_np = (self._decode(images, B) if tokens_1based is None
-                   else self._coerce_tokens(tokens_1based))
-        eos = self._pp.EOS_TOKEN_LABEL_ENCODED
-        n_words = np.asarray([_n_explained(row, eos) for row in toks_np])
-        order = np.argsort(n_words, kind="stable")
+        with annotate("lrpic.explain.analyze_many"):
+            images = self._as_images(images)
+            n = images.shape[0]
+            if n == 0:
+                return []
+            B = batch_size or self.batch_size
+            if B % len(self._slots):
+                raise ValueError(f"batch_size {B} not divisible by the mesh data-axis size "
+                                 f"{len(self._slots)}")
+            toks_np = (self._decode(images, B) if tokens_1based is None
+                       else self._coerce_tokens(tokens_1based))
+            eos = self._pp.EOS_TOKEN_LABEL_ENCODED
+            n_words = np.asarray([_n_explained(row, eos) for row in toks_np])
+            order = np.argsort(n_words, kind="stable")
 
-        out = [None] * n
+            out = [None] * n
 
-        def dispatch(sel, size, bucket):
-            rows = self._explain_rows(images[torch.as_tensor(sel, device=self.device)],
-                                      toks_np[sel], size, bucket)
-            for e, b in zip(rows, sel):
-                out[int(b)] = e
+            def dispatch(sel, size, bucket):
+                rows = self._explain_rows(images[torch.as_tensor(sel, device=self.device)],
+                                          toks_np[sel], size, bucket)
+                for e, b in zip(rows, sel):
+                    out[int(b)] = e
 
-        if split_buckets:
-            ladder = self._sub_batch_ladder(B)
-            i = 0
-            while i < n:
-                bucket = self._bucket_for(int(n_words[order[i]]))
-                j = i
-                while j < n and self._bucket_for(int(n_words[order[j]])) == bucket:
-                    j += 1
-                for size in self._cover_with_ladder(j - i, ladder):
-                    sel = order[i:i + min(size, j - i)]
-                    dispatch(sel, size, bucket)
-                    i += len(sel)
+            if split_buckets:
+                ladder = self._sub_batch_ladder(B)
+                i = 0
+                while i < n:
+                    bucket = self._bucket_for(int(n_words[order[i]]))
+                    j = i
+                    while j < n and self._bucket_for(int(n_words[order[j]])) == bucket:
+                        j += 1
+                    for size in self._cover_with_ladder(j - i, ladder):
+                        sel = order[i:i + min(size, j - i)]
+                        dispatch(sel, size, bucket)
+                        i += len(sel)
+                return out
+            for i, j, size in self._chunks(n, B):
+                sel = order[i:j]
+                dispatch(sel, size, self._bucket_for(int(n_words[sel].max())))
             return out
-        for i, j, size in self._chunks(n, B):
-            sel = order[i:j]
-            dispatch(sel, size, self._bucket_for(int(n_words[sel].max())))
-        return out

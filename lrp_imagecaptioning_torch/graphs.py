@@ -58,6 +58,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .ops import kernels
+from .utils.profiling import annotate
 from .weights import tree_leaves, tree_map
 
 
@@ -261,7 +262,11 @@ class StepGraph:
     same copy-in, which is what a replay on the card computes.
 
     ``release()`` drops the graph and the static tensors (the state a call
-    returned stays valid); the next call captures anew."""
+    returned stays valid); the next call captures anew.
+
+    A call records the spans ``lrpic.step_graph.call`` around it,
+    ``.scalars`` around the scalars' staging, ``.capture`` around a capture
+    and ``.replay`` around each step (``utils/profiling.py::annotate``)."""
 
     def __init__(self, body: Callable, optimizer):
         self.body = body
@@ -276,42 +281,47 @@ class StepGraph:
         self._state: list = []   # the static params and moments, leaf by leaf
 
     def __call__(self, params, opt_state, stacks, masks=None):
-        K, dev = stacks[0].shape[0], stacks[0].device
-        count, lr = opt_state["count"], opt_state["learning_rate"]
-        # every step's scalars in one copy to the card; the pinned buffer is
-        # kept until the copy has run
-        rows = torch.stack([torch.stack(self.optimizer.step_scalars(count + k + 1, lr))
-                            for k in range(K)])
-        scalars = rows.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else rows
-        key = (tuple((tuple(x.shape[1:]), x.dtype, x.device) for x in stacks),
-               None if masks is None else tuple((tuple(t.shape), t.dtype)
-                                                for t in tree_leaves(masks[0])),
-               tuple((tuple(p.shape), p.dtype, p.device) for p in tree_leaves(params)))
-        if key != self.key:
-            self.release()   # the old graph's pool first
-            self._capture(params, opt_state, [x[0] for x in stacks],
-                          None if masks is None else masks[0], scalars[0])
-            self.key = key
-        _adopt(self.params, params)
-        _adopt(self.mu, opt_state["mu"])
-        _adopt(self.nu, opt_state["nu"])
-        metrics = torch.empty((2, K), device=dev)
-        for k in range(K):
-            for s, x in zip(self.batch, stacks):
-                s.copy_(x[k])
-            if masks is not None:
-                for s, m in zip(tree_leaves(self.masks), tree_leaves(masks[k])):
-                    s.copy_(m)
-            self.scalars.copy_(scalars[k])
-            if self.graph is None:   # the CPU
-                metrics[:, k].copy_(self._run())
-                continue
-            self.graph.replay()
-            metrics[:, k].copy_(self.out)
-            for wrapper, n in self.launches.items():
-                wrapper.launches += n
-        return self.params, {"count": count + K, "mu": self.mu, "nu": self.nu,
-                             "learning_rate": lr}, {"loss": metrics[0], "accuracy": metrics[1]}
+        with annotate("lrpic.step_graph.call"):
+            K, dev = stacks[0].shape[0], stacks[0].device
+            count, lr = opt_state["count"], opt_state["learning_rate"]
+            with annotate("lrpic.step_graph.scalars"):
+                # every step's scalars in one copy to the card; the pinned
+                # buffer is kept until the copy has run
+                rows = torch.stack([torch.stack(self.optimizer.step_scalars(count + k + 1, lr))
+                                    for k in range(K)])
+                scalars = (rows.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda"
+                           else rows)
+            key = (tuple((tuple(x.shape[1:]), x.dtype, x.device) for x in stacks),
+                   None if masks is None else tuple((tuple(t.shape), t.dtype)
+                                                    for t in tree_leaves(masks[0])),
+                   tuple((tuple(p.shape), p.dtype, p.device) for p in tree_leaves(params)))
+            if key != self.key:
+                self.release()   # the old graph's pool first
+                with annotate("lrpic.step_graph.capture"):
+                    self._capture(params, opt_state, [x[0] for x in stacks],
+                                  None if masks is None else masks[0], scalars[0])
+                self.key = key
+            _adopt(self.params, params)
+            _adopt(self.mu, opt_state["mu"])
+            _adopt(self.nu, opt_state["nu"])
+            metrics = torch.empty((2, K), device=dev)
+            for k in range(K):
+                with annotate("lrpic.step_graph.replay"):
+                    for s, x in zip(self.batch, stacks):
+                        s.copy_(x[k])
+                    if masks is not None:
+                        for s, m in zip(tree_leaves(self.masks), tree_leaves(masks[k])):
+                            s.copy_(m)
+                    self.scalars.copy_(scalars[k])
+                    if self.graph is None:   # the CPU
+                        metrics[:, k].copy_(self._run())
+                        continue
+                    self.graph.replay()
+                    metrics[:, k].copy_(self.out)
+                    for wrapper, n in self.launches.items():
+                        wrapper.launches += n
+            return self.params, {"count": count + K, "mu": self.mu, "nu": self.nu,
+                                 "learning_rate": lr}, {"loss": metrics[0], "accuracy": metrics[1]}
 
     def _capture(self, params, opt_state, batch, masks, scalars) -> None:
         def static(t):
