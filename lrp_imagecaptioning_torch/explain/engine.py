@@ -29,11 +29,19 @@ batch's halving ladder; the padded rows go through the beam search and the
 decoder stage and are dropped, and the CNN side runs on the real rows only.
 ``warmup`` captures the graphs up front.
 
+The outputs go to the host without blocking the host: on a card each
+dispatch's outputs are widened to f32 on the device and copied, on the
+stream that made them, into page-locked host memory of their own from
+torch's caching host allocator (``_ToHost``); a public call issues all its
+dispatches, then waits once, on the last copy of each device, and only then
+builds its ``Explanation``s. On the CPU the outputs are host arrays already.
+
 Each stage records a span (``utils/profiling.py::annotate``):
 ``lrpic.explain.analyze_many`` around that call, ``.beam`` around the beam
 search, ``.dispatch`` around each dispatch, inside it ``.encode``,
 ``.decoder`` and ``.cnn`` (the three stages above) and ``.to_host`` (the
-wait for the dispatch's work and the copies to the host).
+issue of the copies to the host); one more ``.to_host`` a public call
+around its wait for the copies and the joins over the slots.
 
 The JAX package encodes and runs the cached forward at batch 1 per image;
 here they run at batch B (the same function, summed in another order).
@@ -42,9 +50,9 @@ here they run at batch B (the same function, summed in another order).
 rows over the mesh's data slots, each slot with its params replica and its
 own graphs on its device (the JAX package's ``shard_map`` over images);
 dispatch sizes are multiples of the data size. A slot holding only padded
-rows is skipped. Every slot's work is issued, from the caller's thread,
-before any output is copied to the host, so that no slot's launches wait
-for another's copy. ``analyze`` and
+rows is skipped. Every slot's work is issued from the caller's thread, and
+no host copy blocks it: the call waits on one event a device at its end.
+``analyze`` and
 ``predict_caption`` (one image) run on the first slot, unless
 ``shard_words=True``: then each slot encodes the image and runs the cached
 forward again, and explains its own slice of the word positions (the bucket
@@ -85,7 +93,13 @@ _RELEVANCE_METHODS = ("lrp", "deep_taylor", "deep_lift")
 
 @dataclass
 class Explanation:
-    """Everything the drivers / eval need for one image (host numpy arrays)."""
+    """Everything the drivers / eval need for one image (host numpy arrays).
+
+    From an Explainer on a card the arrays are views of page-locked host
+    memory from torch's caching host allocator, a block a dispatch; the
+    allocator reuses a block once every view of it is dropped, so a caller
+    who keeps a whole dataset's Explanations keeps that much pinned memory
+    (``np.array(e.relevance_maps)`` copies one into pageable memory)."""
 
     caption: str                 # decoded caption incl. trailing EOS word
     words: list                  # caption words WITHOUT the EOS sentinel
@@ -114,13 +128,66 @@ _RESNET_WALKS = {"lrp": resnet_lrp.resnet_lrp_wordbatched,
 _INCEPTION_WALKS = {"lrp": inception_lrp.inception_lrp_wordbatched,
                     "deep_taylor": inception_lrp.inception_deep_taylor_wordbatched,
                     "deep_lift": inception_lrp.inception_deeplift_wordbatched}
-def _to_host(outs, axis: int = 0) -> list:
-    """Each slot's explain outputs on the host, each array joined over the
-    slots on ``axis`` (one slot's as it is: no copy). Its span holds the
-    wait for the work queued before and the copies."""
-    with annotate("lrpic.explain.to_host"):
-        parts = zip(*([o.float().cpu().numpy() for o in out] for out in outs))
-        return [p[0] if len(p) == 1 else np.concatenate(p, axis=axis) for p in parts]
+
+
+def _on_device(a, device: torch.device) -> torch.Tensor:
+    """Host integers ``a`` as a long tensor on ``device``; to a card from
+    page-locked memory without blocking (a plain copy waits for the work
+    queued on the stream)."""
+    t = torch.as_tensor(a, dtype=torch.long)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+
+class _ToHost:
+    """One public call's explain outputs on their way to the host.
+
+    ``issue`` takes a dispatch's outputs, a tuple a slot, and returns at
+    once. On a card each output is widened to f32 on its device and copied
+    without blocking, on the stream that made it (so its device memory is
+    freed in stream order), into a page-locked tensor of its own from
+    torch's caching host allocator; then an event is recorded on each
+    device's stream. The arrays are numpy views that hold their tensors, and
+    the allocator reuses a block only once every view of it is gone and its
+    copy's event has completed: never a staging ring that a later call
+    rewrites. On the CPU the outputs are host arrays already (no copy).
+    ``wait`` blocks once, on the last event of each device, and only then
+    joins each dispatch's arrays over its slots. ``counts`` (the
+    Explainer's ``host_copies``): ``async`` dispatches copied to pinned
+    memory, ``sync`` dispatches on the CPU, ``bytes`` copied."""
+
+    def __init__(self, counts: dict):
+        self._counts = counts
+        self._events = {}
+        self._issued = []
+
+    def issue(self, outs, axis: int = 0) -> None:
+        with annotate("lrpic.explain.to_host"):
+            parts = [[self._copy(o.float()) for o in out] for out in outs]
+            cards = {o.device for out in outs for o in out if o.device.type == "cuda"}
+            for device in cards:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(device))
+                self._events[device] = event
+            self._counts["async" if cards else "sync"] += 1
+            self._issued.append((parts, axis))
+
+    def _copy(self, o: torch.Tensor) -> np.ndarray:
+        if o.device.type != "cuda":
+            return o.numpy()
+        host = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+        host.copy_(o, non_blocking=True)
+        self._counts["bytes"] += host.nbytes
+        return host.numpy()
+
+    def wait(self) -> list:
+        """Each dispatch's outputs, in issue order, each array joined over
+        the slots on its ``axis`` (one slot's as it is: no copy), once every
+        copy has landed."""
+        with annotate("lrpic.explain.to_host"):
+            for event in self._events.values():
+                event.synchronize()
+            return [[p[0] if len(p) == 1 else np.concatenate(p, axis=axis) for p in zip(*parts)]
+                    for parts, axis in self._issued]
 
 
 @dataclass
@@ -149,7 +216,14 @@ class Explainer:
     Images must already be VGG-preprocessed (``data/images.py``); relevance
     maps come back in input space. ``device`` (default "cuda") is where the
     params are moved and every stage runs; only an explicit "cpu" runs the
-    kernels' plain versions."""
+    kernels' plain versions.
+
+    On a card the returned ``Explanation``s' arrays are views of page-locked
+    host memory from torch's caching host allocator, which reuses it once
+    they are dropped: a caller who keeps a whole dataset's explanations
+    keeps that much pinned memory. ``host_copies`` counts how the outputs
+    reached the host: ``async`` dispatches copied to pinned memory without
+    blocking, ``sync`` dispatches on the CPU (no copy), ``bytes`` copied."""
 
     def __init__(self, captioner, params, caption_pp, method: str = "lrp", beam_size: int = 3,
                  max_len: int | None = None, storage_dtype=None, word_buckets=(4, 8, 12, 16),
@@ -191,6 +265,7 @@ class Explainer:
         self.batch_size = batch_size
         self._backward = _decoder_backward_fn(captioner.model_type, method)
         self._noise: dict = {}
+        self.host_copies = {"async": 0, "sync": 0, "bytes": 0}
         replicas = {}
         self._slots = [self._make_slot(d, replicas.setdefault(d, tree_to(params, d)))
                        for d in devices]
@@ -364,11 +439,11 @@ class Explainer:
         the size divides over them, else (one image) the first."""
         return self._slots if size % len(self._slots) == 0 else self._slots[:1]
 
-    def _explain_rows(self, images, toks_np, size: int, W: int) -> list:
-        """The Explanations of the k rows of ``images`` (device) and
-        ``toks_np`` (host) on bucket W, from one explain call padded to
-        ``size`` rows and split over the slots; each slot's outputs are
-        copied to the host once, after every slot's work is issued."""
+    def _explain_rows(self, images, toks_np, size: int, W: int, host: _ToHost) -> None:
+        """Issue the explain call of the k rows of ``images`` (device) and
+        ``toks_np`` (host) on bucket W, padded to ``size`` rows and split
+        over the slots, and its outputs' copies to ``host``, after every
+        slot's work is issued; nothing here blocks."""
         with annotate("lrpic.explain.dispatch"):
             k = images.shape[0]
             images, toks_pad = _pad_rows(images, size), _pad_rows(toks_np, size)
@@ -380,17 +455,17 @@ class Explainer:
                 if real <= 0:   # padding only
                     break
                 rows = slice(i * per, (i + 1) * per)
-                toks = torch.as_tensor(toks_pad[rows], dtype=torch.long, device=slot.device)
+                toks = _on_device(toks_pad[rows], slot.device)
                 outs.append(self._explain_batch_impl(slot.params, images[rows].to(slot.device),
                                                      toks, W, real, slot.decoder))
-            host = _to_host(outs)
-            return [self._assemble(toks_np, host, b) for b in range(k)]
+            host.issue(outs)
 
-    def _explain_words_sharded(self, image, toks_np, W: int):
-        """One image's explanation with its word positions split over the
-        slots (``shard_words``): bucket ``W`` rounded up to a multiple of the
-        data size, each slot's slice of positions (clamped to the last step)
-        explained on its device, the outputs stitched on the word axis."""
+    def _explain_words_sharded(self, image, toks_np, W: int, host: _ToHost) -> None:
+        """Issue one image's explanation with its word positions split over
+        the slots (``shard_words``): bucket ``W`` rounded up to a multiple of
+        the data size, each slot's slice of positions (clamped to the last
+        step) explained on its device; ``host`` stitches the outputs on the
+        word axis once they land."""
         slots = self._slots
         per = -(-W // len(slots))
         T = self._max_len
@@ -398,10 +473,10 @@ class Explainer:
         for i, slot in enumerate(slots):
             positions = torch.arange(i * per, (i + 1) * per, device=slot.device).clamp(
                 max=T - 1)[None]
-            toks = torch.as_tensor(toks_np, dtype=torch.long, device=slot.device)
+            toks = _on_device(toks_np, slot.device)
             outs.append(self._explain_batch_impl(slot.params, image.to(slot.device), toks, W, 1,
                                                  slot.decoder, positions))
-        return self._assemble(toks_np, _to_host(outs, axis=1), 0)
+        host.issue(outs, axis=1)
 
     # -- host side -------------------------------------------------------------
 
@@ -559,12 +634,14 @@ class Explainer:
             tokens_1based, caption = self.predict_caption(images[0])
         else:
             caption = None
-        toks = self._coerce_tokens(tokens_1based)
+        toks = self._coerce_tokens(tokens_1based)[None]
         n = _n_explained(np.asarray(tokens_1based), self._pp.EOS_TOKEN_LABEL_ENCODED)
+        host = _ToHost(self.host_copies)
         if self._shard_words:
-            e = self._explain_words_sharded(images, toks[None], self._bucket_for(n))
+            self._explain_words_sharded(images, toks, self._bucket_for(n), host)
         else:
-            e = self._explain_rows(images, toks[None], 1, self._bucket_for(n))[0]
+            self._explain_rows(images, toks, 1, self._bucket_for(n), host)
+        e = self._assemble(toks, host.wait()[0], 0)
         e.tokens_1based = np.asarray(tokens_1based)
         if caption is not None:
             e.caption = caption
@@ -581,8 +658,12 @@ class Explainer:
         eos = self._pp.EOS_TOKEN_LABEL_ENCODED
         n_max = max((_n_explained(row, eos) for row in toks_np), default=self._max_len)
         W = self._bucket_for(n_max)
-        return [e for i, j, size in self._chunks(images.shape[0], self.batch_size)
-                for e in self._explain_rows(images[i:j], toks_np[i:j], size, W)]
+        host = _ToHost(self.host_copies)
+        chunks = list(self._chunks(images.shape[0], self.batch_size))
+        for i, j, size in chunks:
+            self._explain_rows(images[i:j], toks_np[i:j], size, W, host)
+        return [self._assemble(toks_np[i:j], outs, b)
+                for (i, j, _), outs in zip(chunks, host.wait()) for b in range(j - i)]
 
     @torch.no_grad()
     def analyze_many(self, images, tokens_1based=None, batch_size=None,
@@ -614,13 +695,13 @@ class Explainer:
             n_words = np.asarray([_n_explained(row, eos) for row in toks_np])
             order = np.argsort(n_words, kind="stable")
 
-            out = [None] * n
+            host = _ToHost(self.host_copies)
+            sels = []
 
             def dispatch(sel, size, bucket):
-                rows = self._explain_rows(images[torch.as_tensor(sel, device=self.device)],
-                                          toks_np[sel], size, bucket)
-                for e, b in zip(rows, sel):
-                    out[int(b)] = e
+                self._explain_rows(images[_on_device(sel, self.device)], toks_np[sel], size,
+                                   bucket, host)
+                sels.append(sel)
 
             if split_buckets:
                 ladder = self._sub_batch_ladder(B)
@@ -634,8 +715,12 @@ class Explainer:
                         sel = order[i:i + min(size, j - i)]
                         dispatch(sel, size, bucket)
                         i += len(sel)
-                return out
-            for i, j, size in self._chunks(n, B):
-                sel = order[i:j]
-                dispatch(sel, size, self._bucket_for(int(n_words[sel].max())))
+            else:
+                for i, j, size in self._chunks(n, B):
+                    sel = order[i:j]
+                    dispatch(sel, size, self._bucket_for(int(n_words[sel].max())))
+            out = [None] * n
+            for sel, outs in zip(sels, host.wait()):
+                for b, r in enumerate(sel):
+                    out[int(r)] = self._assemble(toks_np[sel], outs, b)
             return out

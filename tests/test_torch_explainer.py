@@ -176,6 +176,92 @@ def test_analyze_batch_and_many_equal_analyze(split_buckets):
     _assert_same(batch, single)
 
 
+def _blocking_rows(ex, images, toks_np, size, W):
+    """The Explanations of k rows as the blocking copy gave them: one
+    explain call padded to ``size`` rows, each output
+    ``.float().cpu().numpy()``, assembled at once."""
+    k = len(images)
+    imgs = engine._pad_rows(torch.as_tensor(images), size)
+    toks = torch.as_tensor(engine._pad_rows(toks_np, size), dtype=torch.long)
+    outs = ex._explain_batch_impl(ex.params, imgs, toks, W, k, ex._slots[0].decoder)
+    host = [o.float().cpu().numpy() for o in outs]
+    return [ex._assemble(toks_np, host, b) for b in range(k)]
+
+
+def _assert_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.words == w.words
+        for name in FIELDS:
+            np.testing.assert_array_equal(getattr(g, name), getattr(w, name), err_msg=name)
+
+
+@pytest.mark.parametrize("entry", ["analyze_many", "analyze_batch", "analyze"])
+def test_cpu_outputs_take_the_blocking_path(entry):
+    """On the CPU the outputs are host arrays already: each entry point
+    gives, bit for bit, what the blocking copy gave, and every dispatch is
+    counted ``sync``, none ``async``, no byte copied."""
+    _, _, tcap, pt = _models("adaptiveattention")
+    ex = Explainer(tcap, pt, FakePP(), beam_size=2, word_buckets=(2, 4), batch_size=2,
+                   device="cpu")
+    images = _images(5, seed=9)
+    toks = ex._coerce_tokens(TOKENS)
+    eos = FakePP.EOS_TOKEN_LABEL_ENCODED
+    n_words = np.array([engine._n_explained(row, eos) for row in toks])
+    if entry == "analyze_many":
+        got = ex.analyze_many(images, TOKENS)
+        want = [None] * 5
+        order = np.argsort(n_words, kind="stable")
+        chunks = list(ex._chunks(5, 2))
+        for i, j, size in chunks:
+            sel = order[i:j]
+            rows = _blocking_rows(ex, images[sel], toks[sel], size,
+                                  ex._bucket_for(int(n_words[sel].max())))
+            for r, e in zip(sel, rows):
+                want[r] = e
+    elif entry == "analyze_batch":
+        got = ex.analyze_batch(images, TOKENS)
+        chunks = list(ex._chunks(5, 2))
+        W = ex._bucket_for(int(n_words.max()))
+        want = [e for i, j, size in chunks
+                for e in _blocking_rows(ex, images[i:j], toks[i:j], size, W)]
+    else:
+        got = [ex.analyze(images[b], TOKENS[b]) for b in range(5)]
+        chunks = range(5)
+        want = [_blocking_rows(ex, images[b:b + 1], toks[b:b + 1], 1,
+                               ex._bucket_for(int(n_words[b])))[0] for b in range(5)]
+    assert len(chunks) == (5 if entry == "analyze" else 3)
+    _assert_equal(got, want)
+    assert ex.host_copies == {"async": 0, "sync": len(chunks), "bytes": 0}
+
+
+def test_word_sharded_cpu_path_stitches_on_the_word_axis():
+    """On a CPU mesh of two slots a one-image analyze explains each slot's
+    slice of the positions and joins the slices on axis 1, once, after
+    both are issued: one ``sync`` dispatch."""
+    from lrp_imagecaptioning_torch.parallel import make_mesh
+
+    _, _, tcap, pt = _models("adaptiveattention")
+    ex = Explainer(tcap, pt, FakePP(), beam_size=2, mesh=make_mesh(devices=["cpu"] * 2),
+                   shard_words=True, batch_size=4, device="cpu")
+    image = _images(1, seed=10)
+    toks = ex._coerce_tokens(TOKENS[3])[None]          # five words, no EOS: W = T = 5
+    e = ex.analyze(image[0], TOKENS[3])
+    assert ex.host_copies == {"async": 0, "sync": 1, "bytes": 0}
+    per = 3                                            # ceil(5 / 2), the last slot clamped
+    slices = []
+    for i, slot in enumerate(ex._slots):
+        positions = torch.arange(i * per, (i + 1) * per).clamp(max=4)[None]
+        slices.append(ex._explain_batch_impl(slot.params, torch.as_tensor(image),
+                                             torch.as_tensor(toks, dtype=torch.long), 5, 1,
+                                             slot.decoder, positions))
+    joined = [np.concatenate([s[f].float().numpy() for s in slices], axis=1) for f in range(5)]
+    assert joined[0].shape[1] == 2 * per
+    want = ex._assemble(toks, joined, 0)
+    assert len(e.words) == 5
+    _assert_equal([e], [want])
+
+
 @pytest.mark.parametrize("model_type", ["adaptiveattention", "gridTD"])
 def test_buckets_match_full_program(model_type):
     """A bucket explains its positions exactly as the full-T program does

@@ -14,7 +14,14 @@ marked ``cuda``; it skips here):
 * grid-TD launches K2 twice a step at 3 B rows in the beam search and at B
   rows in the cached forward, with the kernel counts the code derives;
 * ``deep_taylor`` runs K3 on the post-ReLU convs and matches its plain
-  version on the card; ``deep_lift`` launches no K3.
+  version on the card; ``deep_lift`` launches no K3;
+* the outputs' copies to the host are asynchronous into page-locked memory,
+  and no host code reads them before they land: a call behind a long
+  ``torch.cuda._sleep`` on the Explainer's stream returns, bit for bit, what
+  the same call returns with the card drained after each dispatch, and the
+  bytes each dispatch's outputs held on the device; a first call's arrays
+  are unchanged by a second call on other images, whose pinned blocks are
+  not the first's.
 
 This file imports no JAX: the card's machine runs it with ``--noconftest``.
 """
@@ -30,6 +37,7 @@ torch = pytest.importorskip("torch")
 
 from lrp_imagecaptioning_torch import graphs  # noqa: E402
 from lrp_imagecaptioning_torch.config import FlickrConfig  # noqa: E402
+from lrp_imagecaptioning_torch.explain import engine  # noqa: E402
 from lrp_imagecaptioning_torch.explain.engine import Explainer  # noqa: E402
 from lrp_imagecaptioning_torch.models.captioner import build_captioner  # noqa: E402
 from lrp_imagecaptioning_torch.models.vgg import vgg_layers  # noqa: E402
@@ -41,6 +49,9 @@ torch.set_num_threads(2)
 SMALL = dict(embedding_dim=16, hidden_dim=16, layer_name="block3_conv1", img_feature_length=64,
              img_feature_dim=256, sentence_length=6)
 V = 32
+FIELDS = ("relevance_maps", "feat_relevance", "attentions", "word_relevances", "betas")
+# ~0.25 s of the card's clock queued ahead of a call, so that its copies land late
+SLEEP_CYCLES = 500_000_000
 
 
 class PP:
@@ -378,3 +389,76 @@ class TestExplainerOnCard:
         assert kernels.conv3x3_fused.launches == 0
         assert kernels.lrp_linear.launches == T + 3 and kernels.lstm_gates.launches == T
         assert all(np.isfinite(e.relevance_maps).all() for e in out)
+
+    @staticmethod
+    def _bases(rows) -> dict:
+        """The pinned arrays the rows' fields are views of, by address."""
+        return {f.base.ctypes.data: f.base for e in rows for f in (getattr(e, n) for n in FIELDS)}
+
+    def test_no_read_before_the_copies_land(self, monkeypatch):
+        """A call behind ~0.25 s of queued sleep returns what the same call
+        returns with the card drained after each dispatch, bit for bit; each
+        pinned array holds what its output held on the device; the stream is
+        idle when the call returns; both dispatches went ``async``."""
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+        ex = self._explainer(batch_size=4)
+        images, toks = self._images(7, 8), self._tokens(7, 8)
+        ex.warmup(images, sub_batches=True)
+        rows = ex._explain_rows
+
+        def drained(*args):
+            rows(*args)
+            torch.cuda.synchronize()
+
+        ex._explain_rows = drained
+        want = ex.analyze_many(images, toks)
+        del ex._explain_rows
+        issue, on_device, landed = engine._ToHost.issue, [], []
+
+        def kept(host, outs, axis=0):
+            on_device.append([[o.float().clone() for o in out] for out in outs])
+            issue(host, outs, axis)
+            landed.append(host._issued[-1][0])
+
+        monkeypatch.setattr(engine._ToHost, "issue", kept)
+        before = dict(ex.host_copies)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        got = ex.analyze_many(images, toks)
+        assert torch.cuda.current_stream().query()
+        # 7 rows at 4: two dispatches, the second padded to 4
+        assert ex.host_copies["async"] - before["async"] == 2 == len(landed)
+        assert ex.host_copies["sync"] == 0
+        pinned = [a for dispatch in landed for slot in dispatch for a in slot]
+        assert all(a.base.is_pinned() for a in pinned)
+        assert ex.host_copies["bytes"] - before["bytes"] == sum(a.nbytes for a in pinned)
+        for dev, host in zip(on_device, landed):
+            for d, h in zip(dev[0], host[0]):
+                np.testing.assert_array_equal(h, d.cpu().numpy())
+        assert {id(b) for b in self._bases(got).values()} <= {id(a) for a in pinned}
+        assert len(got) == len(want) == 7
+        for g, w in zip(got, want):
+            assert g.words == w.words
+            for name in FIELDS:
+                np.testing.assert_array_equal(getattr(g, name), getattr(w, name), err_msg=name)
+
+    def test_arrays_are_not_rewritten_by_a_later_call(self):
+        """The first call's arrays, copied right after it returns, are the
+        same after a second call on other images (issued behind queued
+        sleep), whose pinned blocks share no byte with the first's."""
+        ex = self._explainer(batch_size=4)
+        a, b, toks = self._images(7, 9), self._images(7, 10), self._tokens(7, 9)
+        ex.warmup(a, sub_batches=True)
+        first = ex.analyze_many(a, toks)
+        copied = [{n: np.array(getattr(e, n)) for n in FIELDS} for e in first]
+        torch.cuda._sleep(SLEEP_CYCLES)
+        second = ex.analyze_many(b, toks)
+        for e, c in zip(first, copied):
+            for name in FIELDS:
+                np.testing.assert_array_equal(getattr(e, name), c[name], err_msg=name)
+        assert any(not np.array_equal(e.relevance_maps, f.relevance_maps)
+                   for e, f in zip(first, second))
+        held = [(p, p + x.nbytes) for p, x in self._bases(first).items()]
+        for p, x in self._bases(second).items():
+            assert all(p + x.nbytes <= lo or hi <= p for lo, hi in held), (p, held)
+        assert ex.host_copies["async"] == 4 and ex.host_copies["sync"] == 0

@@ -4,9 +4,11 @@ annotate``), as ``torch.profiler`` records them.
 On the CPU, at the explain tests' small size:
 
 * ``Explainer.analyze_many`` records ``lrpic.explain.analyze_many`` once,
-  ``lrpic.explain.beam`` once where it decodes, and per dispatch one each of
-  ``dispatch``, ``encode``, ``decoder``, ``cnn`` and ``to_host``, the stages
-  inside their dispatch and every span inside the call;
+  ``lrpic.explain.beam`` once where it decodes, per dispatch one each of
+  ``dispatch``, ``encode``, ``decoder``, ``cnn`` and ``to_host`` (the issue
+  of its copies), the stages inside their dispatch, and one ``to_host``
+  more after the last dispatch (the call's one wait for the copies), every
+  span inside the call;
 * a K-step ``StepGraph`` call records ``lrpic.step_graph.call`` once,
   ``scalars`` once, ``capture`` on its first call only and ``replay`` K
   times, each inside the call;
@@ -15,9 +17,10 @@ On the CPU, at the explain tests' small size:
   ``torch.export``, ``gradient`` through ``make_fx`` first).
 
 On a card (``TestSpansOnCard``, marked ``cuda``; it skips here): no device
-event of a profiled ``analyze_many`` is named ``lrpic.*``, and every device
-copy to the host lies inside a ``lrpic.explain.to_host`` span on the
-profiler's clock.
+event of a profiled ``analyze_many`` is named ``lrpic.*``, every device
+copy to the host is ``Device -> Pinned`` (none pageable), and every one ends
+before the call's last ``lrpic.explain.to_host`` span (its wait) ends, on
+the profiler's clock.
 
 This file imports no JAX: the card's machine runs it with ``--noconftest``.
 """
@@ -45,6 +48,7 @@ SMALL = dict(embedding_dim=16, hidden_dim=16, layer_name="block2_conv1", img_fea
              img_feature_dim=128, sentence_length=5, image_size=(8, 8))
 V = 32
 STAGES = ("dispatch", "encode", "decoder", "cnn", "to_host")
+IN_DISPATCH = ("encode", "decoder", "cnn", "to_host")
 
 
 class PP:
@@ -105,11 +109,18 @@ def test_analyze_many_spans(given):
     # five rows at batch 2: chunks of 2, 2 and 1
     dispatches = named(found, "lrpic.explain.dispatch")
     assert len(dispatches) == 3
-    for stage in STAGES:
-        each = named(found, f"lrpic.explain.{stage}")
+    to_host = named(found, "lrpic.explain.to_host")
+    # one issue of the copies a dispatch, then the call's one wait
+    assert len(to_host) == 3 + 1
+    wait = max(to_host, key=lambda s: s[1])
+    assert inside(wait, calls[0]) and not any(inside(wait, d) for d in dispatches)
+    assert wait[1] >= max(d[2] for d in dispatches)
+    for stage in IN_DISPATCH:
+        each = [s for s in named(found, f"lrpic.explain.{stage}") if s is not wait]
         assert len(each) == 3, stage
         assert all(inside(s, calls[0]) for s in each), stage
         assert all(sum(inside(s, d) for d in dispatches) == 1 for s in each), stage
+    assert all(inside(d, calls[0]) for d in dispatches)
     for beam in named(found, "lrpic.explain.beam"):
         assert inside(beam, calls[0]) and not any(inside(beam, d) for d in dispatches)
     assert {s[0] for s in found} == {"lrpic.explain.analyze_many",
@@ -202,6 +213,8 @@ class TestSpansOnCard:
             pytest.skip("needs a CUDA card: the device timeline exists only there")
 
     def test_spans_are_host_events_on_the_device_clock(self):
+        """The copies to the host are pinned and asynchronous: none is
+        pageable, and each lands before the call's one wait ends."""
         ex = explainer("cuda")
         images, toks = inputs(5, [1, 4, 2, 3, 1], "cuda")
         ex.warmup(images, sub_batches=True)
@@ -209,15 +222,16 @@ class TestSpansOnCard:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             ex.analyze_many(images, toks)
-            torch.cuda.synchronize()
         assert spans(prof, device=True) == []
         to_host = named(spans(prof), "lrpic.explain.to_host")
-        assert len(to_host) == 3
-        copies = [(e.start_ns(), e.start_ns() + e.duration_ns())
+        assert len(to_host) == 3 + 1
+        wait_end = max(e for _, _, e in to_host)
+        copies = [(e.name(), e.start_ns() + e.duration_ns())
                   for e in prof.profiler.kineto_results.events()
                   if "CUDA" in str(e.device_type()) and "Memcpy DtoH" in e.name()]
-        assert copies
+        # five outputs a dispatch, three dispatches
+        assert len(copies) >= 5 * 3, copies
+        assert all("Pinned" in name and "Pageable" not in name for name, _ in copies), copies
         slack = 50_000   # ns
-        for start, end in copies:
-            assert any(s - slack <= start and end <= e + slack for _, s, e in to_host), \
-                (start, end, to_host)
+        for name, end in copies:
+            assert end <= wait_end + slack, (name, end, wait_end)
