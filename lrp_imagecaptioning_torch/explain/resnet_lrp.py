@@ -13,10 +13,20 @@ of iNNvestigate that the VGG walk never needs (relevance_analyzer.py:
 * ReLU passes relevance unchanged; the overlapping 3x3/2 stem pool reverses
   winner-take-all with ties split (``lrp_maxpool_overlapping_wta``).
 
-Words are the batch: the forward runs once per image (batch 1), and its
-cached tensors broadcast against the W seeds. DeepTaylor takes the
+Words are the batch: the PresetA walk runs one forward over its B images
+and walks the W seeds of every image at once (B W rows), each image's
+cached tensors broadcast against its own seeds, so that a walk launches
+the same kernels for one image or a batch (the fine-tune's captured step
+holds one walk, not one an image). DeepTaylor and DeepLIFT walk one image
+(batch 1) against its W seeds. DeepTaylor takes the
 WSquareRule on every conv (deeptaylor.py:62-67) and DeepLIFT the
 LinearRule / RescaleRule (deeplift.py:44-116): neither launches K3.
+
+Each walk records the span ``lrpic.resnet_walk.forward`` around its cached
+forward (or forwards) and ``lrpic.resnet_walk.rules`` around its backward
+(``utils/profiling.py::annotate``). Nothing in a walk waits for the card
+or takes a shape from the data, so a walk captures whole into a CUDA graph
+(the fine-tune's K-step call, ``train/lrp_finetune.py``).
 """
 
 from __future__ import annotations
@@ -24,9 +34,11 @@ from __future__ import annotations
 import torch
 
 from ..models.resnet import BN_EPS, _stages, bn, conv, stem_pad
-from ..ops.lrp_conv import (deeplift_conv_linear, deeplift_relu_rescale, lrp_conv_wsquare,
+from ..ops.lrp_conv import (conv2d, conv2d_input_vjp, deeplift_conv_linear,
+                            deeplift_relu_rescale, lrp_conv_wsquare,
                             lrp_maxpool_overlapping_wta, maxpool2d)
 from ..ops.lrp_core import EPS_KERAS, safe_divide, sign_stabilizer
+from ..utils.profiling import annotate
 from .cnn_deeplift import reference_image
 from .cnn_lrp import conv_rule
 
@@ -82,26 +94,67 @@ def _blocks_reversed(depth):
             yield stage, block, bi, stage_stride if bi == 0 else 1
 
 
+def _per_seed(t, words: int):
+    """An image's tensor once for each of its seeds: (B, ...) -> (B words, ...)."""
+    return t.unsqueeze(1).expand(-1, words, *t.shape[1:]).flatten(0, 1)
+
+
+def _a1b0(r, x, kernel, stride, padding, nonneg=True):
+    """alpha1beta0 through a bias-free conv for the W seeds of each of B
+    images: r (B, W, h, w, Cout), x (B, H, W, Cin) -> (B, W, H, W, Cin). A
+    3x3 SAME stride-1 conv over a post-ReLU input takes K3
+    (``cnn_lrp.conv_rule``), which shares an x of batch 1 but reads any
+    other per row; every other conv ``lrp_conv_alpha_beta``'s arithmetic
+    with each image's z computed once for its seeds (a signed x splits:
+    x+ with W+, x- with W-)."""
+    B, W = r.shape[:2]
+    rows = r.flatten(0, 1)
+    if nonneg and stride == 1 and padding == "SAME" and kernel.shape[0] == 3:
+        return conv_rule(rows, x if B == 1 else _per_seed(x, W), kernel,
+                         None).unflatten(0, (B, W))
+    kp = kernel * (kernel >= 0)
+    xp = x if nonneg else torch.clamp(x, min=0)
+    z = conv2d(xp, kp, stride, padding)
+    if not nonneg:
+        kn, xn = kernel * (kernel < 0), torch.clamp(x, max=0)
+        z = z + conv2d(xn, kn, stride, padding)
+    s = safe_divide(r, z.unsqueeze(1), EPS_KERAS).flatten(0, 1)
+
+    def back(k, xs):
+        vjp = conv2d_input_vjp(x.shape, k, s, stride, padding)
+        return xs.unsqueeze(1) * vjp.unflatten(0, (B, W))
+
+    return back(kp, xp) if nonneg else back(kp, xp) + back(kn, xn)
+
+
 def _backward(params, cache, r, depth):
     """PresetA: the BN rule then alpha1beta0 per conv (input post-ReLU but
-    for conv1's), the Add rule per block, WTA on the stem pool."""
+    for conv1's), the Add rule per block, WTA on the stem pool. r (B W, h,
+    w, 2048) holds W seeds for each of the cache's B images, image by
+    image; it is walked as (B, W, ...) against each image's (B, 1, ...)."""
+    B = cache["_stem_pool_in"].shape[0]
+    r = r.unflatten(0, (B, -1))
+    W = r.shape[1]
 
     def rev_conv_bn(name, bn_name, r, stride, padding, nonneg=True):
         c, p = cache[name], params[bn_name]
-        r = lrp_bn(r, c["z"], c["bn"], p["moving_mean"], p["beta"])
-        return conv_rule(r, c["in"], params[name]["kernel"], None, stride, padding, nonneg)
+        r = lrp_bn(r, c["z"].unsqueeze(1), c["bn"].unsqueeze(1), p["moving_mean"], p["beta"])
+        return _a1b0(r, c["in"], params[name]["kernel"], stride, padding, nonneg)
 
     for stage, block, bi, s in _blocks_reversed(depth):
         base, bnn = f"res{stage}{block}_branch", f"bn{stage}{block}_branch"
-        r_branch, r_short = lrp_add(r, list(cache[f"_add_{stage}{block}"]))
+        r_branch, r_short = lrp_add(r, [t.unsqueeze(1) for t in cache[f"_add_{stage}{block}"]])
         r_branch = rev_conv_bn(base + "2c", bnn + "2c", r_branch, 1, "VALID")
         r_branch = rev_conv_bn(base + "2b", bnn + "2b", r_branch, 1, "SAME")
         r_branch = rev_conv_bn(base + "2a", bnn + "2a", r_branch, s, "VALID")
         if bi == 0:
             r_short = rev_conv_bn(base + "1", bnn + "1", r_short, s, "VALID")
         r = r_branch + r_short
-    r = lrp_maxpool_overlapping_wta(r, cache["_stem_pool_in"], 3, 2)
-    return _crop(rev_conv_bn("conv1", "bn_conv1", r, 2, "VALID", nonneg=False))
+    pool_in = cache["_stem_pool_in"]
+    r = lrp_maxpool_overlapping_wta(r.flatten(0, 1), pool_in if B == 1 else _per_seed(pool_in, W),
+                                    3, 2)
+    r = rev_conv_bn("conv1", "bn_conv1", r.unflatten(0, (B, W)), 2, "VALID", nonneg=False)
+    return _crop(r.flatten(0, 1))
 
 
 def _backward_deep_taylor(params, cache, r, depth):
@@ -157,32 +210,43 @@ def _backward_deeplift(params, cache, cache_ref, r, depth, approximate=True):
     return _crop(rev_unit(r, "conv1", "bn_conv1", 2, "VALID"))
 
 
+def _walk_forward(params, image, depth):
+    with annotate("lrpic.resnet_walk.forward"):
+        return _forward_cached(params, image, depth)[1]
+
+
 def resnet_lrp_preset_a(params, image, relevance_seed, depth: str = "resnet50"):
     """PresetA LRP from the last block's ReLU back to the image, one seed
     per image: image (B, H, W, 3), seed (B, H/32, W/32, 2048) -> (B, H, W, 3)."""
-    _, cache = _forward_cached(params, image, depth)
-    return _backward(params, cache, relevance_seed, depth)
+    cache = _walk_forward(params, image, depth)
+    with annotate("lrpic.resnet_walk.rules"):
+        return _backward(params, cache, relevance_seed, depth)
 
 
 def resnet_lrp_wordbatched(params, image, relevance_seeds, depth: str = "resnet50"):
-    """Per-word LRP sharing one forward: image (1, H, W, 3), seeds
-    (W, H/32, W/32, 2048) -> (W, H, W, 3)."""
-    _, cache = _forward_cached(params, image, depth)
-    return _backward(params, cache, relevance_seeds, depth)
+    """Per-word LRP sharing one forward: image (B, H, W, 3), seeds
+    (B W, H/32, W/32, 2048), the W seeds of each image in turn ->
+    (B W, H, W, 3); one image (B = 1) against its W words in the Explainer,
+    a batch in the fine-tune's ``lrp_weights``."""
+    cache = _walk_forward(params, image, depth)
+    with annotate("lrpic.resnet_walk.rules"):
+        return _backward(params, cache, relevance_seeds, depth)
 
 
 def resnet_deep_taylor_wordbatched(params, image, relevance_seeds, depth: str = "resnet50"):
     """Per-word DeepTaylor sharing one forward; each seed through a ReLU
     first (the reference's positive-output preparation, deeptaylor.py:144-153)."""
-    _, cache = _forward_cached(params, image, depth)
-    return _backward_deep_taylor(params, cache, torch.relu(relevance_seeds), depth)
+    cache = _walk_forward(params, image, depth)
+    with annotate("lrpic.resnet_walk.rules"):
+        return _backward_deep_taylor(params, cache, torch.relu(relevance_seeds), depth)
 
 
 def resnet_deeplift_wordbatched(params, image, relevance_seeds, depth: str = "resnet50",
                                 reference_inputs=0.0, approximate_gradient: bool = True):
     """Per-word DeepLIFT sharing one actual and one reference forward
     (``reference_inputs`` a scalar or an image, default 0, deeplift.py:123)."""
-    _, cache = _forward_cached(params, image, depth)
-    _, cache_ref = _forward_cached(params, reference_image(image, reference_inputs), depth)
-    return _backward_deeplift(params, cache, cache_ref, relevance_seeds, depth,
-                              approximate_gradient)
+    cache = _walk_forward(params, image, depth)
+    cache_ref = _walk_forward(params, reference_image(image, reference_inputs), depth)
+    with annotate("lrpic.resnet_walk.rules"):
+        return _backward_deeplift(params, cache, cache_ref, relevance_seeds, depth,
+                                  approximate_gradient)

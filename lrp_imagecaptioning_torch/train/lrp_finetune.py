@@ -15,7 +15,14 @@ One step, per batch:
    dropout, and one clipped Adam step on its gradient.
 
 The decoder LRP runs on (image x word) rows in one pass; the CNN LRP runs
-per image, all its words against one shared forward.
+per image, all its words against one shared forward: VGG16/19's PresetA
+walk image by image, or ResNet-50/101's (``explain/resnet_lrp.py``) over
+the whole batch in one walk, by ``cfg.img_encoder``.
+
+On the card the step records a CUDA event at each phase boundary, in the
+captured step too (``PhaseMarks``): ``step.marks.ms()`` (and the K-step
+call's ``multi.phase_ms()``) gives the last step's device ms a phase, read
+once that step has ended.
 
 Over a mesh (``make_sharded_lrp_finetune_step``, ``LRPFinetuner(mesh=)``)
 each data slot predicts and weighs its own rows (the weights are per image
@@ -35,6 +42,7 @@ from ..data.prefetch import prefetch
 from ..explain.aoa_backward import explain_word_aoa
 from ..explain.cnn_lrp import vgg_lrp_preset_a_wordbatched
 from ..explain.decoder_lrp import explain_word_adaptive, explain_word_gridtd
+from ..explain.resnet_lrp import resnet_lrp_wordbatched
 from ..models.captioner import masked_accuracy, masked_accuracy_counts, masked_ce_from_logits
 from ..parallel.mesh import batch_sharding, stacked_batch_sharding
 from ..runtime import resolve_device
@@ -68,6 +76,59 @@ def stop_word_table(caption_pp) -> np.ndarray:
     return table
 
 
+CNN_WALKS = ("vgg16", "vgg19", "resnet50", "resnet101")
+
+
+def cnn_walk(cfg):
+    """``walk(encoder params, images (B, H, W, 3), seeds (B, W, h, w, C)) ->
+    (B, W, H, W)``: the channel mean of the f32 PresetA map of each image's
+    word seeds, by ``cfg.img_encoder``. VGG16/19 walk image by image, one
+    forward an image. ResNet-50/101 walk the whole batch at once, one
+    forward for the batch: the residual walk launches thousands of kernels,
+    and a walk an image would put twenty times as many into each step.
+    ``ValueError`` for an encoder without a walk (InceptionV3)."""
+    enc = cfg.img_encoder
+    if enc in ("vgg16", "vgg19"):
+        return lambda p, images, seeds: torch.stack([
+            vgg_lrp_preset_a_wordbatched(p, images[b:b + 1], seeds[b], enc,
+                                         cfg.layer_name).mean(dim=-1)
+            for b in range(images.shape[0])])
+    if enc in ("resnet50", "resnet101"):
+        return lambda p, images, seeds: resnet_lrp_wordbatched(
+            p, images, seeds.flatten(0, 1), enc).mean(dim=-1).unflatten(0, seeds.shape[:2])
+    raise ValueError(f"LRP-inference fine-tuning has no CNN LRP walk for the encoder {enc!r}; "
+                     f"it runs on {', '.join(CNN_WALKS)}")
+
+
+class PhaseMarks:
+    """CUDA events at the fine-tune step's phase boundaries: before predict,
+    after it, after ``lrp_weights`` and after the update. Each is recorded
+    with ``external=True``, so that a captured step holds its records as
+    graph nodes and every replay records them again. ``ms()`` gives the
+    device ms of each phase of the step that recorded them last (None on
+    the CPU or before any step); it waits for nothing, so read it only once
+    that step has ended."""
+
+    PHASES = ("predict", "lrp_weights", "update")
+
+    def __init__(self):
+        self.events = None
+
+    def record(self, i: int, like: torch.Tensor) -> None:
+        if like.device.type != "cuda":
+            return
+        if self.events is None:
+            self.events = [torch.cuda.Event(enable_timing=True, external=True)
+                           for _ in range(len(self.PHASES) + 1)]
+        self.events[i].record()
+
+    def ms(self) -> dict | None:
+        if self.events is None:
+            return None
+        e = self.events
+        return {p: e[i].elapsed_time(e[i + 1]) for i, p in enumerate(self.PHASES)}
+
+
 def _project(hp: torch.Tensor) -> torch.Tensor:
     """Each map (W, ...) over its max |x|; an all-zero map stays 0."""
     absmax = hp.abs().flatten(1).amax(dim=1).reshape(-1, *([1] * (hp.dim() - 1)))
@@ -96,13 +157,15 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
     images: (B, H, W, 3) preprocessed; y_pred_logits: (B, T, V) teacher-forced
     predictions; stop_table: (V + 1,) bool (True = stop word), an array or
     a tensor (one on the images' device is used as it is). The CNN LRP
-    is VGG's (vgg16 or vgg19), as in the JAX package.
+    is the encoder's PresetA walk (``cnn_walk``: VGG16/19, as in the JAX
+    package, or ResNet-50/101); another encoder raises ``ValueError``.
 
     ``max_words = W`` explains only the first W valid words of each sample
     (their positions gathered, in time order); a valid word beyond W keeps
     weight 1. Exact against ``None`` (every step) when no sample has more
     than W valid words."""
     cap, cfg = captioner, captioner.cfg
+    walk = cnn_walk(cfg)
     B, T, V = y_pred_logits.shape
     dev = y_pred_logits.device
     caption1 = y_pred_logits.argmax(dim=-1) + 1                          # (B, T) 1-based
@@ -133,11 +196,8 @@ def lrp_weights(captioner, params, images: torch.Tensor, y_pred_logits: torch.Te
 
     g = int(round(math.sqrt(cfg.img_feature_length)))
     seeds = r_feat.reshape(B, pos.shape[1], g, g, cfg.img_feature_dim)
-    scores_w = torch.stack([
-        _score(_project(vgg_lrp_preset_a_wordbatched(
-            params["vgg"], images[b:b + 1], seeds[b], cfg.img_encoder,
-            cfg.layer_name).mean(dim=-1)), mode)
-        for b in range(B)])                                             # (B, W)
+    scores_w = torch.stack([_score(_project(maps), mode)
+                            for maps in walk(params["vgg"], images, seeds)])  # (B, W)
     scores_w = torch.where(pos_valid, scores_w, torch.zeros_like(scores_w))
     # back onto the (B, T) timeline (positions are unique in a row)
     scores = torch.zeros((B, T), dtype=scores_w.dtype, device=dev).scatter_add_(1, pos, scores_w)
@@ -161,9 +221,13 @@ def make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int, eo
     replace the generator's draw). ``step.phases`` holds the three phases
     (``predict``, ``lrp_weights``, ``update``) for timing them apart;
     ``step.dual`` is the dual loss's (loss, metrics, grads) from given
-    masks, the body the K-step call captures. ``donate``:
-    ``train.step.undonated``."""
+    masks, the body the K-step call captures; ``step.marks`` the
+    ``PhaseMarks`` that it and the step record. ``donate``:
+    ``train.step.undonated``. ``ValueError`` at once for an encoder
+    without a CNN LRP walk (``cnn_walk``)."""
+    cnn_walk(captioner.cfg)
     stop_cpu = torch.as_tensor(np.asarray(stop_table), dtype=torch.bool)
+    marks = PhaseMarks()
     stops = {}   # the stop table on each device, copied there once (no copy a step)
 
     @torch.no_grad()
@@ -185,7 +249,11 @@ def make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int, eo
         return loss_value, {"accuracy": masked_accuracy(logits, y_onehot)}, grads
 
     def dual(params, images, captions_in, y_onehot, masks, generator=None):
-        w = weights(params, images, predict(params, images, captions_in))
+        marks.record(0, images)
+        y_pred = predict(params, images, captions_in)
+        marks.record(1, images)
+        w = weights(params, images, y_pred)
+        marks.record(2, images)
         return weighted(params, images, captions_in, y_onehot, w, generator, masks)
 
     def applied(params, opt_state, loss, metrics, grads):
@@ -197,11 +265,14 @@ def make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: int, eo
                        *weighted(params, images, captions_in, y_onehot, w, generator))
 
     def step(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
-        return applied(params, opt_state,
-                       *dual(params, images, captions_in, y_onehot, masks, generator))
+        out = applied(params, opt_state,
+                      *dual(params, images, captions_in, y_onehot, masks, generator))
+        marks.record(3, images)
+        return out
 
     step.phases = {"predict": predict, "lrp_weights": weights, "update": update}
     step.dual = dual
+    step.marks = marks
     return undonated(step, donate)
 
 
@@ -215,12 +286,21 @@ def make_multi_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: i
     ``make_lrp_finetune_step`` steps (each step's ``lrp_weights`` reads the
     params the step before wrote). On the card each step is the replay of
     one captured step (predict -> ``lrp_weights`` -> update); on the CPU the
-    call is the loop of single steps."""
+    call is the loop of single steps. ``multi.phase_ms()`` is the last
+    step's device ms a phase (``PhaseMarks.ms``), read once the call has
+    ended."""
     from ..graphs import StepGraph
 
     single = make_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based, eos_1based,
                                     mode, max_words=max_words)
-    graph = StepGraph(graph_body(optimizer, single.dual), optimizer)
+    body = graph_body(optimizer, single.dual)
+
+    def marked(params, mu, nu, scalars, *batch_and_masks):
+        out = body(params, mu, nu, scalars, *batch_and_masks)
+        single.marks.record(3, scalars)
+        return out
+
+    graph = StepGraph(marked, optimizer)
 
     def multi(params, opt_state, images, captions_in, y_onehot, generator, masks=None):
         stacks = (images, captions_in, y_onehot)
@@ -231,6 +311,7 @@ def make_multi_lrp_finetune_step(captioner, optimizer, stop_table, sos_1based: i
         return graph(params, opt_state, stacks, masks)
 
     multi.graph = graph
+    multi.phase_ms = single.marks.ms
     return undonated(multi, donate)
 
 
